@@ -5,16 +5,25 @@
 
 Phases, each reported on its own line:
 
-1. build the port's CUDA kernel from ``csrc/`` with nvcc;
-2. hold the kernel against its plain PyTorch version on the card at the
-   deploy path's shapes (N=768, E=15360, D=De=D2=64, H=128, plus a ragged
-   E) and time both with CUDA events;
-3. drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the shipped
-   widths with random weights from a seeded ``torch.Generator`` — over
-   synthetic frames at the default capacities, count the kernel's launches,
-   and compare logits and decisions with the same detector on the CPU (which
-   runs the plain version);
-4. print the kernel table as JSON and the card's name and power limit.
+1. [build] build the port's CUDA kernels from ``csrc/`` with nvcc (one
+   library holds the fused round's forward and backward);
+2. [kernel] hold the forward kernel against its plain PyTorch version on the
+   card at the main path's shapes (N=768, E=15360, D=De=D2=64, H=128, plus a
+   ragged E) and time both with CUDA events;
+3. [kernel-bwd] the same for the backward kernel (all 11 outputs), and
+   autograd through ``fused_message_pass`` on the card against the same on
+   CPU tensors;
+4. [deploy] drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the
+   shipped widths with random weights from a seeded ``torch.Generator`` —
+   over synthetic frames at the default capacities, count the forward
+   kernel's launches, and compare logits and decisions with the same
+   detector on the CPU (which runs the plain version);
+5. [train] drive the training path — ``trainer.train`` with
+   ``GNNConfig()`` at batch 8 on synthetic batches — count both kernels'
+   launches, replay the same steps on the CPU and compare metrics and
+   params, check the NaN skip on a poisoned batch, time a step and profile
+   one;
+6. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -40,8 +49,20 @@ PEAK_BYTES_PER_S = 3.35e12
 
 N, E, D, DE, H, D2 = 768, 15360, 64, 64, 128, 64
 RTOL, ATOL = 2e-4, 2e-5              # kernel vs plain (atomics reorder sums)
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5    # tests/test_pallas.py's gradient check
 DEPLOY_RTOL, DEPLOY_ATOL = 1e-3, 1e-4  # 7 rounds of card vs CPU arithmetic
+METRIC_RTOL, METRIC_ATOL = 1e-3, 1e-4  # train metrics, card vs CPU
+PARAM_RTOL, PARAM_ATOL = 1e-3, 1e-5    # params after the train steps
 NUM_FRAMES = 8
+TRAIN_STEPS = 3        # steps through trainer.train, replayed on the CPU
+TIMED_STEPS = 7        # 2 warm-up + 5 timed
+# Cotangent scale of the backward check: a train step hands a round dL/dagg
+# of this order (the loss is a mean over ~10^3 nodes).
+G_SCALE = 1e-2
+# Backward checks drop edges whose leaky-ReLU inputs lie within this of 0:
+# there the derivative jumps, and two summation orders may fall on either
+# side of the kink.
+KINK = 1e-4
 
 
 def log(msg: str) -> None:
@@ -150,6 +171,135 @@ def phase_kernel(torch, FM):
     }
 
 
+def drop_kink_edges(torch, args):
+    """The problem with every edge whose leaky-ReLU inputs (either layer,
+    recomputed in float64) lie within KINK of 0 dropped (receiver := N)."""
+    x, ef, s, r, w1, b1, w2, b2 = [a.double() for a in args[:8]]
+    g1, be1, g2, be2 = [float(v) for v in args[8:]]
+    n, d = x.shape
+    s, r = s.long(), r.long()
+    zero = x.new_zeros(1, w1.shape[1])
+    xa = torch.cat([x @ w1[:d], zero])
+    xb = torch.cat([x @ w1[d:2 * d], zero])
+    ri = torch.where((r >= 0) & (r < n), r, n)
+    si = torch.where((s >= 0) & (s < n), s, n)
+
+    def norm(v, g, b):
+        u = v - v.mean(-1, keepdim=True)
+        sd = (u.square().sum(-1, keepdim=True) / (v.shape[-1] - 1)).sqrt()
+        return g * u / (sd + 1e-5) + b
+
+    h1 = norm(xa[ri] + xb[si] + ef @ w1[2 * d:] + b1, g1, be1)
+    h2 = norm(torch.where(h1 >= 0, h1, 0.01 * h1) @ w2 + b2, g2, be2)
+    kink = (h1.abs() < KINK).any(-1) | (h2.abs() < KINK).any(-1)
+    receivers = args[3].clone()
+    receivers[kink] = n
+    return args[:3] + [receivers] + args[4:], int(kink.sum())
+
+
+def phase_kernel_bwd(torch, FM):
+    """Phase 3: backward kernel vs plain version, autograd on the card vs
+    the CPU, and timing; returns the backward kernel's table row."""
+    rng = np.random.default_rng(2)
+    names = ("gef dxa dxb dw1e db1 dw2 db2 dg1 dbe1 dg2 dbe2").split()
+    max_err = 0.0
+    # A frame-like padded tail, and a ragged E with one-sided sentinels.
+    for e_valid, e_total, mixed in ((9216, E, False), (E - 3, E - 3, True)):
+        args = kernel_problem(torch, rng, e_valid, e_total)
+        if mixed:
+            for i in (2, 3):
+                args[i][torch.from_numpy(rng.random(e_total) < 0.05).cuda()] = N
+        args, dropped = drop_kink_edges(torch, args)
+        g = torch.from_numpy(
+            (G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
+        got = FM.fused_message_pass_backward(*args, g)
+        torch.cuda.synchronize()
+        want = FM.fused_message_pass_backward_reference(*args, g)
+        worst = {}
+        for name, a, b in zip(names, got, want):
+            err = (a - b).abs()
+            bad = int((err > GRAD_ATOL + GRAD_RTOL * b.abs()).sum())
+            worst[name] = float(err.max())
+            max_err = max(max_err, worst[name])
+            if bad or not torch.isfinite(a).all():
+                raise AssertionError(
+                    f"fused_message_pass_backward: {name} disagrees with its "
+                    f"plain version at {bad} elements")
+        log(f"[kernel-bwd] E={e_total} valid={e_valid} mixed={mixed} "
+            f"kink edges dropped={dropped}: all 11 outputs within rtol="
+            f"{GRAD_RTOL} atol={GRAD_ATOL}; max abs err {json.dumps(worst)}")
+
+    # Autograd through the Function: the card (kernels) against CPU tensors
+    # (plain versions), on the last problem.
+    def grads(device):
+        leaves = [a.to(device).clone().requires_grad_()
+                  for a in (args[0], args[1], args[4], args[5], args[6],
+                            args[7], *args[8:])]
+        x, ef, w1, b1, w2, b2, *sc = leaves
+        out = FM.fused_message_pass(x, ef, args[2].to(device),
+                                    args[3].to(device), w1, b1, w2, b2, *sc)
+        return torch.autograd.grad(out, leaves, g.to(device))
+
+    worst = 0.0
+    for a, b in zip(grads("cuda"), grads("cpu")):
+        err = (a.cpu() - b).abs()
+        worst = max(worst, float(err.max()))
+        if (err > GRAD_ATOL + GRAD_RTOL * b.abs()).any():
+            raise AssertionError("autograd through fused_message_pass: card vs CPU")
+    log(f"[kernel-bwd] autograd (x, ef, w1, b1, w2, b2, 4 norm scalars) card "
+        f"vs CPU: max abs err {worst:.3e} (rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
+
+    # Timing at the main path's shapes with a frame-like padded tail.
+    args = kernel_problem(torch, rng, 9216, E)
+    g = torch.from_numpy((G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
+    x, ef, s, r, w1, b1, w2, b2 = args[:8]
+    xa, xb = x @ w1[:D], x @ w1[D:2 * D]
+    w1e = w1[2 * D:]
+    w1e_t, w2_t = w1e.t().contiguous(), w2.t().contiguous()
+    scal = torch.cat(args[8:])
+    outs = [torch.zeros(sh, device="cuda") for sh in
+            ((E, DE), (N, H), (N, H), (DE, H), (H,), (H, D2), (D2,), (4,))]
+    fn = FM._bwd_kernel()
+    raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(),
+           r.data_ptr(), w1e.data_ptr(), w1e_t.data_ptr(), b1.data_ptr(),
+           w2.data_ptr(), w2_t.data_ptr(), b2.data_ptr(), scal.data_ptr(),
+           g.data_ptr(), 0.01, *[o.data_ptr() for o in outs], N, E, DE, H, D2,
+           torch.cuda.current_stream().cuda_stream)
+    kernel_ms = event_ms(torch, lambda: fn(*raw))
+    wrapper_ms = event_ms(torch, lambda: FM.fused_message_pass_backward(*args, g))
+    plain_ms = event_ms(torch, lambda: FM.fused_message_pass_backward_reference(*args, g))
+
+    # Least time on these inputs: three times the forward's f32 FMAs for
+    # each edge whose receiver is in range (forward recompute, two products
+    # for the weight gradients, two for the input cotangents), and each
+    # input read / output written once.
+    e_live = int(((r >= 0) & (r < N)).sum())
+    flops = 2 * 3 * e_live * (DE * H + H * D2)
+    n_in = 2 * N * H + E * DE + 2 * E + DE * H + H + H * D2 + D2 + 4 + N * D2
+    n_out = E * DE + 2 * N * H + DE * H + H + H * D2 + D2 + 4
+    nbytes = 4 * (n_in + n_out)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    log(f"[kernel-bwd] timing E={E} live={e_live}: kernel {kernel_ms * 1e3:.2f} us, "
+        f"wrapper (xa/xb matmuls, transposes, zeroing + kernel) "
+        f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
+        f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB)")
+    return {
+        "name": "fused_message_pass_backward",
+        "route": "cuda",
+        "source": "graph_neural_network_for_radar_perception_torch/csrc/fused_mp.cu",
+        "replaces": "graph_neural_network_for_radar_perception_tpu/ops/pallas/fused_mp.py:228",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "wrapper_ms": wrapper_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
 def _components(adj: np.ndarray) -> np.ndarray:
     """Component label (minimum member index) per node of a boolean graph."""
     n = adj.shape[0]
@@ -223,41 +373,50 @@ def compare_decisions(gpu, cpu, node_logits, obj_logits, eps: float) -> dict:
     return report
 
 
-def profile_deploy(torch, model, graph) -> dict:
-    """One deploy forward under torch.profiler: device kernels launched,
-    device busy time (union of kernel intervals), host wall time, and the
-    kernels that take the most device time."""
+def profile_run(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler, after a warm call: device
+    kernels launched, device busy time (union of kernel intervals), host
+    wall time, and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        model.deploy(graph)  # warm
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.deploy(graph)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # The train step's named ranges also appear on the device timeline as
+    # annotations spanning their kernels: not kernels, so left out.
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith("train_step.")
     )
-    busy, end, by_name = 0.0, float("-inf"), {}
+    ranges = {}  # host time of the train step's named parts
+    for e in prof.events():
+        if e.name.startswith("train_step.") and e.device_type != torch.autograd.DeviceType.CUDA:
+            ranges[e.name] = ranges.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy, end, by_name, count = 0.0, float("-inf"), {}, {}
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        count[name] = count.get(name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
         "wall_ms": wall_us / 1e3,
         "device_kernels": len(spans),
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
-        "top_kernels_ms": {name[:60]: t / 1e3 for name, t in top},
+        "top_kernels_ms_launches": {name[:60]: [t / 1e3, count[name]]
+                                    for name, t in top},
+        **({"host_ms_by_part": ranges} if ranges else {}),
     }
 
 
 def phase_deploy(torch, FM):
-    """Phase 3: the deploy path on the card, against the CPU."""
+    """Phase 4: the deploy path on the card, against the CPU."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
     from graph_neural_network_for_radar_perception_torch.data.pipeline import pad_frame, preprocess_frame
@@ -335,11 +494,115 @@ def phase_deploy(torch, FM):
         f"(rtol={DEPLOY_RTOL}, atol={DEPLOY_ATOL})")
     log(f"[deploy] RadarGNN.deploy forward alone on the card: ms/frame median "
         f"{np.median(deploy_ms):.3f} (min {min(deploy_ms):.3f}, max {max(deploy_ms):.3f})")
-    prof = profile_deploy(torch, det_gpu.model, graph)
+    with torch.no_grad():
+        prof = profile_run(torch, lambda: det_gpu.model.deploy(graph))
     log(f"[deploy] profile of one deploy forward (last frame): {json.dumps(prof)}")
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
     return launches
+
+
+def _poisoned(batch):
+    import dataclasses
+
+    node_feat = batch.graph.node_feat.copy()
+    node_feat[0, 0, 0] = np.nan
+    return dataclasses.replace(
+        batch, graph=dataclasses.replace(batch.graph, node_feat=node_feat))
+
+
+def phase_train(torch, FM):
+    """Phase 5: the training path on the card, against a CPU replay."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train.trainer import TrainHooks, train
+
+    cfg = GNNConfig()  # shipped widths, batch_size 8, SGD defaults
+    rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
+    gen = SyntheticRadarDataset(cfg, seed=3, num_objects=(6, 10)).batches(bsz)
+    batches = [next(gen) for _ in range(TRAIN_STEPS)]
+    live = [int(b.graph.edge_mask.sum()) for b in batches]
+    log(f"[train] GNNConfig() batch {bsz}, {TRAIN_STEPS} steps; live edges per "
+        f"batch {live} of {bsz * cfg.max_edges}")
+
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+    step, card_metrics = S.make_train_step(cfg), []
+
+    def recording_step(st, batch):
+        st, m = step(st, batch)
+        card_metrics.append({k: float(v) for k, v in m.items()})
+        return st, m
+
+    FM.fused_message_pass.launches = 0
+    FM.fused_message_pass_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train(cfg, iter(batches), state=state, train_step=recording_step,
+                  max_iters=TRAIN_STEPS,
+                  hooks=TrainHooks(log_period=1, val_period=10**9, print_fn=log))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
+    want = rounds * bsz * TRAIN_STEPS
+    log(f"[train] trainer.train on the card: launches forward={fwd} backward={bwd} "
+        f"(expected {rounds} x {bsz} x {TRAIN_STEPS} = {want}), skipped="
+        f"{[m['skipped'] for m in card_metrics]}, {wall:.2f} s incl. first-call set-up")
+    if fwd != want or bwd != want or any(m["skipped"] for m in card_metrics):
+        raise AssertionError("the train path did not run both kernels once per round and graph")
+
+    t0 = time.perf_counter()
+    cpu = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu_step = S.make_train_step(cfg)
+    worst = {}
+    for i, batch in enumerate(batches):
+        cpu, m = cpu_step(cpu, batch)
+        for k, v in m.items():
+            err = abs(card_metrics[i][k] - float(v))
+            worst[k] = max(worst.get(k, 0.0), err)
+            if err > METRIC_ATOL + METRIC_RTOL * abs(float(v)):
+                raise AssertionError(f"step {i}: metric {k} card {card_metrics[i][k]} cpu {float(v)}")
+    log(f"[train] CPU replay at batch {bsz}, {TRAIN_STEPS} steps, full width "
+        f"({time.perf_counter() - t0:.1f} s): metrics within rtol={METRIC_RTOL} "
+        f"atol={METRIC_ATOL}, max abs err {json.dumps(worst)}")
+    perr, cpu_params = 0.0, cpu.model.state_dict()
+    for k, v in state.model.state_dict().items():
+        err = (v.cpu() - cpu_params[k]).abs()
+        perr = max(perr, float(err.max()))
+        if (err > PARAM_ATOL + PARAM_RTOL * cpu_params[k].abs()).any():
+            raise AssertionError(f"params {k} differ after {TRAIN_STEPS} steps")
+    log(f"[train] params after {TRAIN_STEPS} steps: card vs CPU max abs err "
+        f"{perr:.3e} (rtol={PARAM_RTOL}, atol={PARAM_ATOL}); loss "
+        f"{card_metrics[0]['loss_total']:.4f} -> {card_metrics[-1]['loss_total']:.4f}")
+
+    params = {k: v.clone() for k, v in state.model.state_dict().items()}
+    moments = [s["momentum_buffer"].clone() for s in state.optimizer.state.values()]
+    updates = state.updates
+    state, m = step(state, _poisoned(batches[0]))
+    same = (all(torch.equal(v, params[k]) for k, v in state.model.state_dict().items())
+            and all(torch.equal(s["momentum_buffer"], b) for s, b in
+                    zip(state.optimizer.state.values(), moments)))
+    log(f"[train] NaN-poisoned batch: skipped={float(m['skipped'])}, params and "
+        f"momentum bit-identical={same}, updates {updates} -> {state.updates}")
+    if float(m["skipped"]) != 1.0 or not same or state.updates != updates:
+        raise AssertionError("the NaN skip changed the state")
+
+    step_ms = []
+    for i in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    timed = step_ms[2:]
+    log(f"[train] ms/step (numpy batch in, synchronised; median of {len(timed)} "
+        f"after 2 warm-up): {np.median(timed):.3f} (min {min(timed):.3f}, max "
+        f"{max(timed):.3f})")
+    prof = profile_run(torch, lambda: step(state, batches[0]))
+    log(f"[train] profile of one train step: {json.dumps(prof)}")
+    if not prof["device_kernels"]:
+        raise AssertionError("the profiler saw no kernel on the card")
+    return fwd, bwd
 
 
 def main() -> int:
@@ -360,11 +623,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = _build.build("fused_mp")
-    log(f"[build] fused_mp: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, REPO)}")
+    FM._kernel(), FM._bwd_kernel()  # both entry points of the one library
+    log(f"[build] fused_mp (fused_mp_forward, fused_mp_backward): "
+        f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, REPO)}")
 
-    row = phase_kernel(torch, FM)
-    row["launches"] = phase_deploy(torch, FM)
-    log(json.dumps({"kernels": [row]}))
+    fwd_row = phase_kernel(torch, FM)
+    bwd_row = phase_kernel_bwd(torch, FM)
+    deploy_launches = phase_deploy(torch, FM)
+    train_fwd, train_bwd = phase_train(torch, FM)
+    fwd_row["launches"] = deploy_launches + train_fwd
+    fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd}
+    bwd_row["launches"] = train_bwd
+    bwd_row["launches_by_path"] = {"train": train_bwd}
+    log(json.dumps({"kernels": [fwd_row, bwd_row]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

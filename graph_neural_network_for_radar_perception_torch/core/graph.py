@@ -23,6 +23,18 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    (the port's entry points do not fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: CUDA is not available; pass "
+            "device='cpu' to run the plain versions"
+        )
+    return device
+
+
 class _TensorStruct:
     """Field-wise conversions shared by the containers below."""
 
@@ -39,6 +51,12 @@ class _TensorStruct:
         return type(self)(**{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
+        })
+
+    def at(self, i):
+        """Item ``i`` of a stacked batch: every field indexed on axis 0."""
+        return type(self)(**{
+            f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)
         })
 
 
@@ -141,4 +159,12 @@ class GraphBatch:
         return GraphBatch(
             graph=self.graph.to(device),
             labels=None if self.labels is None else self.labels.to(device),
+        )
+
+    def at(self, i):
+        """Item ``i`` along the leading axis (a graph of the batch, or a
+        batch of batches stacked on a further leading axis)."""
+        return GraphBatch(
+            graph=self.graph.at(i),
+            labels=None if self.labels is None else self.labels.at(i),
         )

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config.config import GNNConfig
-from ..core.graph import RadarGraph
+from ..core.graph import RadarGraph, resolve_device
 from ..data.labels import ID_FALSE
 from ..data.pipeline import FrameArrays, pad_frame, preprocess_frame
 from ..models.gnn import RadarGNN
@@ -74,12 +74,7 @@ class FrameDetector:
         use_object_head: bool = True,
         device="cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type != "cpu" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"FrameDetector(device={str(device)!r}): CUDA is not "
-                "available; pass device='cpu' to run the plain version"
-            )
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.eps = eps
         self.from_links = from_links

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel on a card, against its plain PyTorch version.
+"""The port's CUDA kernels on a card, against their plain PyTorch versions,
+and the training step on the card against the same on the CPU.
 
 Imports nothing of JAX, so that it runs on a machine without it:
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import drop_kink_edges
 from graph_neural_network_for_radar_perception_torch.config.config import (
     tiny_test_config,
 )
@@ -20,6 +22,7 @@ from graph_neural_network_for_radar_perception_torch.data.pipeline import (
 )
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+from graph_neural_network_for_radar_perception_torch.train import steps as S
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +90,68 @@ def test_deploy_on_card_matches_cpu(cuda_device):
                                    rtol=1e-3, atol=1e-4, err_msg=name)
     np.testing.assert_array_equal(got.node2cluster.cpu().numpy(),
                                   want.node2cluster.numpy())
+
+
+@pytest.mark.parametrize("shape", [
+    dict(n=768, e=15360, d=64, de=64, h=128, d2=64),   # main-path shapes
+    dict(n=768, e=15357, d=64, de=64, h=128, d2=64),   # ragged E
+    dict(n=64, e=300, d=16, de=16, h=32, d2=16),       # tiny_test_config
+], ids=["main", "ragged", "tiny"])
+def test_backward_kernel_matches_plain(cuda_device, shape):
+    """All 11 outputs at the JAX package's gradient tolerance, with a
+    cotangent of a train step's scale (1e-2)."""
+    # Edges at a leaky-ReLU kink may fall on either side in two summation
+    # orders: dropped, as chip_smoke.py drops them.
+    args, _ = drop_kink_edges(torch, _problem(1, device=cuda_device, **shape))
+    g = torch.from_numpy((1e-2 * np.random.default_rng(2).normal(
+        size=(shape["n"], shape["d2"]))).astype(np.float32)).to(cuda_device)
+    before = FM.fused_message_pass_backward.launches
+    got = FM.fused_message_pass_backward(*args, g, 0.01)
+    torch.cuda.synchronize()
+    assert FM.fused_message_pass_backward.launches == before + 1
+    want = FM.fused_message_pass_backward_reference(*args, g, 0.01)
+    names = "gef dxa dxb dw1e db1 dw2 db2 dg1 dbe1 dg2 dbe2".split()
+    for name, a, b in zip(names, got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=5e-4, atol=5e-5, err_msg=name)
+
+
+def _tiny_batch(cfg, seed=1):
+    return next(SyntheticRadarDataset(cfg, seed=seed, num_objects=3).batches(cfg.batch_size))
+
+
+def test_model_gradients_on_card_match_cpu(cuda_device):
+    """Every parameter's gradient (the message MLPs and the edge encoder
+    included: the rounds are differentiable through the kernels)."""
+    cfg = tiny_test_config()
+    batch = _tiny_batch(cfg)
+    grads = {}
+    for device in ("cpu", cuda_device):
+        st = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+        before = (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches)
+        loss, _ = S.make_loss_fn(cfg)(st.model, S.batch_on(batch, device))
+        loss.backward()
+        after = (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches)
+        grads[str(device)] = {k: p.grad.cpu().numpy() for k, p in st.model.named_parameters()}
+    rounds = len(cfg.graph_convolution_stem_channels) * cfg.batch_size
+    assert after == (before[0] + rounds, before[1] + rounds)
+    for k, want in grads["cpu"].items():
+        np.testing.assert_allclose(grads["cuda"][k], want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=k)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    cfg = tiny_test_config()
+    batch = _tiny_batch(cfg, seed=4)
+    out = {}
+    for device in ("cpu", cuda_device):
+        st = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+        st, m = S.make_train_step(cfg)(st, batch)
+        out[str(device)] = (st.model.state_dict(), {k: float(v) for k, v in m.items()})
+    (p_gpu, m_gpu), (p_cpu, m_cpu) = out["cuda"], out["cpu"]
+    assert m_gpu["skipped"] == 0.0
+    for k, v in m_cpu.items():
+        np.testing.assert_allclose(m_gpu[k], v, rtol=1e-3, atol=1e-4, err_msg=k)
+    for k, v in p_cpu.items():
+        np.testing.assert_allclose(p_gpu[k].cpu().numpy(), v.numpy(),
+                                   rtol=1e-3, atol=1e-5, err_msg=k)

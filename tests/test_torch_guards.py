@@ -1,6 +1,7 @@
 """Guards on the PyTorch port: it imports nothing of JAX or of the JAX
 package, it refuses to fall back to the CPU where the card was asked for,
-and its kernel launches are counted only on the card."""
+its kernel launches are counted only on the card, and the fused round is
+differentiable through its autograd Function on every device."""
 
 import ast
 import pathlib
@@ -18,6 +19,8 @@ from graph_neural_network_for_radar_perception_torch.infer.pipeline import (
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import _build
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+from graph_neural_network_for_radar_perception_torch.train import steps as S
+from graph_neural_network_for_radar_perception_torch.train.trainer import train
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -57,6 +60,12 @@ def test_port_imports_nothing_of_jax(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+def test_import_scan_covers_the_training_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"train/loss.py", "train/steps.py", "train/trainer.py",
+            "utils/metrics_writer.py"} <= names
+
+
 def test_detector_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()
@@ -78,6 +87,86 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         FM._kernel()
     FM._kernel.cache_clear()
+
+
+def test_training_refuses_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        S.create_train_state(cfg)  # default device: the card
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, iter([]), max_iters=1)
+    assert S.create_train_state(cfg, device="cpu").step == 0
+
+
+def test_backward_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing cached
+    _build.load.cache_clear()
+    FM._bwd_kernel.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        FM._bwd_kernel()
+    FM._bwd_kernel.cache_clear()
+
+
+def _tiny_round(rng, requires_grad):
+    n, e, d, h = 16, 40, 8, 32
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    w1 = torch.from_numpy(rng.normal(size=(3 * d, h)).astype(np.float32))
+    x.requires_grad_(requires_grad)
+    return [
+        x, torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, n, e).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, n, e).astype(np.int32)),
+        w1, torch.zeros(h), torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)),
+        torch.zeros(d),
+    ]
+
+
+def test_fused_round_output_has_the_function_as_grad_fn(rng):
+    """The regression test of a CUDA forward that returned a tensor without
+    grad_fn and cut the graph at every round: the output's grad_fn is the
+    Function's backward node whenever an input requires grad, on every
+    device; under no_grad there is none."""
+    out = FM.fused_message_pass(*_tiny_round(rng, True), 1.0, 0.0, 1.0, 0.0)
+    assert isinstance(out.grad_fn, FM._FusedMessagePass._backward_cls)
+    gamma = torch.ones(1, requires_grad=True)
+    out = FM.fused_message_pass(*_tiny_round(rng, False), gamma, 0.0, 1.0, 0.0)
+    assert isinstance(out.grad_fn, FM._FusedMessagePass._backward_cls)
+    with torch.no_grad():
+        assert FM.fused_message_pass(*_tiny_round(rng, True), 1.0, 0.0, 1.0,
+                                     0.0).grad_fn is None
+
+
+def test_cpu_backward_through_the_model_launches_no_kernel():
+    """A CPU train step's backward runs the plain versions: neither launch
+    counter moves, and every message MLP and the edge encoder get a
+    gradient."""
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import (
+        SyntheticRadarDataset,
+    )
+
+    cfg = tiny_test_config()
+    st = S.create_train_state(cfg, device="cpu")
+    batch = next(SyntheticRadarDataset(cfg, seed=0, num_objects=2).batches(2))
+    before = (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches)
+    loss, _ = S.make_loss_fn(cfg)(st.model, S.batch_on(batch, "cpu"))
+    loss.backward()
+    assert (FM.fused_message_pass.launches,
+            FM.fused_message_pass_backward.launches) == before
+    for name, p in st.model.named_parameters():
+        if "msg_mlp" in name or "encode_edge_feat" in name:
+            assert p.grad is not None and p.grad.abs().sum() > 0, name
+
+
+def test_backward_wrapper_rejects_malformed_cotangent(rng):
+    args = [a.detach() for a in _tiny_round(rng, False)]
+    bad = torch.zeros(16, 9)  # D2 is 8
+    with pytest.raises(ValueError):
+        FM.fused_message_pass_backward(*args, 1.0, 0.0, 1.0, 0.0, bad)
+    with pytest.raises(ValueError):
+        FM.fused_message_pass_backward(*args, 1.0, 0.0, 1.0, 0.0,
+                                       torch.zeros(8, 16).t())
 
 
 def test_cpu_calls_launch_no_kernel(rng):
