@@ -18,6 +18,8 @@ import dataclasses
 import math
 from typing import List, Optional, Sequence, Tuple
 
+MP_IMPLS = (None, "onehot", "csr")  # message-pass implementations
+
 
 @dataclasses.dataclass
 class GNNConfig:
@@ -129,24 +131,24 @@ class GNNConfig:
     edge_capacity_factor: float = 2.0
 
     # --- kernel selection ---------------------------------------------------
-    # Message-passing implementation when the fast path is used:
-    # None = auto (models/fast_path.default_mp_impl, measured in
-    # docs/PERF.md), "onehot" | "csr" to force.  When set to "csr",
-    # pad_frame validates the CSR kernel's contract (window span +
-    # reversal closure, ops/pallas/csr_mp.csr_contract_ok) on every frame
-    # and raises instead of letting the kernel silently drop edges.
+    # Message-passing implementation of the shipped configuration's rounds:
+    # None or "onehot" = ops/fused_mp (receiver-indexed, atomic scatter),
+    # "csr" = ops/csr_mp (destination-sorted, segmented sums).  When set to
+    # "csr", pad_frame validates the CSR contract (window span + reversal
+    # closure, ops/csr_mp.csr_contract_ok) on every frame and raises instead
+    # of letting the kernel drop edges.
     mp_impl: Optional[str] = None
-    # CSR kernel tiling — the SAME values feed the kernel (fast_forward)
-    # and the host-side contract validation (pad_frame), so the check and
-    # the kernel can never disagree (ADVICE round 3).
+    # CSR tiling — the same values feed the kernel's window semantics
+    # (models/blocks.GraphConvolution) and the host-side contract
+    # validation (pad_frame), so the check and the kernel agree.
     csr_edge_tile: int = 512
     csr_window: int = 256
-    # Source-side window for the CSR kernel: 0 = unwindowed [TE, N] source
-    # gather; > 0 windows the source gather AND the backward's dx source
-    # scatter to [TE, csr_src_window] — the kernel's last O(E·N·D) term
-    # goes away.  Requires spatially-coherent node ids: set spatial_sort
-    # together with this (pad_frame validates the span, fast_forward
-    # NaN-poisons runtime violations).
+    # Source-side window of the CSR round: 0 = unwindowed source gather;
+    # > 0 cuts each edge tile's sources to a window of csr_src_window node
+    # ids (the TPU kernel's [TE, csr_src_window] one-hot).  Requires
+    # spatially-coherent node ids: set spatial_sort together with this
+    # (pad_frame validates the span, the model NaN-poisons runtime
+    # violations).
     csr_src_window: int = 0
     # Relabel nodes in x-major spatial order at pad_frame time
     # (data/ordering.spatial_sort_frame).  Bounds the index distance of
@@ -165,12 +167,14 @@ class GNNConfig:
 
     def __post_init__(self):
         self.input_node_feat_dim = 6 if self.include_region_confidence else 4
-        # The CSR kernel's window bases carry a pl.multiple_of(·, 8)
-        # promise; misaligned sizes are safe (floor-aligned clip +
-        # poison guard, ops/pallas/csr_mp._layout) but waste window rows
-        # — reject them early where they're a config mistake.  Scoped to
-        # configs that can actually reach the CSR kernel (ADVICE round 4:
-        # onehot/XLA-path configs must stay free to pick any capacity).
+        if self.mp_impl not in MP_IMPLS:
+            raise ValueError(
+                f"mp_impl {self.mp_impl!r}: expected one of {MP_IMPLS}")
+        # The CSR kernel's window bases are multiples of 8; misaligned
+        # sizes are safe (floor-aligned clip + poison guard,
+        # ops/csr_mp._layout) but waste window rows — reject them early
+        # where they're a config mistake.  Scoped to configs that can reach
+        # the CSR kernel: the other paths stay free to pick any capacity.
         if self.mp_impl == "csr" or self.csr_src_window > 0:
             for name in ("max_nodes", "csr_window", "csr_src_window"):
                 if getattr(self, name) % 8:

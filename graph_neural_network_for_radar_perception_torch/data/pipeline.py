@@ -186,10 +186,27 @@ def pad_frame(fr: FrameArrays, cfg: GNNConfig):
         cluster_mask=cluster_mask,
     )
     if cfg.mp_impl == "csr":
-        # The CSR kernel's contract check comes with that kernel's port.
-        raise NotImplementedError(
-            "mp_impl='csr' is not ported yet; use the default message pass"
+        # The CSR round drops out-of-window edges and walks the reversed
+        # edge set — both only correct under its contract.  Fail loudly at
+        # data-build time rather than let training see wrong sums (the
+        # model also NaN-poisons violations on the device).
+        from ..ops.csr_mp import csr_contract_ok
+
+        # src_window >= node capacity clips to the unwindowed gather in the
+        # kernel (ws = N), so only real windows are validated.
+        src_window = (
+            cfg.csr_src_window if cfg.csr_src_window < cfg.max_nodes else 0
         )
+        ok, reason = csr_contract_ok(
+            graph.senders, graph.receivers, graph.edge_mask,
+            edge_tile=cfg.csr_edge_tile, window=cfg.csr_window,
+            src_window=src_window,
+        )
+        if not ok:
+            raise ValueError(
+                f"frame violates the CSR kernel contract ({reason}); use "
+                "mp_impl='onehot' or raise capacities/window"
+            )
     return graph, labels
 
 

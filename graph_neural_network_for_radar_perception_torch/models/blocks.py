@@ -13,9 +13,12 @@ set by ``init_parameters(module, generator)``:
 
 Message passing: m_e = MLP([x_recv ‖ x_send ‖ e]) summed at the receiver,
 then x ← identity + MLP([x ‖ agg]).  For the shipped configuration
-(channel norm, leaky ReLU, sum aggregation) each round goes through
-``ops.fused_mp.fused_message_pass``, the hand-written kernel on a CUDA
-device; other configurations run the plain gather → MLP → segment path.
+(channel norm, leaky ReLU, sum aggregation) each round goes through a
+fused round, the hand-written kernel on a CUDA device:
+``ops.fused_mp.fused_message_pass`` (``mp_impl`` None or "onehot") or
+``ops.csr_mp.fused_message_pass_csr`` ("csr", over the reversed edge
+enumeration; ``RadarGNN.trunk`` reverses the raw edge features).  Other
+configurations run the plain gather → MLP → segment path.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import csr_mp as C
 from ..ops import norms as N
 from ..ops import segment as S
 from ..ops.fused_mp import fused_message_pass
@@ -195,9 +199,15 @@ class ResidualGraphConvBlock(nn.Module):
         self.upd_mlp = MLPStack(in_dim + out_dim, [out_dim], activation,
                                 norm_layer, num_groups)
 
-    def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask):
+    def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
+                csr_layout=None):
         """On the fused path, masked edges must carry the sentinel index N
-        at both ends (``GraphConvolution`` maps them)."""
+        at both ends (``GraphConvolution`` maps them).  With a
+        ``csr_layout`` (the graph's ``ops.csr_mp.csr_layout``, shared by its
+        rounds) the round goes through the CSR pass: position p is the edge
+        (receivers[p] → senders[p]), so dst = senders (sorted), src =
+        receivers, and w1's row order [x_recv ‖ x_send ‖ e] is unchanged
+        (the JAX package's models/fast_path.py)."""
         n = x.shape[0]
         if self.identity is not None:
             identity = self.identity_norm(self.identity(x), node_mask)
@@ -205,13 +215,17 @@ class ResidualGraphConvBlock(nn.Module):
             identity = x
         if self.fused:
             m0, m1 = self.msg_mlp.blocks
-            agg = fused_message_pass(
-                x, edge_feat, senders, receivers,
-                m0.linear.weight.t().contiguous(), m0.linear.bias,
-                m1.linear.weight.t().contiguous(), m1.linear.bias,
-                m0.norm.gamma, m0.norm.beta, m1.norm.gamma, m1.norm.beta,
-                LEAKY_SLOPE,
-            )
+            params = (m0.linear.weight.t().contiguous(), m0.linear.bias,
+                      m1.linear.weight.t().contiguous(), m1.linear.bias,
+                      m0.norm.gamma, m0.norm.beta, m1.norm.gamma,
+                      m1.norm.beta, LEAKY_SLOPE)
+            if csr_layout is not None:
+                agg = C.fused_message_pass_csr(
+                    x, edge_feat, receivers, senders, *params,
+                    layout=csr_layout)
+            else:
+                agg = fused_message_pass(x, edge_feat, senders, receivers,
+                                         *params)
         else:
             m = torch.cat([S.gather_nodes(x, receivers),
                            S.gather_nodes(x, senders), edge_feat], dim=-1)
@@ -232,9 +246,12 @@ class GraphConvolution(nn.Module):
     def __init__(self, in_dim: int, edge_dim: int,
                  stem_channels: Sequence[int], msg_mlp_hidden_dim: int,
                  aggregation: str, activation: str, norm_layer: str,
-                 num_groups=None):
+                 num_groups=None, mp_impl: Optional[str] = None,
+                 csr_tiling=(512, 256, 0)):
         super().__init__()
         self.fused = uses_fused_kernel(norm_layer, activation, aggregation)
+        self.mp_impl = mp_impl
+        self.csr_tiling = tuple(csr_tiling)  # (edge_tile, window, src_window)
         blocks = []
         for ch in stem_channels:
             blocks.append(ResidualGraphConvBlock(
@@ -244,7 +261,14 @@ class GraphConvolution(nn.Module):
             in_dim = ch
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask):
+    def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
+                mp_impl=None):
+        """``mp_impl`` overrides the one given at construction.  On "csr",
+        ``edge_feat`` must encode the reversed edges' raw features."""
+        mp_impl = mp_impl or self.mp_impl
+        if mp_impl == "csr" and not self.fused:
+            raise ValueError("mp_impl='csr' needs channel normalisation, "
+                             "leaky ReLU and sum aggregation")
         if self.fused:
             # The kernel takes no masks: masked edges get the sentinel N at
             # both ends and zero features (JAX fast_path.py:115-118, 156).
@@ -253,9 +277,31 @@ class GraphConvolution(nn.Module):
             receivers = torch.where(edge_mask, receivers, n).int()
             edge_feat = torch.where(edge_mask[:, None], edge_feat,
                                     torch.zeros_like(edge_feat))
+        layout = None
+        if mp_impl == "csr":
+            edge_feat = edge_feat + self._csr_guard(senders, receivers,
+                                                    x.shape[0])
+            layout = C.csr_layout(receivers, senders, x.shape[0],
+                                  *self.csr_tiling)
         for blk in self.blocks:
-            x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask)
+            x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
+                    layout)
         return x
+
+    def _csr_guard(self, senders, receivers, n):
+        """NaN (0-d, on the device, no host sync) if an edge falls outside
+        its tile's destination or source window — the CSR round would drop
+        it — else 0.  Added to the encoded edges, it makes the train step's
+        NaN skip fire instead of training on wrong sums (fast_path.py:
+        137-147).  The port's kernels also need sorted destinations: out of
+        order ones count too."""
+        edge_tile, window, src_window = self.csr_tiling
+        n_viol = (C.window_span_violations(senders, n, edge_tile, window)
+                  + C.order_violations(senders, n))
+        if src_window:
+            n_viol = n_viol + C.src_window_violations(receivers, n, edge_tile,
+                                                      src_window)
+        return torch.where(n_viol > 0, float("nan"), 0.0)
 
 
 class TaskSpecificHead(nn.Module):

@@ -8,6 +8,10 @@ stack → four task heads, over ONE padded graph.
 * ``deploy`` — deployment path: decodes predicted cluster centers, runs
   DBSCAN on the device (infer/clustering.py) and feeds the resulting
   clusters to the object head.
+
+Both run the message rounds through ``cfg.mp_impl`` unless the call names
+another (``mp_impl=``): the fused round, or the CSR round (the JAX
+package's models/fast_path.py with ``mp_impl="csr"``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 from ..config.config import GNNConfig
 from ..core.graph import RadarGraph
 from ..infer.clustering import dbscan_on_device
+from ..ops.csr_mp import reverse_edge_features
 from .blocks import (
     GraphConvolution,
     GraphFeatureEncoding,
@@ -79,7 +84,9 @@ class RadarGNN(nn.Module):
             cfg.input_edge_feat_dim, cfg.edge_feat_enc_stem_channels, *args)
         self.pass_messages = GraphConvolution(
             node_dim, edge_dim, cfg.graph_convolution_stem_channels,
-            cfg.msg_mlp_hidden_dim, cfg.aggregation, *args)
+            cfg.msg_mlp_hidden_dim, cfg.aggregation, *args,
+            mp_impl=cfg.mp_impl,
+            csr_tiling=(cfg.csr_edge_tile, cfg.csr_window, cfg.csr_src_window))
         self.predict_link = LinkPredictions(
             embed, cfg.num_blocks_to_compute_edge, cfg.link_pred_stem_channels,
             cfg.num_edge_classes, *args)
@@ -93,18 +100,27 @@ class RadarGNN(nn.Module):
             generator = torch.Generator().manual_seed(cfg.seed)
         init_parameters(self, generator)
 
-    def trunk(self, graph: RadarGraph):
+    def trunk(self, graph: RadarGraph, mp_impl: Optional[str] = None):
         """Encoders + message passing → final node embeddings
-        (gnn_detector.py:151-156)."""
+        (gnn_detector.py:151-156).  On "csr" (fast_path.py:125-156) the edge
+        encoder reads the reversed edges' raw features, and
+        ``GraphConvolution`` zeroes masked edge rows and adds the NaN guard
+        of window violations; each directed edge is still encoded once,
+        just enumerated differently."""
+        mp_impl = mp_impl or self.cfg.mp_impl
         nm, em = graph.node_mask, graph.edge_mask
         x = self.encode_node_feat(graph.node_feat, nm)
-        e = self.encode_edge_feat(graph.edge_feat, em)
-        return self.pass_messages(x, e, graph.senders, graph.receivers, nm, em)
+        edge_feat = graph.edge_feat
+        if mp_impl == "csr":
+            edge_feat = reverse_edge_features(edge_feat)
+        e = self.encode_edge_feat(edge_feat, em)
+        return self.pass_messages(x, e, graph.senders, graph.receivers, nm, em,
+                                  mp_impl)
 
     def forward(self, graph: RadarGraph, node2cluster, num_clusters: int,
-                cluster_mask) -> GNNOutputs:
+                cluster_mask, mp_impl: Optional[str] = None) -> GNNOutputs:
         nm = graph.node_mask
-        x = self.trunk(graph)
+        x = self.trunk(graph, mp_impl)
         node_cls = self.predict_node(x, nm)
         node_off = self.predict_offset(x, nm)
         edge_cls = self.predict_link(
@@ -114,13 +130,14 @@ class RadarGNN(nn.Module):
         return GNNOutputs(node_cls, node_off, edge_cls, obj_cls, x)
 
     def deploy(self, graph: RadarGraph, eps: float = 1.4,
-               from_links: bool = False) -> DeployOutputs:
+               from_links: bool = False,
+               mp_impl: Optional[str] = None) -> DeployOutputs:
         """Deployment forward with on-device DBSCAN proposals
         (gnn_detector.py:141-195, extract_proposals path; default eps=1.4
         per Model_Inference.__init__)."""
         nm = graph.node_mask
         n = graph.num_nodes
-        x = self.trunk(graph)
+        x = self.trunk(graph, mp_impl)
         node_cls = self.predict_node(x, nm)
         node_off = self.predict_offset(x, nm)
         edge_cls = self.predict_link(

@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import drop_kink_edges
+from chip_smoke import (
+    banded_edges,
+    csr_problem,
+    drop_kink_edges,
+    drop_kink_edges_csr,
+    knn_edges,
+)
 from graph_neural_network_for_radar_perception_torch.config.config import (
     tiny_test_config,
 )
@@ -21,6 +27,7 @@ from graph_neural_network_for_radar_perception_torch.data.pipeline import (
     pad_frame,
 )
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
+from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
 from graph_neural_network_for_radar_perception_torch.train import steps as S
 
@@ -155,3 +162,83 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for k, v in p_cpu.items():
         np.testing.assert_allclose(p_gpu[k].cpu().numpy(), v.numpy(),
                                    rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+# ------------------------------------------------------------- the CSR round
+CSR_CASES = {  # edges(rng), n, e_total, widths (d, de, h, d2), tiling
+    "knn": (lambda rng: knn_edges(rng, 768, 10), 768, 15360, (64, 64, 128, 64), (512, 256, 0)),
+    "knn-ragged": (lambda rng: knn_edges(rng, 768, 10), 768, 15357, (64, 64, 128, 64), (512, 256, 0)),
+    "banded-src-window": (lambda rng: banded_edges(768, 6), 768, 15360, (64, 64, 128, 64), (512, 256, 256)),
+    "tiny": (lambda rng: knn_edges(rng, 64, 6), 64, 600, (16, 16, 32, 16), (128, 64, 0)),
+}
+
+
+def _csr_case(name, seed, device):
+    edges, n, e_total, (d, de, h, d2), tiling = CSR_CASES[name]
+    rng = np.random.default_rng(seed)
+    args = csr_problem(torch, rng, edges(rng), e_total, n, d, de, h, d2, device)
+    return args, tiling, rng
+
+
+@pytest.mark.parametrize("case", list(CSR_CASES))
+def test_csr_kernel_matches_plain(cuda_device, case):
+    """The forward kernel against its plain version at the deploy
+    tolerance of chip_smoke's [kernel] phase, and bitwise across launches."""
+    args, (tile, window, src_window), _ = _csr_case(case, 0, cuda_device)
+    before = C.fused_message_pass_csr.launches
+    with torch.no_grad():
+        got = C.fused_message_pass_csr(*args, 0.01, tile, window, False, src_window)
+        again = C.fused_message_pass_csr(*args, 0.01, tile, window, False, src_window)
+    torch.cuda.synchronize()
+    assert C.fused_message_pass_csr.launches == before + 2
+    assert torch.equal(got, again)
+    want = C.fused_message_pass_csr_reference(*args, 0.01, tile, window, src_window)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", list(CSR_CASES))
+def test_csr_backward_kernel_matches_plain(cuda_device, case):
+    """All 10 outputs at the gradient tolerance with a cotangent of a train
+    step's scale, kink edges dropped (chip_smoke.drop_kink_edges_csr), and
+    bitwise across launches."""
+    args, (tile, window, src_window), rng = _csr_case(case, 1, cuda_device)
+    args, _ = drop_kink_edges_csr(torch, args)
+    n, d2 = args[0].shape[0], args[6].shape[1]
+    g = torch.from_numpy((1e-2 * rng.normal(size=(n, d2))).astype(np.float32)).to(cuda_device)
+    before = C.fused_message_pass_csr_backward.launches
+    got = C.fused_message_pass_csr_backward(*args, g, 0.01, tile, window, src_window)
+    again = C.fused_message_pass_csr_backward(*args, g, 0.01, tile, window, src_window)
+    torch.cuda.synchronize()
+    assert C.fused_message_pass_csr_backward.launches == before + 2
+    want = C.fused_message_pass_csr_backward_reference(*args, g, 0.01, tile, window,
+                                                       src_window)
+    names = "dx gef dw1 db1 dw2 db2 dg1 dbe1 dg2 dbe2".split()
+    for name, a, b, c in zip(names, got, want, again):
+        assert torch.equal(a, c), name
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=5e-4, atol=5e-5, err_msg=name)
+
+
+def test_csr_model_gradients_on_card_match_cpu(cuda_device):
+    """Every parameter's gradient on the CSR path, card against CPU; the
+    fused kernels are not launched."""
+    cfg = tiny_test_config(mp_impl="csr", csr_edge_tile=128, csr_window=64)
+    batch = _tiny_batch(cfg)
+    grads = {}
+    for device in ("cpu", cuda_device):
+        st = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+        before = (C.fused_message_pass_csr.launches,
+                  C.fused_message_pass_csr_backward.launches,
+                  FM.fused_message_pass.launches)
+        loss, _ = S.make_loss_fn(cfg)(st.model, S.batch_on(batch, device))
+        loss.backward()
+        after = (C.fused_message_pass_csr.launches,
+                 C.fused_message_pass_csr_backward.launches,
+                 FM.fused_message_pass.launches)
+        grads[str(device)] = {k: p.grad.cpu().numpy() for k, p in st.model.named_parameters()}
+    rounds = len(cfg.graph_convolution_stem_channels) * cfg.batch_size
+    assert after == (before[0] + rounds, before[1] + rounds, before[2])
+    for k, want in grads["cpu"].items():
+        np.testing.assert_allclose(grads["cuda"][k], want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=k)

@@ -117,11 +117,50 @@ def test_batches_stack_and_move_to_tensors():
     assert one.to("cpu").senders.dtype == torch.int32
 
 
-def test_csr_contract_branch_not_ported():
-    cfg = TC.tiny_test_config(mp_impl="csr")
-    fr = TP.SyntheticRadarDataset(cfg, seed=0, num_objects=2).sample_frame()
-    with pytest.raises(NotImplementedError):
+def _csr_frame(**overrides):
+    cfg = TC.tiny_test_config(mp_impl="csr", **overrides)
+    return cfg, TP.SyntheticRadarDataset(cfg, seed=0, num_objects=2).sample_frame()
+
+
+def test_pad_frame_csr_passes_intact_frame():
+    """mp_impl='csr': an intact frame passes the contract check, with the
+    same arrays as the JAX package's pad_frame under the same config
+    (tests/test_pallas.py test_pad_frame_validates_csr_contract)."""
+    cfg, fr = _csr_frame()
+    jcfg = JC.tiny_test_config(mp_impl="csr")
+    for g, w in zip(TP.pad_frame(fr, cfg),
+                    JP.pad_frame(JP.FrameArrays(**dataclasses.asdict(fr)), jcfg)):
+        _assert_struct_equal(g, w)
+
+
+def test_pad_frame_csr_refuses_truncated_pair():
+    """Dropping the first directed edge leaves its reverse: the edge set is
+    no longer closed under reversal, and pad_frame raises as JAX's does."""
+    cfg, fr = _csr_frame()
+    bad = dataclasses.replace(fr, senders=fr.senders[1:],
+                              receivers=fr.receivers[1:],
+                              edge_feat=fr.edge_feat[1:])
+    with pytest.raises(ValueError, match="CSR kernel contract"):
+        TP.pad_frame(bad, cfg)
+    with pytest.raises(ValueError, match="CSR kernel contract"):
+        JP.pad_frame(JP.FrameArrays(**dataclasses.asdict(bad)),
+                     JC.tiny_test_config(mp_impl="csr"))
+
+
+def test_pad_frame_csr_refuses_source_window_span():
+    """Without spatial sorting a narrow source window is violated; a window
+    at the node capacity clips to the unwindowed gather and passes."""
+    cfg, fr = _csr_frame(csr_edge_tile=128, csr_window=64, csr_src_window=16)
+    with pytest.raises(ValueError, match="source window"):
         TP.pad_frame(fr, cfg)
+    TP.pad_frame(fr, dataclasses.replace(cfg, csr_src_window=cfg.max_nodes))
+
+
+def test_mp_impl_must_be_known():
+    with pytest.raises(ValueError, match="mp_impl"):
+        TC.GNNConfig(mp_impl="bogus")
+    for ok in (None, "onehot", "csr"):
+        assert TC.GNNConfig(mp_impl=ok).mp_impl == ok
 
 
 def _frames(seed, k, num_objects=(1, 4)):

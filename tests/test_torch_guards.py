@@ -18,6 +18,7 @@ from graph_neural_network_for_radar_perception_torch.infer.pipeline import (
 )
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import _build
+from graph_neural_network_for_radar_perception_torch.ops import csr_mp as CM
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
 from graph_neural_network_for_radar_perception_torch.train import steps as S
 from graph_neural_network_for_radar_perception_torch.train.trainer import train
@@ -64,6 +65,23 @@ def test_import_scan_covers_the_training_slice():
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
     assert {"train/loss.py", "train/steps.py", "train/trainer.py",
             "utils/metrics_writer.py"} <= names
+
+
+def test_import_scan_covers_the_csr_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"ops/csr_mp.py", "models/blocks.py", "data/pipeline.py"} <= names
+    assert (PORT / "csrc" / "csr_mp.cu").exists()
+
+
+@pytest.mark.parametrize("entry", ["_kernel", "_bwd_kernel"])
+def test_csr_loaders_raise_without_nvcc(monkeypatch, tmp_path, entry):
+    monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing cached
+    _build.load.cache_clear()
+    getattr(CM, entry).cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(CM, entry)()
+    getattr(CM, entry).cache_clear()
 
 
 def test_detector_refuses_cuda_without_a_card(monkeypatch):
