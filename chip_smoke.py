@@ -7,7 +7,8 @@ Phases, each reported on its own line:
 
 1. [build] build the port's CUDA kernels from ``csrc/`` with nvcc, one
    ``nvcc`` per source, started together: ``fused_mp`` (the fused round's
-   forward and backward) and ``csr_mp`` (the CSR round's);
+   forward, f32 and bf16, and backward), ``csr_mp`` (the CSR round's) and
+   ``microbench_gather`` (row gather and scatter-add);
 2. [kernel] hold the fused forward kernel against its plain PyTorch version
    on the card at the main path's shapes (N=768, E=15360, D=De=D2=64,
    H=128, plus a ragged E) and time both with CUDA events;
@@ -35,7 +36,22 @@ Phases, each reported on its own line:
    guard turns into a skipped step;
 9. [deploy-csr] ``FrameDetector(GNNConfig(mp_impl="csr"))`` on 4 of the
    deploy frames against the default message pass on the card;
-10. print the kernel table as JSON and the card's name and power limit.
+10. [kernel-bf16] the fused forward's bf16 instantiation against its plain
+    bf16 version (N=768, E=15360 and a ragged E), the f32 kernel's output
+    shown to lie outside that tolerance, timing;
+11. [kernel-csr-bf16] the same for the CSR forward on the [kernel-csr]
+    graphs, two launches bitwise equal;
+12. [kernel-gather], [kernel-scatter] the microbenchmark's kernels against
+    their plain versions with indices outside [0, N), then the
+    microbenchmark itself (``scripts/microbench_gather.run``: numpy check,
+    timing beside the plain versions and ``index_select``/``index_add_``);
+13. [train-bf16] ``trainer.train`` with ``make_train_step(GNNConfig(),
+    mp_bf16=True)`` on the [train] batches, then with ``mp_impl="csr"``:
+    bf16 forwards and f32 backwards counted (no f32 forward), the steps
+    replayed on the CPU (losses and params), the f32 [train] run's losses
+    shown to lie outside that tolerance, metrics against the f32 run,
+    ms/step;
+14. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -44,6 +60,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -54,11 +71,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# f32 outside the tensor cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+# The published H100 SXM peaks (f32, dense bf16 tensor cores, HBM3) and the
+# CUDA-event timer, shared with the port's microbenchmark.
+from graph_neural_network_for_radar_perception_torch.utils.timing import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES_PER_S,
+    PEAK_F32_FLOPS,
+    event_ms,
+)
 
 N, E, D, DE, H, D2 = 768, 15360, 64, 64, 128, 64
 RTOL, ATOL = 2e-4, 2e-5              # kernel vs plain (atomics reorder sums)
@@ -77,6 +99,30 @@ G_SCALE = 1e-2
 # there the derivative jumps, and two summation orders may fall on either
 # side of the kink.
 KINK = 1e-4
+# bf16 rounds (tests/test_torch_bf16.py's tolerance): the card and the CPU
+# sum in other orders, and a last-bit difference of an f32 sum can flip one
+# bf16 rounding, which moves one message element by one bf16 ulp (<= 2^-7 of
+# it).  Flips are rare (a few per 10^5 roundings), so at most
+# BF16_FLIP_SHARE of agg's elements may leave the tolerance, each by less
+# than 2^-7 of agg's largest element.  The f32 kernel's output must lie at
+# least BF16_SEPARATION tolerances away somewhere, and outside the
+# tolerance at ten times as many elements as flips are allowed.
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
+BF16_FLIP_SHARE = 1e-4
+BF16_SEPARATION = 2.0
+# Train metrics of bf16 steps against the CPU replay and the f32 run: the
+# losses at the bf16 tolerance; an accuracy counts argmaxes, and an argmax
+# whose two top logits lie within bf16 rounding may flip (0.05 is three of
+# the ~64 object clusters of a batch).
+ACC_ATOL = 0.05
+# Each bf16 train step on the card against its CPU replay from the card's
+# state before it: the losses within BF16_REPLAY_ATOL (one step agreed to
+# 0.8-1.9e-6 on an H100; a flipped rounding can move a max-pool), and the
+# f32 run's step-1 losses (4.9-6.1e-5 from the replay there) at least
+# BF16_REPLAY_SEPARATION times that tolerance away, so that an f32 forward
+# fails it.
+BF16_REPLAY_ATOL = 1e-5
+BF16_REPLAY_SEPARATION = 2.0
 
 
 def log(msg: str) -> None:
@@ -104,23 +150,22 @@ def kernel_problem(torch, rng, e_valid: int, e_total: int):
     return arrays + scalars
 
 
-def event_ms(torch, fn, reps: int = 50, inner: int = 20) -> float:
-    """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
-    calls, per call, after warm-up."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return float(np.median(times))
+def fused_fwd_bytes(e: int, e_live: int) -> int:
+    """Bytes the fused forward must move at the deploy shapes: xa and xb,
+    every receiver (it decides which edges land), the ef row and sender of
+    each edge that lands, the weights, the four scalars, and agg written
+    once.  The padded tail's rows are never needed."""
+    return 4 * (2 * N * H + e + e_live * (DE + 1) + DE * H + H + H * D2 + D2 + 4
+                + N * D2)
+
+
+def csr_fwd_bytes(e_live: int) -> int:
+    """Bytes the CSR forward must move: x, the ef row, source and
+    destination of each edge in a segment (the kernel walks only
+    [off[v], off[v+1])), off [N+1], the weights, the four scalars, and agg
+    written once."""
+    return 4 * (N * D + e_live * (DE + 2) + N + 1 + (2 * D + DE) * H + H + H * D2
+                + D2 + 4 + N * D2)
 
 
 def phase_kernel(torch, FM):
@@ -154,16 +199,16 @@ def phase_kernel(torch, FM):
            r.data_ptr(), w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(),
            b2.data_ptr(), scal.data_ptr(), 0.01, agg.data_ptr(), N, E, DE, H,
            D2, torch.cuda.current_stream().cuda_stream)
-    kernel_ms = event_ms(torch, lambda: fn(*raw))
-    wrapper_ms = event_ms(torch, lambda: FM.fused_message_pass(*args))
-    plain_ms = event_ms(torch, lambda: FM.fused_message_pass_reference(*args))
+    kernel_ms = event_ms(lambda: fn(*raw))
+    wrapper_ms = event_ms(lambda: FM.fused_message_pass(*args))
+    plain_ms = event_ms(lambda: FM.fused_message_pass_reference(*args))
 
     # Least time for the kernel's work on these inputs: the f32 FMAs of the
-    # edges whose messages land (receiver in range), and each input read /
-    # output written once.
+    # edges whose messages land (receiver in range), and what they need
+    # read / written once.
     e_live = int(((r >= 0) & (r < N)).sum())
     flops = 2 * e_live * (DE * H + H * D2)
-    nbytes = 4 * (2 * N * H + E * DE + 2 * E + DE * H + H + H * D2 + D2 + 4 + N * D2)
+    nbytes = fused_fwd_bytes(E, e_live)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     log(f"[kernel] timing E={E} live={e_live}: kernel {kernel_ms * 1e3:.2f} us, "
         f"wrapper (xa/xb matmuls + kernel) {wrapper_ms * 1e3:.2f} us, "
@@ -287,9 +332,9 @@ def phase_kernel_bwd(torch, FM):
            w2.data_ptr(), w2_t.data_ptr(), b2.data_ptr(), scal.data_ptr(),
            g.data_ptr(), 0.01, *[o.data_ptr() for o in outs], N, E, DE, H, D2,
            torch.cuda.current_stream().cuda_stream)
-    kernel_ms = event_ms(torch, lambda: fn(*raw))
-    wrapper_ms = event_ms(torch, lambda: FM.fused_message_pass_backward(*args, g))
-    plain_ms = event_ms(torch, lambda: FM.fused_message_pass_backward_reference(*args, g))
+    kernel_ms = event_ms(lambda: fn(*raw))
+    wrapper_ms = event_ms(lambda: FM.fused_message_pass_backward(*args, g))
+    plain_ms = event_ms(lambda: FM.fused_message_pass_backward_reference(*args, g))
 
     # Least time on these inputs: three times the forward's f32 FMAs for
     # each edge whose receiver is in range (forward recompute, two products
@@ -445,22 +490,21 @@ def phase_kernel_csr(torch, C):
            b2.data_ptr(), scal.data_ptr(), xab.data_ptr(), 0.01,
            agg.data_ptr(), N, E, D, DE, H, D2,
            torch.cuda.current_stream().cuda_stream)
-    kernel_ms = event_ms(torch, lambda: fn(*raw))
+    kernel_ms = event_ms(lambda: fn(*raw))
     with torch.no_grad():  # the wrapper as a round of the model calls it
-        wrapper_ms = event_ms(torch, lambda: C.fused_message_pass_csr(
+        wrapper_ms = event_ms(lambda: C.fused_message_pass_csr(
             *args, 0.01, CSR_TILE, CSR_WINDOW, layout=layout))
-        layout_ms = event_ms(torch, lambda: C.csr_layout(
+        layout_ms = event_ms(lambda: C.csr_layout(
             src, dst, N, CSR_TILE, CSR_WINDOW, 0))
-    plain_ms = event_ms(torch, lambda: C.fused_message_pass_csr_reference(
+    plain_ms = event_ms(lambda: C.fused_message_pass_csr_reference(
         *args, 0.01, CSR_TILE, CSR_WINDOW))
 
     # Least time for the same work: the node-level products x·W1r, x·W1s
     # once per node, the edge-level products of every edge whose message
-    # lands, each input read and the output written once.
+    # lands, what they need read and the output written once.
     e_live = int((layout.dst < N).sum())
     flops = 2 * 2 * N * D * H + 2 * e_live * (DE * H + H * D2)
-    nbytes = 4 * (N * D + E * DE + 2 * E + (2 * D + DE) * H + H + H * D2
-                  + D2 + 4 + N * D2)
+    nbytes = csr_fwd_bytes(e_live)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     log(f"[kernel-csr] timing E={E} live={e_live}: kernel {kernel_ms * 1e3:.2f} us, "
         f"wrapper (checks, buffers + kernel) {wrapper_ms * 1e3:.2f} us, csr_layout "
@@ -547,11 +591,11 @@ def phase_kernel_csr_bwd(torch, C):
     raw, results = C._backward_launch(x, ef, layout, w1, b1, w2, b2,
                                       torch.cat(args[8:]), g, 0.01)
     fn = C._bwd_kernel()
-    kernel_ms = event_ms(torch, lambda: fn(*raw))
+    kernel_ms = event_ms(lambda: fn(*raw))
     tiling = (0.01, CSR_TILE, CSR_WINDOW)
-    wrapper_ms = event_ms(torch, lambda: C.fused_message_pass_csr_backward(
+    wrapper_ms = event_ms(lambda: C.fused_message_pass_csr_backward(
         *args, g, *tiling))
-    plain_ms = event_ms(torch, lambda: C.fused_message_pass_csr_backward_reference(
+    plain_ms = event_ms(lambda: C.fused_message_pass_csr_backward_reference(
         *args, g, *tiling))
 
     # Least time for the same work: the node-level products once (x·W1r and
@@ -887,7 +931,7 @@ def phase_train(torch, FM):
     log(f"[train] profile of one train step: {json.dumps(prof)}")
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
-    return fwd, bwd
+    return fwd, bwd, card_metrics
 
 
 def _params_close(a: dict, b: dict, what: str) -> float:
@@ -1087,16 +1131,381 @@ def phase_deploy_csr(torch, FM, C):
     return launches
 
 
+def bf16_verdict(torch, got, f32, want, what: str):
+    """The bf16 kernel's output ``got`` against the plain bf16 version
+    ``want``: within the bf16 tolerance but for a few flipped roundings
+    (BF16_FLIP_SHARE, each within 2^-7 of max |want|); and the f32 kernel's
+    output ``f32`` clearly outside it (the rounding shows).  Returns (max abs
+    err, elements outside the tolerance, the f32 output's worst multiple of
+    the tolerance, the f32 output's elements outside it)."""
+    tol = BF16_ATOL + BF16_RTOL * want.abs()
+    err = (got - want).abs()
+    bad = int((err > tol).sum())
+    allowed = max(4, int(BF16_FLIP_SHARE * want.numel()))
+    flip = 2.0 ** -7 * float(want.abs().max())
+    f32_ratio = float(((f32 - want).abs() / tol).max())
+    f32_out = int(((f32 - want).abs() > tol).sum())
+    if bad > allowed or bool((err > tol + flip).any()) or not torch.isfinite(got).all():
+        raise AssertionError(
+            f"{what}: {bad} elements (at most {allowed} allowed) outside rtol="
+            f"{BF16_RTOL} atol={BF16_ATOL} of the plain bf16 version, max abs err "
+            f"{float(err.max()):.3e} (a flip moves at most {flip:.3e})")
+    if f32_ratio < BF16_SEPARATION or f32_out < 10 * allowed:
+        raise AssertionError(
+            f"{what}: the f32 kernel lies within {f32_ratio:.2f} tolerances of the "
+            f"plain bf16 version ({f32_out} elements outside): no rounding shows")
+    return float(err.max()), bad, f32_ratio, f32_out
+
+
+def phase_kernel_bf16(torch, FM):
+    """Phase 10: the fused forward's bf16 instantiation against its plain
+    bf16 version, and timing; returns its table row."""
+    rng = np.random.default_rng(10)
+    max_err = 0.0
+    for e_valid, e_total in ((9216, E), (E - 3, E - 3)):
+        args = kernel_problem(torch, rng, e_valid, e_total)
+        got = FM.fused_message_pass(*args, 0.01, True)
+        f32 = FM.fused_message_pass(*args, 0.01)
+        torch.cuda.synchronize()
+        want = FM.fused_message_pass_reference(*args, 0.01, bf16=True)
+        err, bad, ratio, n_out = bf16_verdict(torch, got, f32, want, "fused_message_pass bf16")
+        max_err = max(max_err, err)
+        log(f"[kernel-bf16] E={e_total} valid={e_valid}: max_abs_err={err:.3e}, "
+            f"violations(rtol={BF16_RTOL}, atol={BF16_ATOL})={bad} (flipped roundings); "
+            f"the f32 kernel lies up to {ratio:.1f} tolerances away ({n_out} of "
+            f"{want.numel()} elements outside)")
+
+    args = kernel_problem(torch, rng, 9216, E)
+    x, ef, s, r, w1, b1, w2, b2 = args[:8]
+    xa, xb = x @ w1[:D], x @ w1[D:2 * D]
+    w1e = w1[2 * D:]
+    scal = torch.cat(args[8:])
+    agg = torch.zeros(N, D2, device="cuda")
+    fn = FM._kernel(True)
+    raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(),
+           r.data_ptr(), w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+           b2.data_ptr(), scal.data_ptr(), 0.01, agg.data_ptr(), N, E, DE, H,
+           D2, torch.cuda.current_stream().cuda_stream)
+    kernel_ms = event_ms(lambda: fn(*raw))
+    f32_ms = event_ms(lambda: FM._kernel(False)(*raw))
+    wrapper_ms = event_ms(lambda: FM.fused_message_pass(*args, 0.01, True))
+    plain_ms = event_ms(lambda: FM.fused_message_pass_reference(
+        *args, 0.01, bf16=True))
+
+    # Least time for the same work on bf16 tensor cores: the products of the
+    # edges whose messages land, and what they need read / written once
+    # (as the f32 row).
+    e_live = int(((r >= 0) & (r < N)).sum())
+    flops = 2 * e_live * (DE * H + H * D2)
+    nbytes = fused_fwd_bytes(E, e_live)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    log(f"[kernel-bf16] timing E={E} live={e_live}: bf16 kernel {kernel_ms * 1e3:.2f} us "
+        f"(f32 kernel on the same inputs {f32_ms * 1e3:.2f} us), wrapper "
+        f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
+        f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP at bf16 peak, "
+        f"{nbytes / 1e6:.2f} MB)")
+    return {
+        "name": "fused_message_pass_bf16",
+        "route": "cuda",
+        "source": "graph_neural_network_for_radar_perception_torch/csrc/fused_mp.cu",
+        "replaces": "graph_neural_network_for_radar_perception_tpu/ops/pallas/fused_mp.py:82",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "wrapper_ms": wrapper_ms,
+        "f32_kernel_ms": f32_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def phase_kernel_csr_bf16(torch, C):
+    """Phase 11: the CSR forward's bf16 instantiation against its plain bf16
+    version on the [kernel-csr] graphs, two launches bitwise, timing;
+    returns its table row."""
+    rng = np.random.default_rng(12)
+    max_err = 0.0
+    for name, args, src_window in csr_problems(torch, rng):
+        with torch.no_grad():
+            got = C.fused_message_pass_csr(*args, 0.01, CSR_TILE, CSR_WINDOW, True, src_window)
+            again = C.fused_message_pass_csr(*args, 0.01, CSR_TILE, CSR_WINDOW, True, src_window)
+            f32 = C.fused_message_pass_csr(*args, 0.01, CSR_TILE, CSR_WINDOW, False, src_window)
+        torch.cuda.synchronize()
+        want = C.fused_message_pass_csr_reference(
+            *args, 0.01, CSR_TILE, CSR_WINDOW, src_window, True)
+        err, bad, ratio, n_out = bf16_verdict(
+            torch, got, f32, want, f"fused_message_pass_csr bf16 {name}")
+        same = bool(torch.equal(got, again))
+        max_err = max(max_err, err)
+        log(f"[kernel-csr-bf16] {name} E={args[2].shape[0]} src_window={src_window}: "
+            f"max_abs_err={err:.3e}, violations(rtol={BF16_RTOL}, atol={BF16_ATOL})="
+            f"{bad} (flipped roundings); the f32 kernel lies up to {ratio:.1f} "
+            f"tolerances away ({n_out} elements outside); two launches bitwise "
+            f"equal={same}")
+        if not same:
+            raise AssertionError("the CSR bf16 forward is not deterministic")
+
+    _, args, _ = csr_problems(torch, np.random.default_rng(5))[0]
+    x, ef, src, dst, w1, b1, w2, b2 = args[:8]
+    layout = C.csr_layout(src, dst, N, CSR_TILE, CSR_WINDOW, 0)
+    scal = torch.cat(args[8:])
+    agg = torch.empty(N, D2, device="cuda")
+    xab = torch.empty(2, N, H, device="cuda")
+    raw = (x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
+           layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
+           b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
+           xab.data_ptr(), 0.01, agg.data_ptr(), N, E, D, DE, H, D2,
+           torch.cuda.current_stream().cuda_stream)
+    fn = C._kernel(True)
+    kernel_ms = event_ms(lambda: fn(*raw))
+    f32_ms = event_ms(lambda: C._kernel(False)(*raw))
+    with torch.no_grad():
+        wrapper_ms = event_ms(lambda: C.fused_message_pass_csr(
+            *args, 0.01, CSR_TILE, CSR_WINDOW, True, layout=layout))
+    plain_ms = event_ms(lambda: C.fused_message_pass_csr_reference(
+        *args, 0.01, CSR_TILE, CSR_WINDOW, 0, True))
+    e_live = int((layout.dst < N).sum())
+    flops = 2 * 2 * N * D * H + 2 * e_live * (DE * H + H * D2)
+    nbytes = csr_fwd_bytes(e_live)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    log(f"[kernel-csr-bf16] timing E={E} live={e_live}: bf16 kernel {kernel_ms * 1e3:.2f} us "
+        f"(f32 kernel on the same inputs {f32_ms * 1e3:.2f} us), wrapper "
+        f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
+        f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP at bf16 peak, "
+        f"{nbytes / 1e6:.2f} MB)")
+    return {
+        "name": "fused_message_pass_csr_bf16",
+        "route": "cuda",
+        "source": "graph_neural_network_for_radar_perception_torch/csrc/csr_mp.cu",
+        "replaces": "graph_neural_network_for_radar_perception_tpu/ops/pallas/csr_mp.py:234",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "wrapper_ms": wrapper_ms,
+        "f32_kernel_ms": f32_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def phase_microbench(torch):
+    """Phase 12: the gather and scatter kernels against their plain
+    versions with indices outside [0, N) (not counted), then the
+    microbenchmark's own path with both counts from 0; returns the two
+    table rows."""
+    from graph_neural_network_for_radar_perception_torch.scripts import microbench_gather as MB
+
+    rng = np.random.default_rng(13)
+    m = MB.TILES * MB.TE
+    idx = rng.integers(0, MB.N, m).astype(np.int32)
+    bad = rng.random(m) < 0.05
+    idx[bad] = rng.choice(np.array([-1, -100, MB.N, MB.N + 7, 2**31 - 1]), int(bad.sum()))
+    dev = torch.device("cuda")
+    idx_c = torch.from_numpy(idx).to(dev)
+    tab = torch.from_numpy(rng.normal(size=(MB.N, MB.D)).astype(np.float32)).to(dev)
+    msg = torch.from_numpy(rng.normal(size=(m, MB.D)).astype(np.float32)).to(dev)
+    got_g, got_s = MB.gather_rows(tab, idx_c), MB.scatter_add_rows(msg, idx_c, MB.N)
+    torch.cuda.synchronize()
+    want_g = MB.gather_rows_reference(tab, idx_c)
+    want_s = MB.scatter_add_rows_reference(msg, idx_c, MB.N)
+    err_s = (got_s - want_s).abs()
+    bad_s = int((err_s > MB.SCATTER_TOL["atol"] + MB.SCATTER_TOL["rtol"] * want_s.abs()).sum())
+    same_g = bool(torch.equal(got_g, want_g))
+    log(f"[kernel-gather] {m} indices ({int(bad.sum())} outside [0, {MB.N})): kernel "
+        f"bitwise equal to plain={same_g}")
+    log(f"[kernel-scatter] {m} messages ({int(bad.sum())} dropped): max_abs_err="
+        f"{float(err_s.max()):.3e} violations({json.dumps(MB.SCATTER_TOL)})={bad_s}")
+    if not same_g or bad_s:
+        raise AssertionError("a microbenchmark kernel disagrees with its plain version")
+
+    MB.gather_rows.launches = 0
+    MB.scatter_add_rows.launches = 0
+    res = MB.run()
+    launches = (MB.gather_rows.launches, MB.scatter_add_rows.launches)
+    log(f"[kernel-gather] microbenchmark (scripts/microbench_gather.run, launches "
+        f"{launches[0]} issued from the host, a graph's captured calls once and its "
+        f"replays not; ms, plain_ms, library_ms replayed from a CUDA graph, "
+        f"*launch_ms issued back to back): {json.dumps(res['gather'])}")
+    log(f"[kernel-scatter] microbenchmark (launches {launches[1]}): "
+        f"{json.dumps(res['scatter'])}; {res['bytes'] / 1e6:.3f} MB moved each")
+    rows = []
+    for (name, key, line), n in zip(
+            (("gather_rows", "gather", 69), ("scatter_add_rows", "scatter", 128)), launches):
+        r = res[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "graph_neural_network_for_radar_perception_torch/csrc/microbench_gather.cu",
+            "replaces": f"scripts/microbench_gather.py:{line}",
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"], "launch_ms": r["launch_ms"],
+            "wrapper_ms": r["wrapper_ms"], "library_launch_ms": r["library_launch_ms"],
+            "deterministic": r["deterministic"],
+        })
+    if min(launches) < 1:
+        raise AssertionError("the microbenchmark did not launch both kernels")
+    return rows
+
+
+def _bf16_metrics_close(a: list, b: list, what: str) -> float:
+    """Max abs difference of per-step losses; raises beyond the bf16
+    tolerance (accuracies beyond ACC_ATOL)."""
+    worst = 0.0
+    for i, (ma, mb) in enumerate(zip(a, b)):
+        for k, v in mb.items():
+            err = abs(ma[k] - v)
+            if k.startswith("loss_"):
+                worst = max(worst, err)
+                ok = err <= BF16_ATOL + BF16_RTOL * abs(v)
+            else:
+                ok = err <= ACC_ATOL
+            if not ok:
+                raise AssertionError(f"{what}: step {i} metric {k} {ma[k]} vs {v}")
+    return worst
+
+
+def _replay_errors(a: list, b: list):
+    """Max abs difference of per-step losses and of accuracies, card
+    against the CPU replay of the same bf16 steps."""
+    loss_err = acc_err = 0.0
+    for ma, mb in zip(a, b):
+        for k, v in mb.items():
+            if k.startswith("loss_"):
+                loss_err = max(loss_err, abs(ma[k] - v))
+            else:
+                acc_err = max(acc_err, abs(ma[k] - v))
+    return loss_err, acc_err
+
+
+def phase_train_bf16(torch, FM, C, f32_metrics):
+    """Phase 13: training with bf16 operands on both message passes, on the
+    [train] batches; returns, per pass, the launches of the bf16 forward
+    and of the (f32) backward."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train.trainer import TrainHooks, train
+
+    cfg = GNNConfig()  # shipped widths, batch_size 8, SGD defaults
+    rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
+    gen = SyntheticRadarDataset(cfg, seed=3, num_objects=(6, 10)).batches(bsz)
+    batches = [next(gen) for _ in range(TRAIN_STEPS)]  # the [train] phase's
+    want = rounds * bsz * TRAIN_STEPS
+    counters = {
+        "fused f32 fwd": (FM.fused_message_pass, "launches"),
+        "fused bf16 fwd": (FM.fused_message_pass, "launches_bf16"),
+        "fused bwd": (FM.fused_message_pass_backward, "launches"),
+        "csr f32 fwd": (C.fused_message_pass_csr, "launches"),
+        "csr bf16 fwd": (C.fused_message_pass_csr, "launches_bf16"),
+        "csr bwd": (C.fused_message_pass_csr_backward, "launches"),
+    }
+    launches = {}
+
+    def to_cpu(st):
+        """(params, optimiser state, updates) of a train state, on the CPU."""
+        def cpu(v):
+            return v.detach().cpu().clone() if torch.is_tensor(v) else copy.deepcopy(v)
+        opt = st.optimizer.state_dict()
+        return ({k: cpu(v) for k, v in st.model.state_dict().items()},
+                {"state": {i: {k: cpu(v) for k, v in s.items()}
+                           for i, s in opt["state"].items()},
+                 "param_groups": copy.deepcopy(opt["param_groups"])},
+                st.updates)
+
+    for mp_impl, tag in ((None, "fused"), ("csr", "csr")):
+        state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+        step, card_metrics, snapshots = S.make_train_step(cfg, mp_impl, mp_bf16=True), [], []
+
+        def recording_step(st, batch):
+            snapshots.append(to_cpu(st))
+            st, m = step(st, batch)
+            card_metrics.append({k: float(v) for k, v in m.items()})
+            return st, m
+
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train(cfg, iter(batches), state=state, train_step=recording_step,
+                      max_iters=TRAIN_STEPS,
+                      hooks=TrainHooks(log_period=1, val_period=10**9, print_fn=log))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        expect = {k: (want if k in (f"{tag} bf16 fwd", f"{tag} bwd") else 0) for k in counters}
+        log(f"[train-bf16] {tag}: trainer.train on the card, launches {json.dumps(got)} "
+            f"(expected {rounds} x {bsz} x {TRAIN_STEPS} = {want} bf16 forwards and f32 "
+            f"backwards, nothing else), skipped={[m['skipped'] for m in card_metrics]}, "
+            f"{wall:.2f} s incl. first-call set-up")
+        if got != expect or any(m["skipped"] for m in card_metrics):
+            raise AssertionError(f"the bf16 train path ({tag}) did not run its kernels "
+                                 "once per round and graph")
+        launches[tag] = (got[f"{tag} bf16 fwd"], got[f"{tag} bwd"])
+
+        # Each step replayed on the CPU from the card's state before it, so
+        # that flipped bf16 roundings do not carry from step to step.
+        t0 = time.perf_counter()
+        cpu = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        cpu_step, cpu_metrics, p_err = S.make_train_step(cfg, mp_impl, mp_bf16=True), [], 0.0
+        for i, (before, after, batch) in enumerate(
+                zip(snapshots, snapshots[1:] + [to_cpu(state)], batches)):
+            cpu.model.load_state_dict(before[0])
+            cpu.optimizer.load_state_dict(before[1])
+            cpu.updates = before[2]
+            cpu, m = cpu_step(cpu, batch)
+            cpu_metrics.append({k: float(v) for k, v in m.items()})
+            p_err = max(p_err, _params_close(after[0], cpu.model.state_dict(),
+                                             f"bf16 {tag} card vs CPU, step {i}"))
+        loss_err, acc_err = _replay_errors(card_metrics, cpu_metrics)
+        # The f32 [train] run's step 1 starts from the same params on the
+        # same batch: its losses must lie clearly farther from the replay.
+        f32_gap = max(abs(f32_metrics[0][k] - v) for k, v in cpu_metrics[0].items()
+                      if k.startswith("loss_"))
+        f32_err = _bf16_metrics_close(card_metrics, f32_metrics, f"bf16 {tag} vs the f32 [train] run")
+        log(f"[train-bf16] {tag}: CPU replay of each of the {TRAIN_STEPS} steps from the "
+            f"card's state before it (plain bf16 rounds, {time.perf_counter() - t0:.1f} s): "
+            f"losses max abs err {loss_err:.3e} (atol={BF16_REPLAY_ATOL}), accuracies "
+            f"{acc_err:.3e} (atol={ACC_ATOL}), params after the step max abs err "
+            f"{p_err:.3e} (rtol={PARAM_RTOL}, atol={PARAM_ATOL}); the f32 run's step-1 "
+            f"losses lie {f32_gap:.3e} from the replay (must exceed "
+            f"{BF16_REPLAY_SEPARATION}x the atol); against the f32 [train] run: "
+            f"losses max abs err {f32_err:.3e} (rtol={BF16_RTOL}, atol={BF16_ATOL}); loss "
+            f"{card_metrics[0]['loss_total']:.4f} -> {card_metrics[-1]['loss_total']:.4f}")
+        if loss_err > BF16_REPLAY_ATOL or acc_err > ACC_ATOL:
+            raise AssertionError(f"bf16 {tag}: the card's steps disagree with their CPU replay")
+        if f32_gap <= BF16_REPLAY_SEPARATION * BF16_REPLAY_ATOL:
+            raise AssertionError(f"bf16 {tag}: the f32 run's step-1 losses lie within "
+                                 f"{BF16_REPLAY_SEPARATION}x the tolerance of the bf16 "
+                                 "replay: no rounding shows in training")
+
+        step_ms = []
+        for i in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        timed = step_ms[2:]
+        log(f"[train-bf16] {tag}: ms/step (numpy batch in, synchronised; median of "
+            f"{len(timed)} after 2 warm-up): {np.median(timed):.3f} (min {min(timed):.3f}, "
+            f"max {max(timed):.3f})")
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from graph_neural_network_for_radar_perception_torch.ops import _build
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+    from graph_neural_network_for_radar_perception_torch.scripts import microbench_gather as MB
 
     # f32 means f32: no TF32 in matmuls (the default, stated here).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1106,12 +1515,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # One nvcc per source, all started together (each build is a process).
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = dict(zip(("fused_mp", "csr_mp"),
-                        pool.map(_build.build, ("fused_mp", "csr_mp"))))
-    FM._kernel(), FM._bwd_kernel(), C._kernel(), C._bwd_kernel()
-    log(f"[build] fused_mp (fused_mp_forward, fused_mp_backward), csr_mp "
-        f"(csr_mp_forward, csr_mp_backward): {time.perf_counter() - t0:.1f} s -> "
+    sources = ("fused_mp", "csr_mp", "microbench_gather")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(_build.build, sources)))
+    FM._kernel(), FM._kernel(True), FM._bwd_kernel()
+    C._kernel(), C._kernel(True), C._bwd_kernel()
+    MB._kernels()
+    log(f"[build] fused_mp (fused_mp_forward, fused_mp_forward_bf16, "
+        f"fused_mp_backward), csr_mp (csr_mp_forward, csr_mp_forward_bf16, "
+        f"csr_mp_backward), microbench_gather (gather_rows, scatter_add_rows), "
+        f"in parallel: {time.perf_counter() - t0:.1f} s -> "
         f"{', '.join(os.path.relpath(p, REPO) for p in libs.values())}")
 
     fwd_row = phase_kernel(torch, FM)
@@ -1119,9 +1532,13 @@ def main() -> int:
     csr_row = phase_kernel_csr(torch, C)
     csr_bwd_row = phase_kernel_csr_bwd(torch, C)
     deploy_launches = phase_deploy(torch, FM)
-    train_fwd, train_bwd = phase_train(torch, FM)
+    train_fwd, train_bwd, f32_metrics = phase_train(torch, FM)
     csr_train_fwd, csr_train_bwd = phase_train_csr(torch, FM, C)
     csr_deploy = phase_deploy_csr(torch, FM, C)
+    bf16_row = phase_kernel_bf16(torch, FM)
+    csr_bf16_row = phase_kernel_csr_bf16(torch, C)
+    gather_row, scatter_row = phase_microbench(torch)
+    bf16_launches = phase_train_bf16(torch, FM, C, f32_metrics)
     fwd_row["launches"] = deploy_launches + train_fwd
     fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd}
     bwd_row["launches"] = train_bwd
@@ -1130,7 +1547,18 @@ def main() -> int:
     csr_row["launches_by_path"] = {"deploy-csr": csr_deploy, "train-csr": csr_train_fwd}
     csr_bwd_row["launches"] = csr_train_bwd
     csr_bwd_row["launches_by_path"] = {"train-csr": csr_train_bwd}
-    log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row]}))
+    bwd_row["launches"] += bf16_launches["fused"][1]
+    bwd_row["launches_by_path"]["train-bf16"] = bf16_launches["fused"][1]
+    csr_bwd_row["launches"] += bf16_launches["csr"][1]
+    csr_bwd_row["launches_by_path"]["train-bf16 (csr)"] = bf16_launches["csr"][1]
+    bf16_row["launches"] = bf16_launches["fused"][0]
+    bf16_row["launches_by_path"] = {"train-bf16": bf16_launches["fused"][0]}
+    csr_bf16_row["launches"] = bf16_launches["csr"][0]
+    csr_bf16_row["launches_by_path"] = {"train-bf16 (csr)": bf16_launches["csr"][0]}
+    for row in (gather_row, scatter_row):
+        row["launches_by_path"] = {"microbenchmark": row["launches"]}
+    log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,
+                                csr_bf16_row, gather_row, scatter_row]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -55,7 +55,19 @@
 // warps fill less than one wave, so a launch lasts the chain of the busiest
 // warp: a few edge groups in a row (PERF.md).  Simple first: no wgmma, no
 // TMA, plain tiled f32 products.
+//
+// bf16 operands (csr_mp_forward_bf16).  The TPU kernel's bf16 mode
+// (_fwd_kernel with bf16=True) rounds every MXU operand to bf16 and
+// accumulates in f32, at other points than the fused kernel's: x is rounded
+// *before* the node products (xw = x[...].astype(dt), then dot(xd,
+// w1r.astype(dt))), so the node GEMM's BF16 instantiation rounds both x and
+// W1r/W1s on load, and the edge kernel takes its products unrounded.  After
+// that, as in csrc/fused_mp.cu: ef and W1e, the layer-1 activations and W2,
+// and each message before the segmented sum are rounded; b1, b2, the norms
+// and every sum stay f32.  The forward stays deterministic.  The backward is
+// the f32 one for either forward, as the JAX package's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -68,6 +80,19 @@ constexpr int kTile = 64;          // gemm_kernel output tile (kTile x kTile)
 constexpr int kTileK = 16;         // gemm_kernel depth per stage
 constexpr int kGemmThreads = 256;  // gemm_kernel threads per block (16 x 16)
 constexpr int kSplitRows = 256;    // rows per split-K partial (ops/csr_mp.py _SPLIT_ROWS)
+
+// v as an MXU operand of the TPU kernel: rounded to bf16 (nearest even, as
+// JAX's astype) when BF16, else unchanged.
+template <bool BF16>
+__device__ __forceinline__ float operand(float v) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float4 operand(float4 v) {
+  return make_float4(operand<BF16>(v.x), operand<BF16>(v.y),
+                     operand<BF16>(v.z), operand<BF16>(v.w));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -98,10 +123,12 @@ __device__ __forceinline__ int lower_bound(const int* off, int n, int target) {
 // matrix whose k stride is 1 is read with neighbouring threads on
 // neighbouring k (coalesced); the others with neighbouring threads on
 // neighbouring m or n.  Use only names the instantiation (GemmUse), so that
-// a profile tells the products apart.
+// a profile tells the products apart.  BF16 rounds every element of A and B
+// to bf16 on load (the products of two bf16 values are exact in f32, the
+// sums stay f32).
 enum GemmUse { kNodePartials, kNodeCotangent, kNodeWeightGrad, kEdgeWeightGrad };
 
-template <int Use>
+template <int Use, bool BF16 = false>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const float* __restrict__ A, long long sam, long long sak,
             const float* __restrict__ B, long long sbk, long long sbn,
@@ -139,9 +166,9 @@ gemm_kernel(const float* __restrict__ A, long long sam, long long sak,
 #pragma unroll
     for (int r = 0; r < kLoads; ++r) {
       const int ka = kb + a_k[r], m = m0 + a_q[r];
-      av[r] = (ka < k1 && m < M) ? A[m * sam + ka * sak] : 0.f;
+      av[r] = (ka < k1 && m < M) ? operand<BF16>(A[m * sam + ka * sak]) : 0.f;
       const int kb2 = kb + b_k[r], nn = n0 + b_q[r];
-      bv[r] = (kb2 < k1 && nn < N) ? B[kb2 * sbk + nn * sbn] : 0.f;
+      bv[r] = (kb2 < k1 && nn < N) ? operand<BF16>(B[kb2 * sbk + nn * sbn]) : 0.f;
     }
   };
 
@@ -184,27 +211,29 @@ gemm_kernel(const float* __restrict__ A, long long sam, long long sak,
     }
 }
 
-template <int Use>
+template <int Use, bool BF16 = false>
 cudaError_t gemm(const float* A, long long sam, long long sak, const float* B,
                  long long sbk, long long sbn, float* C, int M, int N, int K,
                  int k_split, const int* k_limit, int accumulate,
                  cudaStream_t stream) {
   const int splits = K > 0 ? (K + k_split - 1) / k_split : 1;
   dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits);
-  gemm_kernel<Use><<<grid, kGemmThreads, 0, stream>>>(A, sam, sak, B, sbk, sbn, C, M,
-                                             N, K, k_split, k_limit,
-                                             accumulate);
+  gemm_kernel<Use, BF16><<<grid, kGemmThreads, 0, stream>>>(
+      A, sam, sak, B, sbk, sbn, C, M, N, K, k_split, k_limit, accumulate);
   return cudaGetLastError();
 }
 
-// x . W1r -> xab[0], x . W1s -> xab[1] (w1 rows: [W1r; W1s; W1e]).
+// x . W1r -> xab[0], x . W1s -> xab[1] (w1 rows: [W1r; W1s; W1e]); with
+// BF16, bf16(x) . bf16(W1r) and bf16(x) . bf16(W1s).
+template <bool BF16 = false>
 cudaError_t node_partials(const float* x, const float* w1, float* xab, int n,
                           int d, int h, cudaStream_t stream) {
-  cudaError_t err = gemm<kNodePartials>(x, d, 1, w1, h, 1, xab, n, h, d, d,
-                                        nullptr, 0, stream);
+  cudaError_t err = gemm<kNodePartials, BF16>(x, d, 1, w1, h, 1, xab, n, h, d,
+                                              d, nullptr, 0, stream);
   if (err != cudaSuccess) return err;
-  return gemm<kNodePartials>(x, d, 1, w1 + static_cast<size_t>(d) * h, h, 1,
-              xab + static_cast<size_t>(n) * h, n, h, d, d, nullptr, 0, stream);
+  return gemm<kNodePartials, BF16>(x, d, 1, w1 + static_cast<size_t>(d) * h, h,
+                                   1, xab + static_cast<size_t>(n) * h, n, h,
+                                   d, d, nullptr, 0, stream);
 }
 
 // out[v, :] = sum over q in [off[v], off[v+1]) of rows[perm ? perm[q] : q, :]
@@ -380,7 +409,9 @@ __device__ __forceinline__ void rows_times(float (&acc)[kEdgesPerWarp][CPL],
 // ---------------------------------------------------------------------------
 // Forward: segmented message pass.  Warp gw of num_warps owns the nodes
 // [va, vb) whose segments start in its share of the off[N] kept positions.
-template <int HPL, int DPL>
+// BF16 rounds W1e, W2, the staged ef rows, the staged layer-1 activations
+// and each message (xa, xb are products of rounded operands already).
+template <int HPL, int DPL, bool BF16>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                const float* __restrict__ ef, const int* __restrict__ src,
@@ -402,9 +433,11 @@ csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 
   const int tid = threadIdx.x;
   for (int i = tid; i < (de * h) / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(s_w1e)[i] = reinterpret_cast<const float4*>(w1e)[i];
+    reinterpret_cast<float4*>(s_w1e)[i] =
+        operand<BF16>(reinterpret_cast<const float4*>(w1e)[i]);
   for (int i = tid; i < (h * d2) / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(s_w2)[i] = reinterpret_cast<const float4*>(w2)[i];
+    reinterpret_cast<float4*>(s_w2)[i] =
+        operand<BF16>(reinterpret_cast<const float4*>(w2)[i]);
   for (int i = tid; i < h; i += blockDim.x) s_b1[i] = b1[i];
   for (int i = tid; i < d2; i += blockDim.x) s_b2[i] = b2[i];
   __syncthreads();
@@ -444,7 +477,7 @@ csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (e0 + j < p_hi)
         v = *reinterpret_cast<const float4*>(ef + static_cast<size_t>(e0) * de + i);
-      *reinterpret_cast<float4*>(stage + j * stage_w + k) = v;
+      *reinterpret_cast<float4*>(stage + j * stage_w + k) = operand<BF16>(v);
     }
     __syncwarp();
 
@@ -474,7 +507,7 @@ csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 #pragma unroll
       for (int t = 0; t < HPL; ++t) {
         const int c = lane + 32 * t;
-        if (c < h) stage[j * stage_w + c] = a1[j][t];
+        if (c < h) stage[j * stage_w + c] = operand<BF16>(a1[j][t]);
       }
     __syncwarp();
 
@@ -503,7 +536,7 @@ csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
         }
       }
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) acc[t] += a2[j][t];
+      for (int t = 0; t < DPL; ++t) acc[t] += operand<BF16>(a2[j][t]);
     }
   }
   for (; cur < vb; ++cur) {
@@ -516,7 +549,7 @@ csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   }
 }
 
-template <int HPL, int DPL>
+template <int HPL, int DPL, bool BF16>
 cudaError_t launch_fwd(const float* xab, const float* ef, const int* src,
                        const int* dst, const int* off, const float* w1e,
                        const float* b1, const float* w2, const float* b2,
@@ -532,7 +565,7 @@ cudaError_t launch_fwd(const float* xab, const float* ef, const int* src,
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(csr_fwd_kernel<HPL, DPL>,
+  err = cudaFuncSetAttribute(csr_fwd_kernel<HPL, DPL, BF16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -541,7 +574,7 @@ cudaError_t launch_fwd(const float* xab, const float* ef, const int* src,
   int num_warps = (e + kEdgesPerWarp - 1) / kEdgesPerWarp;
   if (num_warps < 1) num_warps = 1;
   const int grid = (num_warps + kWarps - 1) / kWarps;
-  csr_fwd_kernel<HPL, DPL><<<grid, kWarps * 32, smem, stream>>>(
+  csr_fwd_kernel<HPL, DPL, BF16><<<grid, kWarps * 32, smem, stream>>>(
       xab, xab + static_cast<size_t>(n) * h, ef, src, dst, off, w1e, b1, w2,
       b2, scal, slope, agg, n, de, h, d2, num_warps);
   return cudaGetLastError();
@@ -806,6 +839,31 @@ bool widths_ok(int n, int e, int d, int de, int h, int d2) {
   X(1, 1) X(1, 2) X(1, 4) X(2, 1) X(2, 2) X(2, 4) \
   X(4, 1) X(4, 2) X(4, 4) X(8, 1) X(8, 2) X(8, 4)
 
+namespace {
+
+template <bool BF16>
+int forward_entry(const float* x, const float* ef, const int* src,
+                  const int* dst, const int* off, const float* w1,
+                  const float* b1, const float* w2, const float* b2,
+                  const float* scal, float* xab, float slope, float* agg,
+                  int n, int e, int d, int de, int h, int d2, void* stream) {
+  if (!widths_ok(n, e, d, de, h, d2)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = node_partials<BF16>(x, w1, xab, n, d, h, s);
+  if (err != cudaSuccess) return err;
+  const float* w1e = w1 + 2 * static_cast<size_t>(d) * h;
+  const int hpl = (h + 31) / 32, dpl = (d2 + 31) / 32;
+#define CSR_FWD(H, D)                                                        \
+  if (hpl == H && dpl == D)                                                  \
+    return launch_fwd<H, D, BF16>(xab, ef, src, dst, off, w1e, b1, w2, b2,   \
+                                  scal, slope, agg, n, e, de, h, d2, s);
+  CSR_WIDTHS(CSR_FWD)
+#undef CSR_FWD
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // Forward entry point, loaded with ctypes.  All pointers are device
 // pointers to contiguous arrays: x [n, d]; ef [e, de]; src, dst [e] int32
 // (effective indices, see the top of this file); off [n + 1] int32;
@@ -820,19 +878,21 @@ extern "C" int csr_mp_forward(const float* x, const float* ef, const int* src,
                               const float* b2, const float* scal, float* xab,
                               float slope, float* agg, int n, int e, int d,
                               int de, int h, int d2, void* stream) {
-  if (!widths_ok(n, e, d, de, h, d2)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = node_partials(x, w1, xab, n, d, h, s);
-  if (err != cudaSuccess) return err;
-  const float* w1e = w1 + 2 * static_cast<size_t>(d) * h;
-  const int hpl = (h + 31) / 32, dpl = (d2 + 31) / 32;
-#define CSR_FWD(H, D)                                                        \
-  if (hpl == H && dpl == D)                                                  \
-    return launch_fwd<H, D>(xab, ef, src, dst, off, w1e, b1, w2, b2, scal,   \
-                            slope, agg, n, e, de, h, d2, s);
-  CSR_WIDTHS(CSR_FWD)
-#undef CSR_FWD
-  return cudaErrorInvalidValue;
+  return forward_entry<false>(x, ef, src, dst, off, w1, b1, w2, b2, scal, xab,
+                              slope, agg, n, e, d, de, h, d2, stream);
+}
+
+// The same with the TPU kernel's bf16 operands (top of this file).
+extern "C" int csr_mp_forward_bf16(const float* x, const float* ef,
+                                   const int* src, const int* dst,
+                                   const int* off, const float* w1,
+                                   const float* b1, const float* w2,
+                                   const float* b2, const float* scal,
+                                   float* xab, float slope, float* agg, int n,
+                                   int e, int d, int de, int h, int d2,
+                                   void* stream) {
+  return forward_entry<true>(x, ef, src, dst, off, w1, b1, w2, b2, scal, xab,
+                             slope, agg, n, e, d, de, h, d2, stream);
 }
 
 // Backward entry point, loaded with ctypes.  Inputs as csr_mp_forward, plus:

@@ -44,6 +44,19 @@
 //   of a frame) is skipped: its messages would be dropped anyway.
 // * The edge axis needs no padding: the ragged tail is masked.
 //
+// bf16 operands (fused_mp_forward_bf16).  The TPU kernel's bf16 mode
+// (_kernel with bf16=True) feeds every MXU dot bf16 operands and accumulates
+// in f32.  The BF16 instantiation rounds (to nearest even,
+// __float2bfloat16_rn) at exactly its points: W1e and W2 when staged, each
+// staged ef row, each gathered xa/xb element (the TPU rounds the products
+// x.W1r and x.W1s, which the caller computes in f32), the layer-1
+// activations when staged for layer 2, and each message before its
+// atomicAdd.  b1, b2, both norms and every sum stay f32.  A product of two
+// bf16 values is exact in f32, so f32 FMAs over rounded operands compute the
+// TPU function up to summation order.  Its bound on this card is the bytes
+// (the same work on bf16 tensor cores, 989 TFLOP/s, takes less time than
+// reading the inputs); tensor-core tiles are later work.
+//
 // ---------------------------------------------------------------------------
 // Backward (fused_mp_backward) for the same round.  Replaces the TPU kernel
 //   graph_neural_network_for_radar_perception_tpu/ops/pallas/fused_mp.py::_bwd_kernel
@@ -88,6 +101,7 @@
 //   rest).  Groups whose receivers are all outside [0, N) are skipped.
 // * Atomics make the summation order, and the last bits, vary per run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -95,6 +109,19 @@ namespace {
 constexpr int kWarps = 8;          // warps per block
 constexpr int kEdgesPerWarp = 8;   // edges a warp carries at once
 constexpr float kEps = 1e-5f;      // reference modules/neural_net/constants.py
+
+// v as an MXU operand of the TPU kernel: rounded to bf16 (nearest even, as
+// JAX's astype) when BF16, else unchanged.
+template <bool BF16>
+__device__ __forceinline__ float operand(float v) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float4 operand(float4 v) {
+  return make_float4(operand<BF16>(v.x), operand<BF16>(v.y),
+                     operand<BF16>(v.z), operand<BF16>(v.w));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -138,7 +165,7 @@ __device__ __forceinline__ void cnorm_lrelu(float (&v)[kEdgesPerWarp][CPL],
   }
 }
 
-template <int HPL, int DPL>
+template <int HPL, int DPL, bool BF16>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_mp_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                     const float* __restrict__ ef,
@@ -162,9 +189,11 @@ fused_mp_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 
   const int tid = threadIdx.x;
   for (int i = tid; i < (de * h) / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(s_w1e)[i] = reinterpret_cast<const float4*>(w1e)[i];
+    reinterpret_cast<float4*>(s_w1e)[i] =
+        operand<BF16>(reinterpret_cast<const float4*>(w1e)[i]);
   for (int i = tid; i < (h * d2) / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(s_w2)[i] = reinterpret_cast<const float4*>(w2)[i];
+    reinterpret_cast<float4*>(s_w2)[i] =
+        operand<BF16>(reinterpret_cast<const float4*>(w2)[i]);
   for (int i = tid; i < h; i += blockDim.x) s_b1[i] = b1[i];
   for (int i = tid; i < d2; i += blockDim.x) s_b2[i] = b2[i];
   __syncthreads();
@@ -194,7 +223,7 @@ fused_mp_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (e0 + j < e)
         v = *reinterpret_cast<const float4*>(ef + static_cast<size_t>(e0) * de + i);
-      *reinterpret_cast<float4*>(stage + j * stage_w + k) = v;
+      *reinterpret_cast<float4*>(stage + j * stage_w + k) = operand<BF16>(v);
     }
     __syncwarp();
 
@@ -209,8 +238,8 @@ fused_mp_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
         float v = 0.f;
         if (c < h) {
           v = s_b1[c];
-          if (rok) v += xa[static_cast<size_t>(recv[j]) * h + c];
-          if (sok) v += xb[static_cast<size_t>(send[j]) * h + c];
+          if (rok) v += operand<BF16>(xa[static_cast<size_t>(recv[j]) * h + c]);
+          if (sok) v += operand<BF16>(xb[static_cast<size_t>(send[j]) * h + c]);
         }
         a1[j][t] = v;
       }
@@ -246,7 +275,7 @@ fused_mp_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 #pragma unroll
       for (int t = 0; t < HPL; ++t) {
         const int c = lane + 32 * t;
-        if (c < h) stage[j * stage_w + c] = a1[j][t];
+        if (c < h) stage[j * stage_w + c] = operand<BF16>(a1[j][t]);
       }
     __syncwarp();
 
@@ -292,13 +321,13 @@ fused_mp_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 #pragma unroll
       for (int t = 0; t < DPL; ++t) {
         const int c = lane + 32 * t;
-        if (c < d2) atomicAdd(row + c, a2[j][t]);
+        if (c < d2) atomicAdd(row + c, operand<BF16>(a2[j][t]));
       }
     }
   }
 }
 
-template <int HPL, int DPL>
+template <int HPL, int DPL, bool BF16>
 cudaError_t launch(const float* xa, const float* xb, const float* ef,
                    const int* senders, const int* receivers, const float* w1e,
                    const float* b1, const float* w2, const float* b2,
@@ -316,20 +345,20 @@ cudaError_t launch(const float* xa, const float* xb, const float* ef,
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_mp_fwd_kernel<HPL, DPL>,
+  err = cudaFuncSetAttribute(fused_mp_fwd_kernel<HPL, DPL, BF16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int groups = (e + kEdgesPerWarp - 1) / kEdgesPerWarp;
   int grid = (groups + kWarps - 1) / kWarps;
   if (grid > 2 * sms) grid = 2 * sms;  // grid-stride beyond two blocks per SM
-  fused_mp_fwd_kernel<HPL, DPL><<<grid, kWarps * 32, smem, stream>>>(
+  fused_mp_fwd_kernel<HPL, DPL, BF16><<<grid, kWarps * 32, smem, stream>>>(
       xa, xb, ef, senders, receivers, w1e, b1, w2, b2, scal, slope, agg, n, e,
       de, h, d2);
   return cudaGetLastError();
 }
 
-template <int HPL>
+template <int HPL, bool BF16>
 cudaError_t dispatch_d2(const float* xa, const float* xb, const float* ef,
                         const int* senders, const int* receivers,
                         const float* w1e, const float* b1, const float* w2,
@@ -339,8 +368,8 @@ cudaError_t dispatch_d2(const float* xa, const float* xb, const float* ef,
   const int dpl = (d2 + 31) / 32;
 #define FMP_CASE(D)                                                          \
   case D:                                                                    \
-    return launch<HPL, D>(xa, xb, ef, senders, receivers, w1e, b1, w2, b2,   \
-                          scal, slope, agg, n, e, de, h, d2, stream);
+    return launch<HPL, D, BF16>(xa, xb, ef, senders, receivers, w1e, b1, w2, \
+                                b2, scal, slope, agg, n, e, de, h, d2, stream);
   switch (dpl) {
     FMP_CASE(1)
     FMP_CASE(2)
@@ -833,6 +862,35 @@ extern "C" int fused_mp_backward(
   return cudaErrorInvalidValue;
 }
 
+namespace {
+
+template <bool BF16>
+int forward_entry(const float* xa, const float* xb, const float* ef,
+                  const int* senders, const int* receivers, const float* w1e,
+                  const float* b1, const float* w2, const float* b2,
+                  const float* scal, float slope, float* agg, int n, int e,
+                  int de, int h, int d2, void* stream) {
+  if (e <= 0 || n <= 0 || de <= 0 || de % 4 || h % 4 || d2 % 4)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hpl = (h + 31) / 32;
+#define FMP_CASE(H)                                                          \
+  case H:                                                                    \
+    return dispatch_d2<H, BF16>(xa, xb, ef, senders, receivers, w1e, b1, w2, \
+                                b2, scal, slope, agg, n, e, de, h, d2, s);
+  switch (hpl) {
+    FMP_CASE(1)
+    FMP_CASE(2)
+    FMP_CASE(4)
+    FMP_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FMP_CASE
+}
+
+}  // namespace
+
 // Plain C entry point, loaded with ctypes.  All pointers are device pointers
 // to contiguous arrays: xa, xb [n, h]; ef [e, de]; senders, receivers [e]
 // int32; w1e [de, h]; b1 [h]; w2 [h, d2]; b2 [d2]; scal [4] = (g1, be1, g2,
@@ -846,21 +904,19 @@ extern "C" int fused_mp_forward(const float* xa, const float* xb,
                                 const float* b2, const float* scal,
                                 float slope, float* agg, int n, int e, int de,
                                 int h, int d2, void* stream) {
-  if (e <= 0 || n <= 0 || de <= 0 || de % 4 || h % 4 || d2 % 4)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hpl = (h + 31) / 32;
-#define FMP_CASE(H)                                                          \
-  case H:                                                                    \
-    return dispatch_d2<H>(xa, xb, ef, senders, receivers, w1e, b1, w2, b2,   \
-                          scal, slope, agg, n, e, de, h, d2, s);
-  switch (hpl) {
-    FMP_CASE(1)
-    FMP_CASE(2)
-    FMP_CASE(4)
-    FMP_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef FMP_CASE
+  return forward_entry<false>(xa, xb, ef, senders, receivers, w1e, b1, w2, b2,
+                              scal, slope, agg, n, e, de, h, d2, stream);
+}
+
+// The same with the TPU kernel's bf16 operands (top of this file): the same
+// arguments, xa and xb the f32 products x . W1r and x . W1s.
+extern "C" int fused_mp_forward_bf16(const float* xa, const float* xb,
+                                     const float* ef, const int* senders,
+                                     const int* receivers, const float* w1e,
+                                     const float* b1, const float* w2,
+                                     const float* b2, const float* scal,
+                                     float slope, float* agg, int n, int e,
+                                     int de, int h, int d2, void* stream) {
+  return forward_entry<true>(xa, xb, ef, senders, receivers, w1e, b1, w2, b2,
+                             scal, slope, agg, n, e, de, h, d2, stream);
 }

@@ -18,7 +18,9 @@ fused round, the hand-written kernel on a CUDA device:
 ``ops.fused_mp.fused_message_pass`` (``mp_impl`` None or "onehot") or
 ``ops.csr_mp.fused_message_pass_csr`` ("csr", over the reversed edge
 enumeration; ``RadarGNN.trunk`` reverses the raw edge features).  Other
-configurations run the plain gather → MLP → segment path.
+configurations run the plain gather → MLP → segment path.  ``mp_bf16``
+runs the fused rounds with the TPU kernels' bf16 operands (the JAX
+package's ``fast_forward(mp_bf16=True)``); it needs a fused round.
 """
 
 from __future__ import annotations
@@ -200,14 +202,18 @@ class ResidualGraphConvBlock(nn.Module):
                                 norm_layer, num_groups)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                csr_layout=None):
+                csr_layout=None, mp_bf16=False):
         """On the fused path, masked edges must carry the sentinel index N
         at both ends (``GraphConvolution`` maps them).  With a
         ``csr_layout`` (the graph's ``ops.csr_mp.csr_layout``, shared by its
         rounds) the round goes through the CSR pass: position p is the edge
         (receivers[p] → senders[p]), so dst = senders (sorted), src =
         receivers, and w1's row order [x_recv ‖ x_send ‖ e] is unchanged
-        (the JAX package's models/fast_path.py)."""
+        (the JAX package's models/fast_path.py).  ``mp_bf16``: the fused
+        round's bf16 operands; a ``ValueError`` if this round is not fused."""
+        if mp_bf16 and not self.fused:
+            raise ValueError("mp_bf16 needs the fused round: channel "
+                             "normalisation, leaky ReLU and sum aggregation")
         n = x.shape[0]
         if self.identity is not None:
             identity = self.identity_norm(self.identity(x), node_mask)
@@ -222,10 +228,10 @@ class ResidualGraphConvBlock(nn.Module):
             if csr_layout is not None:
                 agg = C.fused_message_pass_csr(
                     x, edge_feat, receivers, senders, *params,
-                    layout=csr_layout)
+                    bf16=mp_bf16, layout=csr_layout)
             else:
                 agg = fused_message_pass(x, edge_feat, senders, receivers,
-                                         *params)
+                                         *params, bf16=mp_bf16)
         else:
             m = torch.cat([S.gather_nodes(x, receivers),
                            S.gather_nodes(x, senders), edge_feat], dim=-1)
@@ -262,9 +268,12 @@ class GraphConvolution(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                mp_impl=None):
+                mp_impl=None, mp_bf16=False):
         """``mp_impl`` overrides the one given at construction.  On "csr",
-        ``edge_feat`` must encode the reversed edges' raw features."""
+        ``edge_feat`` must encode the reversed edges' raw features.
+        ``mp_bf16``: the fused rounds' bf16 operands (each block raises
+        ``ValueError`` unless its round is fused, where the JAX fast path
+        asserts)."""
         mp_impl = mp_impl or self.mp_impl
         if mp_impl == "csr" and not self.fused:
             raise ValueError("mp_impl='csr' needs channel normalisation, "
@@ -285,7 +294,7 @@ class GraphConvolution(nn.Module):
                                   *self.csr_tiling)
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
-                    layout)
+                    layout, mp_bf16)
         return x
 
     def _csr_guard(self, senders, receivers, n):

@@ -11,7 +11,9 @@ stack → four task heads, over ONE padded graph.
 
 Both run the message rounds through ``cfg.mp_impl`` unless the call names
 another (``mp_impl=``): the fused round, or the CSR round (the JAX
-package's models/fast_path.py with ``mp_impl="csr"``).
+package's models/fast_path.py with ``mp_impl="csr"``).  ``forward`` takes
+``mp_bf16`` (the rounds' bf16 operands, ``fast_forward(mp_bf16=True)``);
+``deploy`` does not, as the JAX package's deploy does not.
 """
 
 from __future__ import annotations
@@ -100,13 +102,15 @@ class RadarGNN(nn.Module):
             generator = torch.Generator().manual_seed(cfg.seed)
         init_parameters(self, generator)
 
-    def trunk(self, graph: RadarGraph, mp_impl: Optional[str] = None):
+    def trunk(self, graph: RadarGraph, mp_impl: Optional[str] = None,
+              mp_bf16: bool = False):
         """Encoders + message passing → final node embeddings
         (gnn_detector.py:151-156).  On "csr" (fast_path.py:125-156) the edge
         encoder reads the reversed edges' raw features, and
         ``GraphConvolution`` zeroes masked edge rows and adds the NaN guard
         of window violations; each directed edge is still encoded once,
-        just enumerated differently."""
+        just enumerated differently.  ``mp_bf16``: the message rounds' bf16
+        operands."""
         mp_impl = mp_impl or self.cfg.mp_impl
         nm, em = graph.node_mask, graph.edge_mask
         x = self.encode_node_feat(graph.node_feat, nm)
@@ -115,12 +119,13 @@ class RadarGNN(nn.Module):
             edge_feat = reverse_edge_features(edge_feat)
         e = self.encode_edge_feat(edge_feat, em)
         return self.pass_messages(x, e, graph.senders, graph.receivers, nm, em,
-                                  mp_impl)
+                                  mp_impl, mp_bf16)
 
     def forward(self, graph: RadarGraph, node2cluster, num_clusters: int,
-                cluster_mask, mp_impl: Optional[str] = None) -> GNNOutputs:
+                cluster_mask, mp_impl: Optional[str] = None,
+                mp_bf16: bool = False) -> GNNOutputs:
         nm = graph.node_mask
-        x = self.trunk(graph, mp_impl)
+        x = self.trunk(graph, mp_impl, mp_bf16)
         node_cls = self.predict_node(x, nm)
         node_off = self.predict_offset(x, nm)
         edge_cls = self.predict_link(

@@ -39,6 +39,13 @@ The kernels need dst non-decreasing over the edges they keep (as
 ``csr_mp.py:589-590`` states for the TPU kernel's callers); every producer
 in the repo meets it (``pad_frame``'s row-major list, ``spatial_sort_frame``,
 ``merge_frames``).
+
+``bf16=True`` is the TPU kernel's bf16 mode, which rounds at other points
+than the fused round's: x and W1r/W1s are rounded *before* the node
+products (``_fwd_kernel``: ``xw = x[...].astype(dt)``), then ef, W1e, the
+layer-1 activations, W2 and each message, as in ``ops.fused_mp``.  The
+forward runs ``csr_mp_forward_bf16`` or the plain bf16 version; the
+backward stays the f32 one.
 """
 
 from __future__ import annotations
@@ -52,12 +59,14 @@ import torch
 
 from ._build import load
 from .fused_mp import (
+    _bf16,
     _check,
     _check_kernel_widths,
     _cnorm_act_bwd,
     _cnorm_stats,
     _scalar,
     fused_message_pass_reference,
+    message_pass_bf16_plain,
 )
 
 # Sign of each raw edge feature under edge reversal (s→r) ↦ (r→s):
@@ -282,17 +291,32 @@ def csr_layout(src, dst, n: int, edge_tile: int = 512, window: int = 256,
 
 
 # ---------------------------------------------------------- plain versions
+def _forward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2,
+                   slope, bf16):
+    """The round over effective indices (receiver = dst, sender = src).
+    ``bf16``: x, W1r and W1s rounded before the node products, then the
+    operands of ``message_pass_bf16_plain``."""
+    if not bf16:
+        return fused_message_pass_reference(
+            x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2, slope)
+    d = x.shape[1]
+    xr = _bf16(x)
+    return message_pass_bf16_plain(
+        xr @ _bf16(w1[:d]), xr @ _bf16(w1[d:2 * d]), ef, src_e, dst_e,
+        w1[2 * d:], b1, w2, b2, g1, be1, g2, be2, slope)
+
+
 def fused_message_pass_csr_reference(
     x, ef, src, dst, w1, b1, w2, b2, g1, be1, g2, be2, slope=0.01,
-    edge_tile=512, window=256, src_window=0,
+    edge_tile=512, window=256, src_window=0, bf16=False,
 ):
     """Plain PyTorch version of what ``_forward_impl`` returns, for any
-    input (contract-violating ones included): the plain fused round over
-    the effective indices (receiver = dst, sender = src)."""
+    input (contract-violating ones included): the plain round over the
+    effective indices, with the TPU kernel's bf16 operands if ``bf16``."""
     src_e, dst_e = _effective_indices(src, dst, x.shape[0], edge_tile,
                                       window, src_window)
-    return fused_message_pass_reference(
-        x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2, slope)
+    return _forward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2,
+                          be2, slope, bf16)
 
 
 def _backward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2,
@@ -356,9 +380,11 @@ def fused_message_pass_csr_backward_reference(
 
 # ------------------------------------------------------------- the kernels
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The forward kernel's C entry point, built and loaded on first use."""
-    fn = load("csr_mp").csr_mp_forward
+def _kernel(bf16: bool = False):
+    """The forward kernel's C entry point (its bf16 instantiation with
+    ``bf16``), built and loaded on first use."""
+    lib = load("csr_mp")
+    fn = lib.csr_mp_forward_bf16 if bf16 else lib.csr_mp_forward
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_float, ctypes.c_void_p] + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -379,8 +405,9 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope):
-    """One launch of ``csr_mp_forward``; every agg row is written once."""
+def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
+    """One launch of ``csr_mp_forward`` (``csr_mp_forward_bf16`` with
+    ``bf16``); every agg row is written once."""
     _check_kernel_widths("fused_message_pass_csr", x, ef, w1, w2)
     n, d = x.shape
     e, de = ef.shape
@@ -388,7 +415,7 @@ def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope):
     agg = torch.empty(n, d2, dtype=torch.float32, device=x.device)
     xab = torch.empty(2, n, h, dtype=torch.float32, device=x.device)  # scratch
     with torch.cuda.device(x.device):
-        rc = _kernel()(
+        rc = _kernel(bf16)(
             x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
             layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
@@ -396,8 +423,12 @@ def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope):
             agg.data_ptr(), n, e, d, de, h, d2, _stream(x),
         )
     if rc != 0:
-        raise RuntimeError(f"csr_mp_forward failed: cudaError_t {rc}")
-    fused_message_pass_csr.launches += 1
+        raise RuntimeError(f"csr_mp_forward{'_bf16' if bf16 else ''} failed: "
+                           f"cudaError_t {rc}")
+    if bf16:
+        fused_message_pass_csr.launches_bf16 += 1
+    else:
+        fused_message_pass_csr.launches += 1
     return agg
 
 
@@ -471,13 +502,6 @@ def _splits(rows: int) -> int:
 
 
 # ------------------------------------------------------------ the wrappers
-def _check_csr(x, ef, src, dst, w1, b1, w2, b2, bf16):
-    if bf16:
-        raise NotImplementedError(
-            "bf16 operands of the CSR round are not ported yet (ROADMAP.md A4)")
-    _check(x, ef, src, dst, w1, b1, w2, b2)
-
-
 def _check_gout(g_out, x, w2):
     n, d2 = x.shape[0], w2.shape[1]
     if tuple(g_out.shape) != (n, d2) or g_out.dtype != torch.float32:
@@ -496,7 +520,7 @@ def fused_message_pass_csr_backward(
     input launches the kernel (or raises); a CPU input runs the plain
     version.  ``fused_message_pass_csr_backward.launches`` counts kernel
     launches."""
-    _check_csr(x, ef, src, dst, w1, b1, w2, b2, False)
+    _check(x, ef, src, dst, w1, b1, w2, b2)
     _check_gout(g_out, x, w2)
     if x.device.type == "cpu":
         return fused_message_pass_csr_backward_reference(
@@ -511,17 +535,19 @@ def fused_message_pass_csr_backward(
 
 class _FusedMessagePassCSR(torch.autograd.Function):
     """Autograd node of one CSR round (the JAX package's ``custom_vjp`` with
-    ``pallas_backward=True``), over a graph's ``CSRLayout``."""
+    ``pallas_backward=True``), over a graph's ``CSRLayout``.  A bf16
+    forward gets the same f32 backward: the flag is not passed on."""
 
     @staticmethod
-    def forward(ctx, x, ef, w1, b1, w2, b2, g1, be1, g2, be2, slope, layout):
+    def forward(ctx, x, ef, w1, b1, w2, b2, g1, be1, g2, be2, slope, layout,
+                bf16):
         scal = torch.cat([g1, be1, g2, be2])
         if x.device.type == "cpu":
-            agg = fused_message_pass_reference(
-                x, ef, layout.src, layout.dst, w1, b1, w2, b2, g1, be1, g2,
-                be2, slope)
+            agg = _forward_plain(x, ef, layout.src, layout.dst, w1, b1, w2,
+                                 b2, g1, be1, g2, be2, slope, bf16)
         else:
-            agg = _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope)
+            agg = _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope,
+                                bf16)
         ctx.slope, ctx.layout = slope, layout
         ctx.save_for_backward(x, ef, w1, b1, w2, b2, scal)
         return agg
@@ -540,7 +566,7 @@ class _FusedMessagePassCSR(torch.autograd.Function):
             dx, gef, dw1, db1, dw2, db2, *dscal = _backward_cuda(
                 x, ef, layout, w1, b1, w2, b2, scal, g_out, ctx.slope)
         return (dx, gef, dw1, db1, dw2, db2,
-                *(v.reshape(1) for v in dscal), None, None)
+                *(v.reshape(1) for v in dscal), None, None, None)
 
 
 def fused_message_pass_csr(
@@ -555,23 +581,26 @@ def fused_message_pass_csr(
     w1: [2D+De, H] with rows [dst ‖ src ‖ edge]; b1: [H]; w2: [H, D2]; b2:
     [D2]; g1, be1, g2, be2: scalar norm affine parameters.  ``edge_tile``,
     ``window`` and ``src_window`` set the TPU kernel's window semantics
-    (module docstring).  ``bf16=True`` raises ``NotImplementedError``.
-    ``layout``: the graph's ``csr_layout(src, dst, N, edge_tile, window,
-    src_window)``, made once and passed to every round of the graph (it
-    then stands for src, dst and the tiling), or None to make it here.
+    (module docstring).  ``bf16``: the TPU kernel's bf16 operands (module
+    docstring); the gradients are those of the f32 round.  ``layout``: the
+    graph's ``csr_layout(src, dst, N, edge_tile, window, src_window)``, made
+    once and passed to every round of the graph (it then stands for src,
+    dst and the tiling), or None to make it here.
     Returns agg [N, D2] f32.
 
     A CUDA input launches the kernels (or raises); a CPU input runs the
-    plain versions.  ``fused_message_pass_csr.launches`` counts forward
-    kernel launches."""
-    _check_csr(x, ef, src, dst, w1, b1, w2, b2, bf16)
+    plain versions.  ``fused_message_pass_csr.launches`` counts launches of
+    the f32 forward kernel, ``fused_message_pass_csr.launches_bf16`` those
+    of its bf16 instantiation."""
+    _check(x, ef, src, dst, w1, b1, w2, b2)
     scalars = [_scalar(v, x) for v in (g1, be1, g2, be2)]
     if layout is None:
         layout = csr_layout(src, dst, x.shape[0], edge_tile, window,
                             src_window)
     return _FusedMessagePassCSR.apply(x, ef, w1, b1, w2, b2, *scalars, slope,
-                                      layout)
+                                      layout, bool(bf16))
 
 
 fused_message_pass_csr.launches = 0
+fused_message_pass_csr.launches_bf16 = 0
 fused_message_pass_csr_backward.launches = 0

@@ -22,6 +22,13 @@ through ``_FusedMessagePass``:
 Sentinel semantics are the TPU kernel's: a receiver outside [0, N) drops
 the message; a sender outside [0, N) contributes a zero x_s while the
 message still counts.  Padded edges carry N at both ends.
+
+``bf16=True`` is the TPU kernel's bf16 mode (``_kernel`` with ``bf16``):
+every operand of a matrix product is rounded to bfloat16 and every product
+accumulates in float32 — a different function from the f32 round.  The
+forward runs the kernel's bf16 instantiation (``fused_mp_forward_bf16``) or
+``fused_message_pass_reference(..., bf16=True)``; the backward stays the
+f32 recompute, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -40,12 +47,49 @@ _SUPPORTED_DPL = (1, 2, 4)     # ceil(D2 / 32)
 _TINY = 1e-30  # guards 0/0 in the norm backward for all-constant rows
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest, ties to even, as JAX's
+    ``astype``) and back to float32."""
+    return t.bfloat16().float()
+
+
+def message_pass_bf16_plain(xa, xb, ef, senders, receivers, w1e, b1, w2, b2,
+                            g1, be1, g2, be2, slope):
+    """One round with the TPU kernels' bf16 operands, over the node
+    partials xa, xb [N, H] (already rounded as the caller's kernel rounds
+    them): pre1 = xa[r] + xb[s] + bf16(ef)·bf16(W1e) + b1, the layer-1
+    activations rounded before ·bf16(W2), each message rounded before the
+    scatter-add; biases, norms and sums in f32.  Sentinels as
+    ``fused_message_pass_reference``."""
+    n, h = xa.shape
+    s, r = senders.long(), receivers.long()
+    sentinel = torch.full_like(r, n)
+    ri = torch.where((r >= 0) & (r < n), r, sentinel)
+    si = torch.where((s >= 0) & (s < n), s, sentinel)
+    zero = xa.new_zeros(1, h)  # row n: the zero row
+    pre1 = (torch.cat([xa, zero])[ri] + torch.cat([xb, zero])[si]
+            + _bf16(ef) @ _bf16(w1e) + b1)
+    m1 = _bf16(F.leaky_relu(channel_norm(pre1, g1, be1), slope))
+    m2 = F.leaky_relu(channel_norm(m1 @ _bf16(w2) + b2, g2, be2), slope)
+    out = xa.new_zeros(n + 1, w2.shape[1])
+    out.index_add_(0, ri, _bf16(m2))
+    return out[:n]
+
+
 def fused_message_pass_reference(
     x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope=0.01,
+    bf16=False,
 ):
     """Plain PyTorch version: gather → two Linear + channel_norm + leaky-ReLU
-    stages → ``index_add_``.  w1: [2D+De, H], w2: [H, D2] (in × out)."""
+    stages → ``index_add_``.  w1: [2D+De, H], w2: [H, D2] (in × out).
+    ``bf16``: the TPU kernel's bf16 mode, which rounds the f32 products
+    xa = x·W1r and xb = x·W1s (``_forward_impl``) and then the operands of
+    ``message_pass_bf16_plain``."""
     n, d = x.shape
+    if bf16:
+        return message_pass_bf16_plain(
+            _bf16(x @ w1[:d]), _bf16(x @ w1[d:2 * d]), ef, senders, receivers,
+            w1[2 * d:], b1, w2, b2, g1, be1, g2, be2, slope)
     s, r = senders.long(), receivers.long()
     s_ok = (s >= 0) & (s < n)
     r_ok = (r >= 0) & (r < n)
@@ -125,9 +169,11 @@ def fused_message_pass_backward_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The forward kernel's C entry point, built and loaded on first use."""
-    fn = load("fused_mp").fused_mp_forward
+def _kernel(bf16: bool = False):
+    """The forward kernel's C entry point (its bf16 instantiation with
+    ``bf16``), built and loaded on first use."""
+    lib = load("fused_mp")
+    fn = lib.fused_mp_forward_bf16 if bf16 else lib.fused_mp_forward
     fn.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_float, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -191,12 +237,13 @@ def _check_kernel_widths(name, x, ef, w1, w2):
 
 
 def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
-             slope):
-    """One forward round: the plain version on the CPU, else the kernel."""
+             slope, bf16=False):
+    """One forward round: the plain version on the CPU, else the kernel
+    (its bf16 instantiation with ``bf16``)."""
     if x.device.type == "cpu":
         return fused_message_pass_reference(
-            x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope
-        )
+            x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope,
+            bf16)
     _check_kernel_widths("fused_message_pass", x, ef, w1, w2)
     n, d = x.shape
     e, de = ef.shape
@@ -210,7 +257,7 @@ def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
     agg = torch.zeros(n, d2, dtype=torch.float32, device=x.device)
     if e == 0:
         return agg
-    fn = _kernel()
+    fn = _kernel(bf16)
     with torch.cuda.device(x.device):
         rc = fn(
             xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), senders.data_ptr(),
@@ -220,8 +267,12 @@ def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_mp_forward failed: cudaError_t {rc}")
-    fused_message_pass.launches += 1
+        raise RuntimeError(f"fused_mp_forward{'_bf16' if bf16 else ''} failed: "
+                           f"cudaError_t {rc}")
+    if bf16:
+        fused_message_pass.launches_bf16 += 1
+    else:
+        fused_message_pass.launches += 1
     return agg
 
 
@@ -286,16 +337,17 @@ class _FusedMessagePass(torch.autograd.Function):
     """Autograd node of one round (the JAX package's ``custom_vjp`` with
     ``pallas_backward=True``).  The forward saves its inputs; the backward
     runs ``fused_message_pass_backward`` and finishes as ``_backward_impl``
-    does: dx = dxa·W1rᵀ + dxb·W1sᵀ, dW1 = [xᵀ·dxa; xᵀ·dxb; dW1e]."""
+    does: dx = dxa·W1rᵀ + dxb·W1sᵀ, dW1 = [xᵀ·dxa; xᵀ·dxb; dW1e].  A bf16
+    forward gets the same f32 backward: the flag is not passed on."""
 
     @staticmethod
     def forward(ctx, x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2,
-                be2, slope):
+                be2, slope, bf16):
         ctx.slope = slope
         ctx.save_for_backward(x, ef, senders, receivers, w1, b1, w2, b2, g1,
                               be1, g2, be2)
         return _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1,
-                        g2, be2, slope)
+                        g2, be2, slope, bf16)
 
     @staticmethod
     def backward(ctx, g_out):
@@ -310,11 +362,12 @@ class _FusedMessagePass(torch.autograd.Function):
         dx = dxa @ w1[:d].t() + dxb @ w1[d : 2 * d].t()
         dw1 = torch.cat([x.t() @ dxa, x.t() @ dxb, dw1e])
         return (dx, gef, None, None, dw1, db1, dw2, db2, dg1.reshape(1),
-                dbe1.reshape(1), dg2.reshape(1), dbe2.reshape(1), None)
+                dbe1.reshape(1), dg2.reshape(1), dbe2.reshape(1), None, None)
 
 
 def fused_message_pass(
     x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope=0.01,
+    bf16=False,
 ):
     """agg[n] = Σ_{e: recv=n} msgMLP([x_recv ‖ x_send ‖ ef]), differentiable.
 
@@ -322,16 +375,20 @@ def fused_message_pass(
     edges carry N); w1: [2D+De, H]; b1: [H]; w2: [H, D2]; b2: [D2]; g1, be1,
     g2, be2: scalar norm affine parameters (one-element tensors or floats;
     their gradients have shape (1,), as ``ScalarNorm``'s parameters).
-    Returns agg [N, D2] f32.
+    ``bf16``: the TPU kernel's bf16 operands (module docstring); the
+    gradients are those of the f32 round.  Returns agg [N, D2] f32.
 
     A CUDA input launches the kernels (or raises); a CPU input runs the
-    plain versions.  ``fused_message_pass.launches`` counts forward kernel
-    launches; under ``torch.no_grad()`` nothing is saved for a backward."""
+    plain versions.  ``fused_message_pass.launches`` counts launches of the
+    f32 forward kernel, ``fused_message_pass.launches_bf16`` those of its
+    bf16 instantiation; under ``torch.no_grad()`` nothing is saved for a
+    backward."""
     _check(x, ef, senders, receivers, w1, b1, w2, b2)
     scalars = [_scalar(v, x) for v in (g1, be1, g2, be2)]
     return _FusedMessagePass.apply(x, ef, senders, receivers, w1, b1, w2, b2,
-                                   *scalars, slope)
+                                   *scalars, slope, bool(bf16))
 
 
 fused_message_pass.launches = 0
+fused_message_pass.launches_bf16 = 0
 fused_message_pass_backward.launches = 0

@@ -97,19 +97,22 @@ def batch_on(batch: GraphBatch, device) -> GraphBatch:
     return batch.to(device)
 
 
-def make_loss_fn(cfg: GNNConfig, mp_impl: Optional[str] = None) -> Callable:
+def make_loss_fn(cfg: GNNConfig, mp_impl: Optional[str] = None,
+                 mp_bf16: bool = False) -> Callable:
     """(model, batch) → (total loss, metrics) over the B graphs of a batch:
     one model call per graph, per-graph LossSums added, then divided.  The
     per-graph loop keeps layer/group norm statistics per graph, as the JAX
     package's vmap does.  ``mp_impl`` ("onehot" | "csr") overrides
-    ``cfg.mp_impl`` for the message rounds, as the JAX signature's does."""
+    ``cfg.mp_impl`` for the message rounds, as the JAX signature's does;
+    ``mp_bf16`` runs them with bf16 operands (f32 accumulation and
+    backward), as the JAX package's fast path does."""
 
     def loss_fn(model: RadarGNN, batch: GraphBatch):
         sums = []
         for b in range(batch.batch_size):
             graph, labels = batch.graph.at(b), batch.labels.at(b)
             out = model(graph, labels.node2cluster, cfg.max_clusters,
-                        labels.cluster_mask, mp_impl=mp_impl)
+                        labels.cluster_mask, mp_impl=mp_impl, mp_bf16=mp_bf16)
             sums.append(graph_loss_sums(out, graph, labels, cfg))
         return reduce_loss_sums(tree_sum(sums), cfg)
 
@@ -142,16 +145,17 @@ def _apply_update(state: TrainState, grads: List[torch.Tensor],
     state.updates += 1
 
 
-def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None) -> Callable:
+def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,
+                    mp_bf16: bool = False) -> Callable:
     """(state, batch) → (state, metrics); single device.  The batch may hold
     numpy arrays or tensors; it is moved to the model's device.  metrics are
     0-d tensors on that device, ``skipped`` = 1.0 for a skipped batch (a
     non-finite loss or gradient, such as the CSR round's NaN guard gives).
-    ``mp_impl`` overrides ``cfg.mp_impl`` (``make_loss_fn``).  The step's
+    ``mp_impl`` and ``mp_bf16`` as in ``make_loss_fn``.  The step's
     three parts are profiler ranges: ``train_step.forward`` (batch to
     device, loss), ``train_step.backward`` and ``train_step.update``
     (finiteness check, optimiser)."""
-    loss_fn = make_loss_fn(cfg, mp_impl)
+    loss_fn = make_loss_fn(cfg, mp_impl, mp_bf16)
     schedule = lr_schedule(cfg)
 
     def train_step(state: TrainState, batch: GraphBatch
@@ -185,13 +189,14 @@ def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None) -> Callable:
 
 
 def make_train_scan(cfg: GNNConfig, length: int,
-                    mp_impl: Optional[str] = None) -> Callable:
+                    mp_impl: Optional[str] = None,
+                    mp_bf16: bool = False) -> Callable:
     """(state, batches) → (state, last step's metrics): ``length`` train
     steps in sequence, with ``make_train_step``'s results.  ``batches`` is
     one batch reused every step, or batches stacked on a leading [length]
     axis (node_feat of rank 4).  Capturing the steps as one CUDA graph is
     later work (ROADMAP.md)."""
-    step = make_train_step(cfg, mp_impl)
+    step = make_train_step(cfg, mp_impl, mp_bf16)
 
     def run(state: TrainState, batches: GraphBatch):
         stacked = batches.graph.node_feat.ndim == 4

@@ -33,13 +33,15 @@ E = 15360
 
 _LOOP1 = "for (int k = 0; k < de; k += 4) {"
 _LOOP2 = "for (int k = 0; k < h; k += 4) {"
-_XA = "if (rok) v += xa[static_cast<size_t>(recv[j]) * h + c];"
-_XB = "if (sok) v += xb[static_cast<size_t>(send[j]) * h + c];"
-_STAGE1 = "reinterpret_cast<float4*>(s_w1e)[i] = reinterpret_cast<const float4*>(w1e)[i];"
-_STAGE2 = "reinterpret_cast<float4*>(s_w2)[i] = reinterpret_cast<const float4*>(w2)[i];"
+_XA = "if (rok) v += operand<BF16>(xa[static_cast<size_t>(recv[j]) * h + c]);"
+_XB = "if (sok) v += operand<BF16>(xb[static_cast<size_t>(send[j]) * h + c]);"
+_STAGE1 = ("reinterpret_cast<float4*>(s_w1e)[i] =\n"
+           "        operand<BF16>(reinterpret_cast<const float4*>(w1e)[i]);")
+_STAGE2 = ("reinterpret_cast<float4*>(s_w2)[i] =\n"
+           "        operand<BF16>(reinterpret_cast<const float4*>(w2)[i]);")
 _NORM1 = "cnorm_lrelu<HPL>(a1, lane, h, g1, be1, slope);"
 _NORM2 = "cnorm_lrelu<DPL>(a2, lane, d2, g2, be2, slope);"
-_ATOMIC = "if (c < d2) atomicAdd(row + c, a2[j][t]);"
+_ATOMIC = "if (c < d2) atomicAdd(row + c, operand<BF16>(a2[j][t]));"
 
 # name -> (checked against the plain version?, [(old, new), ...])
 VARIANTS = {

@@ -379,12 +379,6 @@ def test_csr_train_step_skips_violating_graph():
 
 
 # ------------------------------------------------------------------ guards
-def test_bf16_raises_naming_the_roadmap(rng):
-    args, *_ = _problem("symmetric", rng)
-    with pytest.raises(NotImplementedError, match="A4"):
-        C.fused_message_pass_csr(*_torch(args), 0.01, 128, 64, True)
-
-
 def test_cpu_calls_launch_no_kernel(rng):
     args, edge_tile, window, src_window = _problem("banded_src_window", rng)
     before = (C.fused_message_pass_csr.launches,

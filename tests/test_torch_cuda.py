@@ -13,6 +13,7 @@ import torch
 
 from chip_smoke import (
     banded_edges,
+    bf16_verdict,
     csr_problem,
     drop_kink_edges,
     drop_kink_edges_csr,
@@ -29,6 +30,9 @@ from graph_neural_network_for_radar_perception_torch.data.pipeline import (
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+from graph_neural_network_for_radar_perception_torch.scripts import (
+    microbench_gather as MB,
+)
 from graph_neural_network_for_radar_perception_torch.train import steps as S
 
 pytestmark = pytest.mark.cuda
@@ -242,3 +246,138 @@ def test_csr_model_gradients_on_card_match_cpu(cuda_device):
     for k, want in grads["cpu"].items():
         np.testing.assert_allclose(grads["cuda"][k], want, rtol=1e-3,
                                    atol=1e-4 * np.abs(want).max(), err_msg=k)
+
+
+# ------------------------------------------------------- bf16 operand rounds
+@pytest.mark.parametrize("shape", [
+    dict(n=768, e=15360, d=64, de=64, h=128, d2=64),   # main-path shapes
+    dict(n=768, e=15357, d=64, de=64, h=128, d2=64),   # ragged E
+    dict(n=64, e=300, d=16, de=16, h=32, d2=16),       # tiny_test_config
+], ids=["main", "ragged", "tiny"])
+def test_bf16_kernel_matches_plain(cuda_device, shape):
+    """The fused forward's bf16 instantiation against its plain bf16
+    version at chip_smoke's bf16 tolerance; the f32 kernel lies outside it
+    (chip_smoke.bf16_verdict)."""
+    args = _problem(3, device=cuda_device, **shape)
+    before = (FM.fused_message_pass.launches, FM.fused_message_pass.launches_bf16)
+    got = FM.fused_message_pass(*args, 0.01, True)
+    f32 = FM.fused_message_pass(*args, 0.01)
+    torch.cuda.synchronize()
+    assert (FM.fused_message_pass.launches,
+            FM.fused_message_pass.launches_bf16) == (before[0] + 1, before[1] + 1)
+    want = FM.fused_message_pass_reference(*args, 0.01, bf16=True)
+    bf16_verdict(torch, got, f32, want, "fused bf16")
+
+
+@pytest.mark.parametrize("case", list(CSR_CASES))
+def test_csr_bf16_kernel_matches_plain(cuda_device, case):
+    """The CSR forward's bf16 instantiation against its plain bf16 version,
+    bitwise across launches."""
+    args, (tile, window, src_window), _ = _csr_case(case, 2, cuda_device)
+    before = C.fused_message_pass_csr.launches_bf16
+    with torch.no_grad():
+        got = C.fused_message_pass_csr(*args, 0.01, tile, window, True, src_window)
+        again = C.fused_message_pass_csr(*args, 0.01, tile, window, True, src_window)
+        f32 = C.fused_message_pass_csr(*args, 0.01, tile, window, False, src_window)
+    torch.cuda.synchronize()
+    assert C.fused_message_pass_csr.launches_bf16 == before + 2
+    assert torch.equal(got, again)
+    want = C.fused_message_pass_csr_reference(*args, 0.01, tile, window,
+                                              src_window, True)
+    bf16_verdict(torch, got, f32, want, f"csr bf16 {case}")
+
+
+@pytest.mark.parametrize("mp", ["fused", "csr"])
+def test_bf16_round_gradients_on_card(cuda_device, mp):
+    """Through a bf16 round on the card the gradients are the f32 round's
+    (the same f32 backward kernel), against the CPU's plain backward."""
+    if mp == "fused":
+        args, _ = drop_kink_edges(torch, _problem(4, device=cuda_device, n=768,
+                                                  e=15360, d=64, de=64, h=128, d2=64))
+        args = args[:8] + [torch.tensor([v], device=cuda_device)
+                           for v in (1.1, 0.05, 0.9, -0.02)]
+
+        def round_(dev, *leaves, bf16):
+            x, ef, w1, b1, w2, b2, *sc = leaves
+            return FM.fused_message_pass(x, ef, args[2].to(dev), args[3].to(dev),
+                                         w1, b1, w2, b2, *sc, 0.01, bf16)
+    else:
+        args, (tile, window, src_window), _ = _csr_case("knn", 5, cuda_device)
+        args, _ = drop_kink_edges_csr(torch, args)
+
+        def round_(dev, *leaves, bf16):
+            x, ef, w1, b1, w2, b2, *sc = leaves
+            return C.fused_message_pass_csr(x, ef, args[2].to(dev), args[3].to(dev),
+                                            w1, b1, w2, b2, *sc, 0.01, tile,
+                                            window, bf16, src_window)
+    g = torch.from_numpy((1e-2 * np.random.default_rng(6).normal(
+        size=(args[0].shape[0], args[6].shape[1]))).astype(np.float32))
+    grads = {}
+    for dev, bf16 in ((cuda_device, True), ("cpu", False)):
+        leaves = [a.to(dev).clone().requires_grad_()
+                  for a in (args[0], args[1], *args[4:])]
+        out = round_(dev, *leaves, bf16=bf16)
+        grads[bf16] = torch.autograd.grad(out, leaves, g.to(dev))
+    for i, (a, b) in enumerate(zip(grads[True], grads[False])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=5e-4,
+                                   atol=5e-5, err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("mp_impl", [None, "csr"], ids=["fused", "csr"])
+def test_bf16_train_step_on_card_matches_cpu(cuda_device, mp_impl):
+    """One bf16 train step, card against CPU: losses at the bf16 tolerance;
+    only the bf16 forward and the f32 backward are launched."""
+    cfg = tiny_test_config(csr_edge_tile=128, csr_window=64)
+    batch = _tiny_batch(cfg, seed=4)
+    out = {}
+    kernels = (FM.fused_message_pass, C.fused_message_pass_csr)
+    for device in ("cpu", cuda_device):
+        st = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+        before = [(k.launches, k.launches_bf16) for k in kernels]
+        st, m = S.make_train_step(cfg, mp_impl, mp_bf16=True)(st, batch)
+        after = [(k.launches, k.launches_bf16) for k in kernels]
+        out[str(device)] = {k: float(v) for k, v in m.items()}
+    rounds = len(cfg.graph_convolution_stem_channels) * cfg.batch_size
+    used = 1 if mp_impl == "csr" else 0
+    for i, (b, a) in enumerate(zip(before, after)):
+        assert a == (b[0], b[1] + (rounds if i == used else 0))
+    assert out["cuda"]["skipped"] == 0.0
+    for k, v in out["cpu"].items():
+        if k.startswith("loss_"):
+            np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-2, atol=1e-3, err_msg=k)
+
+
+# ------------------------------------------------ gather/scatter microbenchmark
+def test_microbench_kernels_match_plain_and_library(cuda_device):
+    """Gather bitwise against its plain version (out-of-range indices
+    included) and against index_select (in-range); scatter within
+    MB.SCATTER_TOL of both index_add_ versions."""
+    rng = np.random.default_rng(7)
+    m = MB.TILES * MB.TE
+    idx = rng.integers(0, MB.N, m).astype(np.int32)
+    tab = torch.from_numpy(rng.normal(size=(MB.N, MB.D)).astype(np.float32)).to(cuda_device)
+    msg = torch.from_numpy(rng.normal(size=(m, MB.D)).astype(np.float32)).to(cuda_device)
+    inside = torch.from_numpy(idx).to(cuda_device)
+    idx[rng.random(m) < 0.05] = MB.N + 1
+    idx[rng.random(m) < 0.05] = -3
+    outside = torch.from_numpy(idx).to(cuda_device)
+    before = (MB.gather_rows.launches, MB.scatter_add_rows.launches)
+    g_in, g_out = MB.gather_rows(tab, inside), MB.gather_rows(tab, outside)
+    s_in, s_out = MB.scatter_add_rows(msg, inside, MB.N), MB.scatter_add_rows(msg, outside, MB.N)
+    torch.cuda.synchronize()
+    assert (MB.gather_rows.launches, MB.scatter_add_rows.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(g_in, torch.index_select(tab, 0, inside))
+    assert torch.equal(g_out, MB.gather_rows_reference(tab, outside))
+    for got, want in ((s_in, torch.zeros(MB.N, MB.D, device=cuda_device).index_add_(0, inside, msg)),
+                      (s_out, MB.scatter_add_rows_reference(msg, outside, MB.N))):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **MB.SCATTER_TOL)
+    assert MB.gather_rows(tab, inside[:0]).shape == (0, MB.D)
+    assert not MB.scatter_add_rows(msg[:0], inside[:0], MB.N).any()
+
+
+def test_microbench_runs(cuda_device):
+    res = MB.run()
+    for key in ("gather", "scatter"):
+        r = res[key]
+        assert 0 < r["bound_ms"] <= r["ms"] <= r["launch_ms"], (key, r)

@@ -20,6 +20,9 @@ from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import _build
 from graph_neural_network_for_radar_perception_torch.ops import csr_mp as CM
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+from graph_neural_network_for_radar_perception_torch.scripts import (
+    microbench_gather as MB,
+)
 from graph_neural_network_for_radar_perception_torch.train import steps as S
 from graph_neural_network_for_radar_perception_torch.train.trainer import train
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
@@ -71,6 +74,28 @@ def test_import_scan_covers_the_csr_slice():
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
     assert {"ops/csr_mp.py", "models/blocks.py", "data/pipeline.py"} <= names
     assert (PORT / "csrc" / "csr_mp.cu").exists()
+
+
+def test_import_scan_covers_the_bf16_and_microbenchmark_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert "scripts/microbench_gather.py" in names
+    assert (PORT / "csrc" / "microbench_gather.cu").exists()
+
+
+@pytest.mark.parametrize("module, entry, args", [
+    (FM, "_kernel", (True,)), (CM, "_kernel", (True,)), (MB, "_kernels", ()),
+], ids=["fused_bf16", "csr_bf16", "microbench_gather"])
+def test_new_loaders_raise_without_nvcc(monkeypatch, tmp_path, module, entry,
+                                        args):
+    """The bf16 instantiations and the microbenchmark's kernels build from
+    source like the others: without nvcc they raise, nothing falls back."""
+    monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing cached
+    _build.load.cache_clear()
+    getattr(module, entry).cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(module, entry)(*args)
+    getattr(module, entry).cache_clear()
 
 
 @pytest.mark.parametrize("entry", ["_kernel", "_bwd_kernel"])
