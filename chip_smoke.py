@@ -19,8 +19,10 @@ Phases, each reported on its own line:
    graph (k=10) at N=768, E=15360, a ragged E and a banded graph with a
    source window; two launches bitwise equal; timing;
 5. [kernel-csr-bwd] the same for the CSR backward kernel (all 10 outputs,
-   each checked bitwise across two launches), and autograd through
-   ``fused_message_pass_csr`` on the card against the CPU;
+   each checked bitwise across two launches; also at H=256 and at De=96,
+   H=256, where the edge kernel runs in 16- and 8-edge tiles), autograd
+   through ``fused_message_pass_csr`` on the card against the CPU, and the
+   device kernels of one ``csr_mp_backward`` call (``torch.profiler``);
 6. [deploy] drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the
    shipped widths with random weights from a seeded ``torch.Generator`` —
    over synthetic frames at the default capacities, count the forward
@@ -56,6 +58,14 @@ Phases, each reported on its own line:
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
 nothing of JAX.
+
+    python3 chip_smoke.py --phase kernel-csr-bwd
+    python3 chip_smoke.py --phase kernel-csr-bwd-timing
+
+build the CSR library and run phase 5 alone, or only its timing, then
+print its table row and the card as the last two lines (no ``ok`` line):
+the quick way to time the CSR backward, e.g. a parent commit's beside this
+one's (``time_csr_bwd``).
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ from graph_neural_network_for_radar_perception_torch.utils.timing import (  # no
     PEAK_BYTES_PER_S,
     PEAK_F32_FLOPS,
     event_ms,
+    kernel_breakdown,
 )
 
 N, E, D, DE, H, D2 = 768, 15360, 64, 64, 128, 64
@@ -530,17 +541,44 @@ def phase_kernel_csr(torch, C):
 CSR_BWD_NAMES = "dx gef dw1 db1 dw2 db2 dg1 dbe1 dg2 dbe2".split()
 
 
+def csr_bwd_timing_problem(torch, C):
+    """(args, g, layout, raw, results): [kernel-csr-bwd]'s timing problem
+    (the kNN graph at the main path's shapes), a cotangent of a train
+    step's scale, its CSR layout, and the arguments of one
+    ``csr_mp_backward`` call (``results`` holds the buffers they point
+    to).  scripts/torch_csr_bwd_ablation.py times its variants on it."""
+    _, args, _ = csr_problems(torch, np.random.default_rng(7))[0]
+    g = torch.from_numpy((G_SCALE * np.random.default_rng(8).normal(
+        size=(N, D2))).astype(np.float32)).cuda()
+    x, ef, src, dst, w1, b1, w2, b2 = args[:8]
+    layout = C.csr_layout(src, dst, N, CSR_TILE, CSR_WINDOW, 0)
+    raw, results = C._backward_launch(x, ef, layout, w1, b1, w2, b2,
+                                      torch.cat(args[8:]), g, 0.01)
+    return args, g, layout, raw, results
+
+
 def phase_kernel_csr_bwd(torch, C):
     """Phase 5: the CSR backward kernel vs its plain version (all 10
     outputs), bitwise agreement of two launches per output, autograd on the
-    card vs the CPU, timing; returns the kernel's table row."""
+    card vs the CPU, timing and the per-launch breakdown of one call;
+    returns the kernel's table row."""
     rng = np.random.default_rng(6)
     max_err = 0.0
-    for name, args, src_window in csr_problems(torch, rng):
+    # The main path's problems, then two at wider widths (N=256), where the
+    # edge kernel takes 16- and 8-edge tiles.
+    wide_rng = np.random.default_rng(9)
+    wide = [(f"knn De={de} H={h}", csr_problem(
+        torch, wide_rng, knn_edges(wide_rng, 256, 8), 3001, 256, D, de, h, D2), 0)
+            for de, h in ((DE, 256), (96, 256))]
+    for name, args, src_window in csr_problems(torch, rng) + wide:
         args, dropped = drop_kink_edges_csr(torch, args)
+        n, d, de, h = args[0].shape[0], args[0].shape[1], args[1].shape[1], args[4].shape[1]
+        plan = C._backward_plan(n, args[1].shape[0], d, de, h, D2, args[0].device)
         g = torch.from_numpy(
-            (G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
+            (G_SCALE * rng.normal(size=(n, D2))).astype(np.float32)).cuda()
         tiling = (0.01, CSR_TILE, CSR_WINDOW, src_window)
+        if src_window:
+            windowed = args, g, src_window
         got = C.fused_message_pass_csr_backward(*args, g, *tiling)
         again = C.fused_message_pass_csr_backward(*args, g, *tiling)
         torch.cuda.synchronize()
@@ -556,14 +594,17 @@ def phase_kernel_csr_bwd(torch, C):
                 raise AssertionError(
                     f"fused_message_pass_csr_backward: {name} {out} disagrees "
                     f"with its plain version at {bad} elements")
-        log(f"[kernel-csr-bwd] {name} kink edges dropped={dropped}: all 10 "
+        log(f"[kernel-csr-bwd] {name} ({plan.tile}-edge tiles, {plan.stages} "
+            f"stage(s), {plan.blocks} blocks) kink edges dropped={dropped}: all 10 "
             f"outputs within rtol={GRAD_RTOL} atol={GRAD_ATOL}; max abs err "
             f"{json.dumps(worst)}; two launches bitwise equal {json.dumps(same)}")
         if not all(same.values()):
             raise AssertionError("fused_message_pass_csr_backward is not deterministic")
 
     # Autograd through the Function: the card against CPU tensors, on the
-    # last (source-windowed) problem.
+    # source-windowed problem.
+    args, g, src_window = windowed
+
     def grads(device):
         leaves = [a.to(device).clone().requires_grad_()
                   for a in (args[0], args[1], *args[4:])]
@@ -582,16 +623,28 @@ def phase_kernel_csr_bwd(torch, C):
     log(f"[kernel-csr-bwd] autograd (x, ef, w1, b1, w2, b2, 4 norm scalars) card "
         f"vs CPU: max abs err {worst:.3e} (rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
 
+    row = time_csr_bwd(torch, C)
+    row["max_abs_err"] = max_err
+    return row
+
+
+def time_csr_bwd(torch, C):
+    """[kernel-csr-bwd]'s timing: the C entry point (CUDA events), the device
+    kernels of one call (torch.profiler), the wrapper, the plain version
+    and the bound, as the kernel's table row (no error, no launches).  It
+    uses only what older trees of the port have as well (``_backward_launch``,
+    ``_bwd_kernel``): with this file and ``utils/timing.py`` copied into a
+    parent checkout, ``--phase kernel-csr-bwd-timing`` times the parent's
+    kernel there."""
     # Timing on the kNN graph at the main path's shapes.
-    _, args, _ = csr_problems(torch, np.random.default_rng(7))[0]
-    g = torch.from_numpy((G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
-    x, ef, src, dst, w1, b1, w2, b2 = args[:8]
-    layout = C.csr_layout(src, dst, N, CSR_TILE, CSR_WINDOW, 0)
-    # `results` holds the buffers the raw pointers refer to.
-    raw, results = C._backward_launch(x, ef, layout, w1, b1, w2, b2,
-                                      torch.cat(args[8:]), g, 0.01)
+    args, g, layout, raw, results = csr_bwd_timing_problem(torch, C)
     fn = C._bwd_kernel()
     kernel_ms = event_ms(lambda: fn(*raw))
+    breakdown = [(name.replace("void ", "").replace("(anonymous namespace)::", "")
+                  .split("(")[0], us) for name, us in kernel_breakdown(lambda: fn(*raw))]
+    log(f"[kernel-csr-bwd] one csr_mp_backward call, {len(breakdown)} device "
+        f"kernels (torch.profiler, us): " + "; ".join(
+            f"{name} {us:.2f}" for name, us in breakdown))
     tiling = (0.01, CSR_TILE, CSR_WINDOW)
     wrapper_ms = event_ms(lambda: C.fused_message_pass_csr_backward(
         *args, g, *tiling))
@@ -609,7 +662,7 @@ def phase_kernel_csr_bwd(torch, C):
     nbytes = 4 * (n_in + n_out)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     log(f"[kernel-csr-bwd] timing E={E} live={e_live}: kernel {kernel_ms * 1e3:.2f} us, "
-        f"wrapper (index preparation, buffers, partial sums + kernel) "
+        f"wrapper (index preparation, buffers + kernel) "
         f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
         f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB)")
@@ -619,10 +672,11 @@ def phase_kernel_csr_bwd(torch, C):
         "source": "graph_neural_network_for_radar_perception_torch/csrc/csr_mp.cu",
         "replaces": "graph_neural_network_for_radar_perception_tpu/ops/pallas/csr_mp.py:375",
         "launches": None,
-        "max_abs_err": max_err,
+        "max_abs_err": None,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
+        "device_kernels_us": [[name, us] for name, us in breakdown],
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -1496,9 +1550,22 @@ def phase_train_bf16(torch, FM, C, f32_metrics):
     return launches
 
 
-def main() -> int:
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def main(argv) -> int:
     import torch
 
+    phases = {"kernel-csr-bwd": phase_kernel_csr_bwd,
+              "kernel-csr-bwd-timing": time_csr_bwd}
+    if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
+        print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1512,6 +1579,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    if argv:  # phase 5, or its timing, alone
+        t0 = time.perf_counter()
+        C._bwd_kernel()
+        log(f"[build] csr_mp: {time.perf_counter() - t0:.1f} s")
+        log(json.dumps(phases[argv[1]](torch, C)))
+        log(card())
+        return 0
 
     t0 = time.perf_counter()
     # One nvcc per source, all started together (each build is a process).
@@ -1559,11 +1634,7 @@ def main() -> int:
         row["launches_by_path"] = {"microbenchmark": row["launches"]}
     log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,
                                 csr_bf16_row, gather_row, scatter_row]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -1573,4 +1644,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -73,9 +73,6 @@ from .fused_mp import (
 # [dx, dy, dl, dvx, dvy, dvl, dt] — see data/features.py compute_edge_features.
 EDGE_FEATURE_REVERSAL_SIGNS = (-1.0, -1.0, 1.0, -1.0, -1.0, 1.0, -1.0)
 
-_KERNEL_EDGES_PER_WARP = 8  # csr_mp.cu kEdgesPerWarp: one warp's edge group
-_KERNEL_WARPS = 8           # csr_mp.cu kWarps: warps per block
-
 
 def reverse_edge_features(ef: torch.Tensor) -> torch.Tensor:
     """Raw features of every reversed directed edge, elementwise.
@@ -395,9 +392,18 @@ def _kernel(bf16: bool = False):
 def _bwd_kernel():
     """The backward kernel's C entry point (same library as the forward)."""
     fn = load("csr_mp").csr_mp_backward
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_scratch():
+    """``csr_mp_backward_scratch``: the backward's scratch size and plan."""
+    fn = load("csr_mp").csr_mp_backward_scratch
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -432,51 +438,57 @@ def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
     return agg
 
 
+class BackwardPlan(NamedTuple):
+    """How ``csr_mp_backward`` runs at given widths on a device."""
+
+    floats: int   # its scratch
+    tile: int     # edges a tile of its edge kernel (32, 16 or 8)
+    stages: int   # input stages of the edge kernel (2 or 1)
+    blocks: int   # edge blocks
+
+
+def _backward_plan(n, e, d, de, h, d2, device) -> BackwardPlan:
+    """How ``csr_mp_backward`` runs at these widths on ``device``, as the C
+    library plans it (``csr_mp_backward_scratch``)."""
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        floats = _bwd_scratch()(n, e, d, de, h, d2, plan)
+    if floats < 0:
+        raise ValueError(f"csr_mp_backward: De={de}, H={h}, D2={d2}: "
+                         f"cudaError_t {-floats}")
+    return BackwardPlan(floats, *plan)
+
+
 def _backward_launch(x, ef, layout, w1, b1, w2, b2, scal, g_out, slope):
     """The arguments of one ``csr_mp_backward`` call, with its buffers
-    allocated, and the function that reads the results after it: the
-    per-block partials of the weight gradients and the per-warp partials of
-    the bias and scalar gradients summed, as ``_backward_impl`` sums its
-    per-tile partials outside Pallas."""
+    allocated, and the function that returns its results.  The C call sums
+    every partial itself (as ``_backward_impl`` sums its per-tile partials
+    outside Pallas): the results are views of its outputs."""
     _check_kernel_widths("fused_message_pass_csr_backward", x, ef, w1, w2)
     n, d = x.shape
     e, de = ef.shape
     h, d2 = w1.shape[1], w2.shape[1]
-    dev = x.device
-    emp = functools.partial(torch.empty, dtype=torch.float32, device=dev)
-    groups = -(-e // _KERNEL_EDGES_PER_WARP)  # one warp per edge group
-    warps = -(-groups // _KERNEL_WARPS) * _KERNEL_WARPS
-    # Outputs and scratch; the kernel writes every element.
-    gef = emp(e, de)
-    rows = emp(e, 2 * h + d2)             # per edge: g_pre1 ‖ a1 ‖ g_pre2
-    xab = emp(2, n, h)                    # x·W1r, x·W1s
-    dxab = emp(2, n, h)                   # dxa, dxb
-    dx = emp(n, d)
-    p_w1rs = emp(2, _splits(n), d, h)     # xᵀ·dxa, xᵀ·dxb partials
-    p_w1e = emp(_splits(e), de, h)        # efᵀ·g_pre1 partials
-    p_w2 = emp(_splits(e), h, d2)         # a1ᵀ·g_pre2 partials
-    p_vec = emp(warps, h + d2 + 4)        # db1 ‖ db2 ‖ 4 scalars per warp
-    # Transposed weight copies, so that the kernel's lanes read both
-    # products against the grain (g·W2ᵀ, g·W1eᵀ) along contiguous rows.
-    w1e_t = w1[2 * d:].t().contiguous()
-    w2_t = w2.t().contiguous()
+    emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    scratch = emp(_backward_plan(n, e, d, de, h, d2, x.device).floats)
+    # Outputs, every element written: gef, dx and
+    # dw = dW1 ‖ db1 ‖ dW2 ‖ db2 ‖ dγ1 dβ1 dγ2 dβ2.
+    gef, dx = emp(e, de), emp(n, d)
+    k = (2 * d + de) * h
+    dw = emp(k + h + h * d2 + d2 + 4)
     args = (
         x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
         layout.dst.data_ptr(), layout.off.data_ptr(), layout.perm.data_ptr(),
-        layout.off_src.data_ptr(), w1.data_ptr(),
-        w1e_t.data_ptr(), b1.data_ptr(), w2.data_ptr(), w2_t.data_ptr(),
-        b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(), xab.data_ptr(),
-        rows.data_ptr(), float(slope), gef.data_ptr(), dxab.data_ptr(),
-        dx.data_ptr(), p_w1rs.data_ptr(), p_w1e.data_ptr(), p_w2.data_ptr(),
-        p_vec.data_ptr(), n, e, d, de, h, d2, warps, _stream(x),
+        layout.off_src.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
+        float(slope), scratch.data_ptr(), gef.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), n, e, d, de, h, d2, _stream(x),
     )
 
-    def results(_alive=(layout, w1e_t, w2_t)):
+    def results(_alive=(layout, scratch)):
         # _alive holds the tensors only the pointers above refer to.
-        dw1 = torch.cat([p_w1rs[0].sum(0), p_w1rs[1].sum(0), p_w1e.sum(0)])
-        vec = p_vec.sum(0)
-        return (dx, gef, dw1, vec[:h], p_w2.sum(0), vec[h : h + d2],
-                *vec[h + d2 :].unbind())
+        return (dx, gef, dw[:k].view(2 * d + de, h), dw[k : k + h],
+                dw[k + h : k + h + h * d2].view(h, d2),
+                dw[k + h + h * d2 : -4], *dw[-4:].unbind())
 
     return args, results
 
@@ -492,13 +504,6 @@ def _backward_cuda(x, ef, layout, w1, b1, w2, b2, scal, g_out, slope):
         raise RuntimeError(f"csr_mp_backward failed: cudaError_t {rc}")
     fused_message_pass_csr_backward.launches += 1
     return results()
-
-
-_SPLIT_ROWS = 256  # csr_mp.cu kSplitRows: rows of one split-K partial
-
-
-def _splits(rows: int) -> int:
-    return max(1, -(-rows // _SPLIT_ROWS))
 
 
 # ------------------------------------------------------------ the wrappers

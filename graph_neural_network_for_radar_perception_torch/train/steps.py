@@ -191,18 +191,23 @@ def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,
 def make_train_scan(cfg: GNNConfig, length: int,
                     mp_impl: Optional[str] = None,
                     mp_bf16: bool = False) -> Callable:
-    """(state, batches) → (state, last step's metrics): ``length`` train
-    steps in sequence, with ``make_train_step``'s results.  ``batches`` is
-    one batch reused every step, or batches stacked on a leading [length]
-    axis (node_feat of rank 4).  Capturing the steps as one CUDA graph is
-    later work (ROADMAP.md)."""
+    """(state, batches) → (state, last step's metrics): train steps in
+    sequence, with ``make_train_step``'s results, as the JAX package's
+    ``lax.scan``.  ``batches`` is either one batch reused for ``length``
+    steps, or batches stacked on a leading axis (node_feat of rank 4): then
+    one step per entry of that axis, whatever ``length`` is.  Capturing
+    the steps as one CUDA graph is later work (ROADMAP.md)."""
     step = make_train_step(cfg, mp_impl, mp_bf16)
 
     def run(state: TrainState, batches: GraphBatch):
         stacked = batches.graph.node_feat.ndim == 4
         metrics = None
-        for i in range(length):
-            state, metrics = step(state, batches.at(i) if stacked else batches)
+        if stacked:
+            for i in range(batches.graph.node_feat.shape[0]):
+                state, metrics = step(state, batches.at(i))
+        else:
+            for _ in range(length):
+                state, metrics = step(state, batches)
         return state, metrics
 
     return run

@@ -48,3 +48,20 @@ def graph_ms(fn, inner: int = 20, reps: int = 50) -> float:
         for _ in range(inner):
             fn()
     return event_ms(graph.replay, reps=reps, inner=1) / inner
+
+
+def kernel_breakdown(fn) -> list:
+    """The device kernels of one call of ``fn`` (after a warm call), in the
+    order they started on the card: ``[(name, µs), ...]`` from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end - e.time_range.start, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return [(name, float(us)) for _, us, name in spans]

@@ -123,13 +123,22 @@ def test_forward_plain_matches_pallas_interpret(rng, graph):
         assert not np.allclose(full.numpy(), want, **FWD_TOL)
 
 
+@pytest.mark.parametrize("widths", [
+    dict(d=16, de=64, h=256, d2=64), dict(d=16, de=64, h=128, d2=128),
+])
+def test_wide_forward_matches_pallas_interpret(rng, widths):
+    """The plain round at the widest H and D2 the card's kernels take
+    against the interpret-mode kernel."""
+    args, edge_tile, window, src_window = _problem("symmetric", rng, **widths)
+    want = np.asarray(_jax_csr(args, edge_tile, window, src_window))
+    got = C.fused_message_pass_csr_reference(
+        *_torch(args), 0.01, edge_tile, window, src_window)
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+
+
 # ---------------------------------------------------------------- gradients
-@pytest.mark.parametrize("graph", list(GRAPHS))
-def test_gradients_match_pallas_interpret(rng, graph):
-    """Gradients of sum(out²) through ``_FusedMessagePassCSR`` (the plain
-    backward on the CPU) against ``jax.grad`` through the interpret-mode
-    kernel with its Pallas backward."""
-    args, edge_tile, window, src_window = _problem(graph, rng)
+def _gradients_match_pallas_interpret(rng, graph, **widths):
+    args, edge_tile, window, src_window = _problem(graph, rng, **widths)
     src, dst = jnp.asarray(args[2]), jnp.asarray(args[3])
 
     def loss(x, ef, w1, b1, w2, b2, g1, be1, g2, be2):
@@ -149,6 +158,20 @@ def test_gradients_match_pallas_interpret(rng, graph):
     for i, (a, b) in enumerate(zip(got, want)):
         np.testing.assert_allclose(a.numpy().reshape(np.shape(b)), np.asarray(b),
                                    **GRAD_TOL, err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+def test_gradients_match_pallas_interpret(rng, graph):
+    """Gradients of sum(out²) through ``_FusedMessagePassCSR`` (the plain
+    backward on the CPU) against ``jax.grad`` through the interpret-mode
+    kernel with its Pallas backward."""
+    _gradients_match_pallas_interpret(rng, graph)
+
+
+def test_wide_gradients_match_pallas_interpret(rng):
+    """The same at H=256, where the card's backward runs in 16-edge tiles
+    (tests/test_torch_cuda.py holds the kernel to this plain version)."""
+    _gradients_match_pallas_interpret(rng, "symmetric", d=16, de=64, h=256, d2=64)
 
 
 def test_backward_reference_is_the_chain_rule(rng):

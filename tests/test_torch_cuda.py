@@ -169,16 +169,45 @@ def test_train_step_on_card_matches_cpu(cuda_device):
 
 
 # ------------------------------------------------------------- the CSR round
+def _hub_edges(rng, n, k, hub, degree):
+    """A kNN graph (k) with node ``hub`` joined both ways to the ``degree``
+    nodes after it: one destination segment of more than ``degree`` edges,
+    longer than several backward edge tiles."""
+    s, r = knn_edges(rng, n, k)
+    adj = np.zeros((n, n), bool)
+    adj[s, r] = True
+    adj[hub, hub + 1 : hub + 1 + degree] = True
+    return np.nonzero(adj | adj.T)
+
+
 CSR_CASES = {  # edges(rng), n, e_total, widths (d, de, h, d2), tiling
     "knn": (lambda rng: knn_edges(rng, 768, 10), 768, 15360, (64, 64, 128, 64), (512, 256, 0)),
     "knn-ragged": (lambda rng: knn_edges(rng, 768, 10), 768, 15357, (64, 64, 128, 64), (512, 256, 0)),
     "banded-src-window": (lambda rng: banded_edges(768, 6), 768, 15360, (64, 64, 128, 64), (512, 256, 256)),
     "tiny": (lambda rng: knn_edges(rng, 64, 6), 64, 600, (16, 16, 32, 16), (128, 64, 0)),
 }
+CSR_BWD_CASES = {  # the backward's edge tiles and blocks, besides CSR_CASES
+    **CSR_CASES,
+    # E not a multiple of the backward's edge tile, one segment over 3 tiles
+    # of two edge blocks.
+    "hub-ragged": (lambda rng: _hub_edges(rng, 768, 10, 100, 80), 768, 15361, (64, 64, 128, 64), (512, 256, 0)),
+    # No live edge: every edge is padding.
+    "no-live-edges": (lambda rng: (np.zeros(0, np.int64), np.zeros(0, np.int64)), 64, 600, (16, 16, 32, 16), (128, 64, 0)),
+    # D2=128: two weight-gradient items a thread, one input stage.
+    "wide-d2": (lambda rng: knn_edges(rng, 256, 8), 256, 3000, (64, 64, 128, 128), (512, 256, 0)),
+    # H=256: 16-edge tiles.
+    "wide-h": (lambda rng: knn_edges(rng, 256, 8), 256, 3000, (64, 64, 256, 64), (512, 256, 0)),
+    # De=96, H=256: 8-edge tiles, three weight-gradient items a thread (the
+    # third in the block's partial in global memory); E not a multiple of 8.
+    "wide-t8": (lambda rng: knn_edges(rng, 256, 8), 256, 3001, (64, 96, 256, 64), (512, 256, 0)),
+}
+# The edge kernel's (tile, input stages) at each case's widths on an H100
+# (227 KB of shared memory a block).
+CSR_BWD_PLANS = {"wide-d2": (32, 1), "wide-h": (16, 1), "wide-t8": (8, 1)}
 
 
 def _csr_case(name, seed, device):
-    edges, n, e_total, (d, de, h, d2), tiling = CSR_CASES[name]
+    edges, n, e_total, (d, de, h, d2), tiling = CSR_BWD_CASES[name]
     rng = np.random.default_rng(seed)
     args = csr_problem(torch, rng, edges(rng), e_total, n, d, de, h, d2, device)
     return args, tiling, rng
@@ -201,11 +230,23 @@ def test_csr_kernel_matches_plain(cuda_device, case):
                                rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("case", list(CSR_CASES))
+def _edge_block(p, p_end, blocks):
+    """The block of csr_bwd_edge_kernel that takes edge position p: block b
+    owns [b p_end / blocks, (b+1) p_end / blocks) of the edges before
+    p_end = off[N]."""
+    return next(b for b in range(blocks)
+                if b * p_end // blocks <= p < (b + 1) * p_end // blocks)
+
+
+@pytest.mark.parametrize("case", list(CSR_BWD_CASES))
 def test_csr_backward_kernel_matches_plain(cuda_device, case):
     """All 10 outputs at the gradient tolerance with a cotangent of a train
     step's scale, kink edges dropped (chip_smoke.drop_kink_edges_csr), and
-    bitwise across launches."""
+    bitwise across launches.  The C call returns every weight gradient
+    summed: the results are views of its one output buffer, shaped as the
+    plain version's.  "hub-ragged" has a destination segment across two
+    tiles of two edge blocks; "no-live-edges" gives zeros everywhere; the
+    wide cases run the edge kernel in smaller tiles (CSR_BWD_PLANS)."""
     args, (tile, window, src_window), rng = _csr_case(case, 1, cuda_device)
     args, _ = drop_kink_edges_csr(torch, args)
     n, d2 = args[0].shape[0], args[6].shape[1]
@@ -222,6 +263,32 @@ def test_csr_backward_kernel_matches_plain(cuda_device, case):
         assert torch.equal(a, c), name
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=5e-4, atol=5e-5, err_msg=name)
+
+    layout = C.csr_layout(args[2], args[3], n, tile, window, src_window)
+    raw, results = C._backward_launch(args[0], args[1], layout, *args[4:8],
+                                      torch.cat(args[8:]), g, 0.01)
+    assert C._bwd_kernel()(*raw) == 0
+    direct = results()
+    torch.cuda.synchronize()
+    for i, (name, r, b, a) in enumerate(zip(names, direct, want, got)):
+        assert r.shape == b.shape if i < 6 else r.numel() == b.numel() == 1, name
+        assert torch.equal(r.reshape(a.shape), a), name
+    assert all(r._base is direct[2]._base for r in direct[3:])
+
+    e_live = int((layout.dst < n).sum())
+    plan = C._backward_plan(n, args[1].shape[0], args[0].shape[1], args[1].shape[1],
+                            args[4].shape[1], d2, cuda_device)
+    assert (plan.tile, plan.stages) == CSR_BWD_PLANS.get(case, (32, 2))
+    if case == "no-live-edges":
+        assert e_live == 0
+        assert all(int(torch.count_nonzero(a)) == 0 for a in got)
+    if case == "hub-ragged":
+        assert args[2].shape[0] % plan.tile
+        off = layout.off.cpu().numpy()
+        lo, hi = int(off[100]), int(off[101])
+        first = _edge_block(lo, int(off[n]), plan.blocks)
+        last = _edge_block(hi - 1, int(off[n]), plan.blocks)
+        assert hi - lo > plan.tile and last > first  # tiles of two blocks
 
 
 def test_csr_model_gradients_on_card_match_cpu(cuda_device):

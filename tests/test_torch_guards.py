@@ -98,7 +98,7 @@ def test_new_loaders_raise_without_nvcc(monkeypatch, tmp_path, module, entry,
     getattr(module, entry).cache_clear()
 
 
-@pytest.mark.parametrize("entry", ["_kernel", "_bwd_kernel"])
+@pytest.mark.parametrize("entry", ["_kernel", "_bwd_kernel", "_bwd_scratch"])
 def test_csr_loaders_raise_without_nvcc(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing cached

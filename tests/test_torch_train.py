@@ -20,6 +20,7 @@ from graph_neural_network_for_radar_perception_torch.core.graph import (
     GraphLabels,
     RadarGraph,
 )
+from graph_neural_network_for_radar_perception_torch.data import pipeline as PS
 from graph_neural_network_for_radar_perception_torch.models.gnn import GNNOutputs
 from graph_neural_network_for_radar_perception_torch.train import loss as TL
 from graph_neural_network_for_radar_perception_torch.train import steps as S
@@ -111,6 +112,25 @@ def test_sgd_steps_match_jax():
         st, pm = pstep(st, b)
         _assert_metrics(pm, jm)
     assert st.step == 3 and st.updates == 3
+    got, want = st.model.state_dict(), _params(js)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **STEP_TOL,
+                                   err_msg=k)
+
+
+def test_train_scan_on_stacked_batches_matches_jax():
+    """Three batches stacked on a leading axis with length=2: the port's
+    make_train_scan takes one step per batch, as JAX's lax.scan over the
+    stacked axis does (length applies only to one reused batch)."""
+    jcfg, cfg, js, st = _states({})
+    jb = _batches(jcfg, 3)
+    jstack = stack_batch([(b.graph, b.labels) for b in jb])
+    js, jm = T.make_train_scan(jcfg, 2)(js, jax.tree.map(jnp.asarray, jstack))
+    port = [GraphBatch.from_numpy(b, "cpu") for b in jb]
+    pstack = PS.stack_batch([(b.graph, b.labels) for b in port])
+    st, pm = S.make_train_scan(cfg, 2)(st, pstack)
+    assert st.step == 3 and st.updates == 3
+    _assert_metrics(pm, jm)
     got, want = st.model.state_dict(), _params(js)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **STEP_TOL,

@@ -67,6 +67,18 @@ def test_scan_matches_sequential(cfg, stacked):
         assert torch.equal(m_scan[name], v), name
 
 
+def test_scan_takes_one_step_per_stacked_batch(cfg):
+    """A stack of one batch with length=2 takes one step, as JAX's scan
+    over the stacked axis: length counts steps of a reused batch only."""
+    b = _batches(cfg, 1)[0]
+    s_one, m_one = S.make_train_step(cfg)(_state(cfg), b)
+    s_scan, m_scan = S.make_train_scan(cfg, 2)(_state(cfg), _stack([b]))
+    assert s_scan.step == 1
+    _assert_same(s_scan, s_one)
+    for name, v in m_one.items():
+        assert torch.equal(m_scan[name], v), name
+
+
 def test_train_matches_steps_and_runs_hooks(cfg):
     bs = _batches(cfg, 5, seed=41)
     val = _batches(cfg, 2, seed=43)
