@@ -11,10 +11,14 @@ Phases, each reported on its own line:
    ``microbench_gather`` (row gather and scatter-add);
 2. [kernel] hold the fused forward kernel against its plain PyTorch version
    on the card at the main path's shapes (N=768, E=15360, D=De=D2=64,
-   H=128, plus a ragged E) and time both with CUDA events;
-3. [kernel-bwd] the same for the fused backward kernel (all 11 outputs), and
-   autograd through ``fused_message_pass`` on the card against the same on
-   CPU tensors;
+   H=128, plus a ragged E), two launches bitwise equal, and time both with
+   CUDA events;
+3. [kernel-bwd] the same for the fused backward's C call (all 11 outputs,
+   each checked bitwise across two launches; also at H=256 and at De=96,
+   H=256, where its edge kernel runs in 16- and 8-edge tiles), autograd
+   through ``fused_message_pass`` on the card against the same on CPU
+   tensors, and the device kernels of one ``fused_mp_backward`` call and
+   of one wrapper call (``torch.profiler``);
 4. [kernel-csr] the CSR forward kernel against its plain version on a kNN
    graph (k=10) at N=768, E=15360, a ragged E and a banded graph with a
    source window; two launches bitwise equal; timing;
@@ -26,8 +30,9 @@ Phases, each reported on its own line:
 6. [deploy] drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the
    shipped widths with random weights from a seeded ``torch.Generator`` —
    over synthetic frames at the default capacities, count the forward
-   kernel's launches, and compare logits and decisions with the same
-   detector on the CPU (which runs the plain version);
+   kernel's launches and every kernel of one deploy forward, and compare
+   logits and decisions with the same detector on the CPU (which runs the
+   plain version);
 7. [train] drive the training path — ``trainer.train`` with
    ``GNNConfig()`` at batch 8 on synthetic batches — count both kernels'
    launches, replay the same steps on the CPU and compare metrics and
@@ -39,12 +44,14 @@ Phases, each reported on its own line:
 9. [deploy-csr] ``FrameDetector(GNNConfig(mp_impl="csr"))`` on 4 of the
    deploy frames against the default message pass on the card;
 10. [kernel-bf16] the fused forward's bf16 instantiation against its plain
-    bf16 version (N=768, E=15360 and a ragged E), the f32 kernel's output
-    shown to lie outside that tolerance, timing;
+    bf16 version (N=768, E=15360 and a ragged E), two launches bitwise
+    equal, the f32 kernel's output shown to lie outside that tolerance,
+    timing;
 11. [kernel-csr-bf16] the same for the CSR forward on the [kernel-csr]
     graphs, two launches bitwise equal;
 12. [kernel-gather], [kernel-scatter] the microbenchmark's kernels against
-    their plain versions with indices outside [0, N), then the
+    their plain versions with indices outside [0, N) (the scatter also
+    bitwise against ``np.add.at`` and across two launches), then the
     microbenchmark itself (``scripts/microbench_gather.run``: numpy check,
     timing beside the plain versions and ``index_select``/``index_add_``);
 13. [train-bf16] ``trainer.train`` with ``make_train_step(GNNConfig(),
@@ -59,18 +66,25 @@ The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
 nothing of JAX.
 
+    python3 chip_smoke.py --phase kernel-timing
+    python3 chip_smoke.py --phase kernel-bwd
+    python3 chip_smoke.py --phase kernel-bwd-timing
     python3 chip_smoke.py --phase kernel-csr-bwd
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
 
-build the CSR library and run phase 5 alone, or only its timing, then
-print its table row and the card as the last two lines (no ``ok`` line):
-the quick way to time the CSR backward, e.g. a parent commit's beside this
-one's (``time_csr_bwd``).
+build the one library a phase needs and run phase 3 (the fused backward)
+or phase 5 (the CSR backward) alone, or only a timing (the fused forward's
+wrapper, f32 and bf16, with its output digest; a backward's C call, the
+CSR one with the digest of its outputs and both forwards), then print its
+row and the card as the last two lines (no ``ok`` line): the quick way to
+time a kernel, e.g. another tree's beside this one's (``time_fused_fwd``,
+``time_fused_bwd``, ``time_csr_bwd``).
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import os
 import subprocess
@@ -94,7 +108,7 @@ from graph_neural_network_for_radar_perception_torch.utils.timing import (  # no
 )
 
 N, E, D, DE, H, D2 = 768, 15360, 64, 64, 128, 64
-RTOL, ATOL = 2e-4, 2e-5              # kernel vs plain (atomics reorder sums)
+RTOL, ATOL = 2e-4, 2e-5              # kernel vs plain (other summation orders)
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5    # tests/test_pallas.py's gradient check
 DEPLOY_RTOL, DEPLOY_ATOL = 1e-3, 1e-4  # 7 rounds of card vs CPU arithmetic
 METRIC_RTOL, METRIC_ATOL = 1e-3, 1e-4  # train metrics, card vs CPU
@@ -140,20 +154,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def kernel_problem(torch, rng, e_valid: int, e_total: int):
-    """Random message round at the deploy shapes; the edge tail past
-    ``e_valid`` is padding (sentinel N at both ends, zero features), as
-    ``pad_frame`` + the model lay out a frame."""
-    x = rng.normal(size=(N, D)).astype(np.float32)
-    ef = rng.normal(size=(e_total, DE)).astype(np.float32)
-    s = rng.integers(0, N, size=e_total).astype(np.int32)
-    r = rng.integers(0, N, size=e_total).astype(np.int32)
-    s[e_valid:] = N
-    r[e_valid:] = N
+def kernel_problem(torch, rng, e_valid: int, e_total: int, n: int = N,
+                   de: int = DE, h: int = H):
+    """Random message round, at the deploy shapes unless told otherwise;
+    the edge tail past ``e_valid`` is padding (sentinel n at both ends,
+    zero features), as ``pad_frame`` + the model lay out a frame."""
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    ef = rng.normal(size=(e_total, de)).astype(np.float32)
+    s = rng.integers(0, n, size=e_total).astype(np.int32)
+    r = rng.integers(0, n, size=e_total).astype(np.int32)
+    s[e_valid:] = n
+    r[e_valid:] = n
     ef[e_valid:] = 0.0
-    w1 = (rng.normal(size=(2 * D + DE, H)) / np.sqrt(2 * D + DE)).astype(np.float32)
-    b1 = (0.1 * rng.normal(size=H)).astype(np.float32)
-    w2 = (rng.normal(size=(H, D2)) / np.sqrt(H)).astype(np.float32)
+    w1 = (rng.normal(size=(2 * D + de, h)) / np.sqrt(2 * D + de)).astype(np.float32)
+    b1 = (0.1 * rng.normal(size=h)).astype(np.float32)
+    w2 = (rng.normal(size=(h, D2)) / np.sqrt(h)).astype(np.float32)
     b2 = (0.1 * rng.normal(size=D2)).astype(np.float32)
     dev = torch.device("cuda")
     arrays = [torch.from_numpy(a).to(dev) for a in (x, ef, s, r, w1, b1, w2, b2)]
@@ -179,8 +194,27 @@ def csr_fwd_bytes(e_live: int) -> int:
                 + D2 + 4 + N * D2)
 
 
+def fused_fwd_raw(torch, FM, args, agg):
+    """(raw, alive): the arguments of one ``fused_mp_forward`` (or _bf16)
+    call on the round ``args`` at the main path's shapes, writing ``agg``,
+    and the tensors only its pointers refer to."""
+    x, ef, s, r, w1, b1, w2, b2 = args[:8]
+    xa, xb = x @ w1[:D], x @ w1[D:2 * D]
+    w1e = w1[2 * D:]
+    scal = torch.cat(args[8:])
+    layout = FM.fused_layout(s, r, N)
+    msgs = torch.empty(E, D2, device="cuda")
+    raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(),
+           r.data_ptr(), layout.recv_order.data_ptr(), layout.recv_off.data_ptr(),
+           w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+           scal.data_ptr(), 0.01, msgs.data_ptr(), agg.data_ptr(), N, E, DE, H,
+           D2, torch.cuda.current_stream().cuda_stream)
+    return raw, (xa, xb, scal, msgs, layout)
+
+
 def phase_kernel(torch, FM):
-    """Phase 2: kernel vs plain version; returns the kernel's table row."""
+    """Phase 2: kernel vs plain version, two launches bitwise, timing;
+    returns the kernel's table row."""
     rng = np.random.default_rng(0)
     max_err = 0.0
     # A frame-like padded tail, and a ragged E that is no multiple of the
@@ -188,30 +222,33 @@ def phase_kernel(torch, FM):
     for e_valid, e_total in ((9216, E), (E - 3, E - 3)):
         args = kernel_problem(torch, rng, e_valid, e_total)
         got = FM.fused_message_pass(*args)
+        again = FM.fused_message_pass(*args)
         torch.cuda.synchronize()
         want = FM.fused_message_pass_reference(*args)
         err = (got - want).abs()
         max_err = max(max_err, float(err.max()))
         bad = int((err > ATOL + RTOL * want.abs()).sum())
+        same = bool(torch.equal(got, again))
         log(f"[kernel] E={e_total} valid={e_valid}: max_abs_err={float(err.max()):.3e} "
-            f"violations(rtol={RTOL}, atol={ATOL})={bad}")
+            f"violations(rtol={RTOL}, atol={ATOL})={bad}; two launches bitwise equal={same}")
         if bad or not torch.isfinite(got).all():
             raise AssertionError("fused_message_pass kernel disagrees with its plain version")
+        if not same:
+            raise AssertionError("fused_message_pass kernel is not deterministic")
 
     # Timing at the deploy shapes with the padded tail of a typical frame.
     args = kernel_problem(torch, rng, 9216, E)
-    x, ef, s, r, w1, b1, w2, b2 = args[:8]
-    xa, xb = x @ w1[:D], x @ w1[D:2 * D]
-    w1e = w1[2 * D:]
-    scal = torch.cat(args[8:])
-    agg = torch.zeros(N, D2, device="cuda")
+    r = args[3]
+    raw, alive = fused_fwd_raw(torch, FM, args, torch.empty(N, D2, device="cuda"))
     fn = FM._kernel()
-    raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(),
-           r.data_ptr(), w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-           b2.data_ptr(), scal.data_ptr(), 0.01, agg.data_ptr(), N, E, DE, H,
-           D2, torch.cuda.current_stream().cuda_stream)
     kernel_ms = event_ms(lambda: fn(*raw))
-    wrapper_ms = event_ms(lambda: FM.fused_message_pass(*args))
+    call = device_kernels(lambda: fn(*raw))
+    log(f"[kernel] one fused_mp_forward call, {len(call)} device kernels "
+        f"(torch.profiler, us): " + "; ".join(f"{k} {us:.2f}" for k, us in call))
+    layout = alive[-1]
+    with torch.no_grad():  # the wrapper as a round of the model calls it
+        wrapper_ms = event_ms(lambda: FM.fused_message_pass(*args, layout=layout))
+        layout_ms = event_ms(lambda: FM.fused_layout(args[2], r, N))
     plain_ms = event_ms(lambda: FM.fused_message_pass_reference(*args))
 
     # Least time for the kernel's work on these inputs: the f32 FMAs of the
@@ -222,9 +259,10 @@ def phase_kernel(torch, FM):
     nbytes = fused_fwd_bytes(E, e_live)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     log(f"[kernel] timing E={E} live={e_live}: kernel {kernel_ms * 1e3:.2f} us, "
-        f"wrapper (xa/xb matmuls + kernel) {wrapper_ms * 1e3:.2f} us, "
-        f"plain {plain_ms * 1e3:.2f} us; bound {max(t_ops, t_bytes) * 1e6:.2f} us "
-        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        f"wrapper (xa/xb matmuls + kernel) {wrapper_ms * 1e3:.2f} us, fused_layout "
+        f"(once per graph) {layout_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; "
+        f"bound {max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB)")
     return {
         "name": "fused_message_pass",
         "route": "cuda",
@@ -235,10 +273,50 @@ def phase_kernel(torch, FM):
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
+        "layout_ms": layout_ms,
+        "device_kernels_us": call,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
     }
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_fused_fwd(torch, FM):
+    """The fused forward as a round of the model calls it (the wrapper under
+    ``no_grad``, the graph's layout made once) at [kernel]'s timing problem
+    (9216 live edges of E=15360, random receivers), f32 and bf16: its time
+    (CUDA events), the device kernels of one call (torch.profiler) and the
+    digest of its output.  It uses only the wrapper, so that with this file
+    and ``utils/timing.py`` copied into another tree of the port (one with
+    ``fused_layout``), ``--phase kernel-timing`` times that tree's forward
+    there, in turns with this one."""
+    rng = np.random.default_rng(16)
+    args = kernel_problem(torch, rng, 9216, E)
+    layout = FM.fused_layout(args[2], args[3], N)
+    row = {"name": "fused_message_pass (wrapper)"}
+    with torch.no_grad():
+        for bf16 in (False, True):
+            def call():
+                return FM.fused_message_pass(*args, 0.01, bf16, layout=layout)
+            tag = "bf16" if bf16 else "f32"
+            ms = event_ms(call)
+            kernels = device_kernels(call)
+            out = digest([call()])
+            log(f"[kernel-timing] {tag}: wrapper {ms * 1e3:.2f} us; one call, "
+                f"{len(kernels)} device kernels (us): "
+                + "; ".join(f"{k} {us:.2f}" for k, us in kernels)
+                + f"; agg sha256 {out}")
+            row[tag] = {"wrapper_ms": ms, "device_kernels_us": kernels,
+                        "agg_sha256": out}
+    return row
 
 
 def kink_mask(torch, args):
@@ -275,40 +353,64 @@ def drop_kink_edges(torch, args):
     return args[:3] + [receivers] + args[4:], int(kink.sum())
 
 
+FUSED_BWD_NAMES = "gef dxa dxb dw1e db1 dw2 db2 dg1 dbe1 dg2 dbe2".split()
+
+
 def phase_kernel_bwd(torch, FM):
-    """Phase 3: backward kernel vs plain version, autograd on the card vs
-    the CPU, and timing; returns the backward kernel's table row."""
+    """Phase 3: the fused backward's C call vs its plain version (all 11
+    outputs), bitwise agreement of two launches per output, autograd on the
+    card vs the CPU, timing and the per-launch breakdown of one call;
+    returns its table row."""
     rng = np.random.default_rng(2)
-    names = ("gef dxa dxb dw1e db1 dw2 db2 dg1 dbe1 dg2 dbe2").split()
     max_err = 0.0
-    # A frame-like padded tail, and a ragged E with one-sided sentinels.
-    for e_valid, e_total, mixed in ((9216, E, False), (E - 3, E - 3, True)):
-        args = kernel_problem(torch, rng, e_valid, e_total)
+    # A frame-like padded tail, a ragged E with one-sided sentinels, then
+    # two wider rounds (N=256), where the edge kernel takes 16- and 8-edge
+    # tiles.
+    wide_rng = np.random.default_rng(15)
+    problems = [(f"E={e_total} valid={e_valid} mixed={mixed}",
+                 kernel_problem(torch, rng, e_valid, e_total), mixed)
+                for e_valid, e_total, mixed in ((9216, E, False), (E - 3, E - 3, True))]
+    problems += [(f"N=256 E=3001 De={de} H={h}",
+                  kernel_problem(torch, wide_rng, 2700, 3001, 256, de, h), False)
+                 for de, h in ((DE, 256), (96, 256))]
+    for name, args, mixed in problems:
+        n, e_total = args[0].shape[0], args[1].shape[0]
         if mixed:
             for i in (2, 3):
-                args[i][torch.from_numpy(rng.random(e_total) < 0.05).cuda()] = N
+                args[i][torch.from_numpy(rng.random(e_total) < 0.05).cuda()] = n
         args, dropped = drop_kink_edges(torch, args)
+        de, h = args[1].shape[1], args[4].shape[1]
+        plan = FM._backward_plan(n, e_total, de, h, D2, args[0].device)
         g = torch.from_numpy(
-            (G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
+            (G_SCALE * rng.normal(size=(n, D2))).astype(np.float32)).cuda()
         got = FM.fused_message_pass_backward(*args, g)
+        again = FM.fused_message_pass_backward(*args, g)
         torch.cuda.synchronize()
         want = FM.fused_message_pass_backward_reference(*args, g)
-        worst = {}
-        for name, a, b in zip(names, got, want):
+        worst, same = {}, {}
+        for out, a, b, c in zip(FUSED_BWD_NAMES, got, want, again):
             err = (a - b).abs()
             bad = int((err > GRAD_ATOL + GRAD_RTOL * b.abs()).sum())
-            worst[name] = float(err.max())
-            max_err = max(max_err, worst[name])
+            worst[out] = float(err.max())
+            same[out] = bool(torch.equal(a, c))
+            max_err = max(max_err, worst[out])
             if bad or not torch.isfinite(a).all():
                 raise AssertionError(
-                    f"fused_message_pass_backward: {name} disagrees with its "
-                    f"plain version at {bad} elements")
-        log(f"[kernel-bwd] E={e_total} valid={e_valid} mixed={mixed} "
-            f"kink edges dropped={dropped}: all 11 outputs within rtol="
-            f"{GRAD_RTOL} atol={GRAD_ATOL}; max abs err {json.dumps(worst)}")
+                    f"fused_message_pass_backward: {name} {out} disagrees with "
+                    f"its plain version at {bad} elements")
+        log(f"[kernel-bwd] {name} ({plan.tile}-edge tiles, {plan.stages} stage(s), "
+            f"{plan.blocks} blocks) kink edges dropped={dropped}: all 11 outputs "
+            f"within rtol={GRAD_RTOL} atol={GRAD_ATOL}; max abs err {json.dumps(worst)}; "
+            f"two launches bitwise equal {json.dumps(same)}")
+        if not all(same.values()):
+            raise AssertionError("fused_message_pass_backward is not deterministic")
+        if mixed:
+            checked = args, g
 
     # Autograd through the Function: the card (kernels) against CPU tensors
-    # (plain versions), on the last problem.
+    # (plain versions), on the mixed-sentinel problem.
+    args, g = checked
+
     def grads(device):
         leaves = [a.to(device).clone().requires_grad_()
                   for a in (args[0], args[1], args[4], args[5], args[6],
@@ -327,24 +429,45 @@ def phase_kernel_bwd(torch, FM):
     log(f"[kernel-bwd] autograd (x, ef, w1, b1, w2, b2, 4 norm scalars) card "
         f"vs CPU: max abs err {worst:.3e} (rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
 
-    # Timing at the main path's shapes with a frame-like padded tail.
+    row = time_fused_bwd(torch, FM)
+    row["max_abs_err"] = max_err
+    return row
+
+
+def device_kernels(fn) -> list:
+    """[name, µs] of each device kernel of one call of ``fn``
+    (``kernel_breakdown``), names without argument lists."""
+    return [[name.replace("void ", "").replace("(anonymous namespace)::", "")
+             .split("(")[0], us] for name, us in kernel_breakdown(fn)]
+
+
+def time_fused_bwd(torch, FM):
+    """[kernel-bwd]'s timing at the main path's shapes (9216 live edges of
+    E=15360, random receivers): the C entry point (CUDA events), the device
+    kernels of one C call and of one wrapper call (torch.profiler), the
+    wrapper, the plain version and the bound, as the kernel's table row (no
+    error, no launches)."""
+    rng = np.random.default_rng(14)
     args = kernel_problem(torch, rng, 9216, E)
     g = torch.from_numpy((G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
     x, ef, s, r, w1, b1, w2, b2 = args[:8]
-    xa, xb = x @ w1[:D], x @ w1[D:2 * D]
-    w1e = w1[2 * D:]
-    w1e_t, w2_t = w1e.t().contiguous(), w2.t().contiguous()
-    scal = torch.cat(args[8:])
-    outs = [torch.zeros(sh, device="cuda") for sh in
-            ((E, DE), (N, H), (N, H), (DE, H), (H,), (H, D2), (D2,), (4,))]
+    layout = FM.fused_layout(s, r, N)
+    # results holds the buffers that raw points to.
+    raw, results = FM._backward_launch(x, ef, s, r, layout, w1, b1, w2, b2,
+                                       torch.cat(args[8:]), g, 0.01)
+
+    def wrapper():  # as the model's rounds call it, with the graph's layout
+        return FM.fused_message_pass_backward(*args, g, 0.01, layout)
+
     fn = FM._bwd_kernel()
-    raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(),
-           r.data_ptr(), w1e.data_ptr(), w1e_t.data_ptr(), b1.data_ptr(),
-           w2.data_ptr(), w2_t.data_ptr(), b2.data_ptr(), scal.data_ptr(),
-           g.data_ptr(), 0.01, *[o.data_ptr() for o in outs], N, E, DE, H, D2,
-           torch.cuda.current_stream().cuda_stream)
     kernel_ms = event_ms(lambda: fn(*raw))
-    wrapper_ms = event_ms(lambda: FM.fused_message_pass_backward(*args, g))
+    call = device_kernels(lambda: fn(*raw))
+    whole = device_kernels(wrapper)
+    log(f"[kernel-bwd] one fused_mp_backward call, {len(call)} device kernels "
+        f"(torch.profiler, us): " + "; ".join(f"{k} {us:.2f}" for k, us in call))
+    log(f"[kernel-bwd] one fused_message_pass_backward call (wrapper), {len(whole)} "
+        f"device kernels (us): " + "; ".join(f"{k} {us:.2f}" for k, us in whole))
+    wrapper_ms = event_ms(wrapper)
     plain_ms = event_ms(lambda: FM.fused_message_pass_backward_reference(*args, g))
 
     # Least time on these inputs: three times the forward's f32 FMAs for
@@ -357,21 +480,22 @@ def phase_kernel_bwd(torch, FM):
     n_out = E * DE + 2 * N * H + DE * H + H + H * D2 + D2 + 4
     nbytes = 4 * (n_in + n_out)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    log(f"[kernel-bwd] timing E={E} live={e_live}: kernel {kernel_ms * 1e3:.2f} us, "
-        f"wrapper (xa/xb matmuls, transposes, zeroing + kernel) "
-        f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
-        f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB)")
+    log(f"[kernel-bwd] timing E={E} live={e_live}: C entry point {kernel_ms * 1e3:.2f} us, "
+        f"wrapper (xa/xb matmuls, buffers + C call) {wrapper_ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us; bound {max(t_ops, t_bytes) * 1e6:.2f} us "
+        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return {
         "name": "fused_message_pass_backward",
         "route": "cuda",
         "source": "graph_neural_network_for_radar_perception_torch/csrc/fused_mp.cu",
         "replaces": "graph_neural_network_for_radar_perception_tpu/ops/pallas/fused_mp.py:228",
         "launches": None,
-        "max_abs_err": max_err,
+        "max_abs_err": None,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
+        "device_kernels_us": call,
+        "wrapper_device_kernels_us": whole,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -640,14 +764,22 @@ def time_csr_bwd(torch, C):
     args, g, layout, raw, results = csr_bwd_timing_problem(torch, C)
     fn = C._bwd_kernel()
     kernel_ms = event_ms(lambda: fn(*raw))
-    breakdown = [(name.replace("void ", "").replace("(anonymous namespace)::", "")
-                  .split("(")[0], us) for name, us in kernel_breakdown(lambda: fn(*raw))]
+    breakdown = device_kernels(lambda: fn(*raw))
     log(f"[kernel-csr-bwd] one csr_mp_backward call, {len(breakdown)} device "
         f"kernels (torch.profiler, us): " + "; ".join(
             f"{name} {us:.2f}" for name, us in breakdown))
     tiling = (0.01, CSR_TILE, CSR_WINDOW)
     wrapper_ms = event_ms(lambda: C.fused_message_pass_csr_backward(
         *args, g, *tiling))
+    # The bits of the outputs, to compare builds in turns: the 10 backward
+    # outputs of one C call and both forwards on this problem.
+    fn(*raw)
+    with torch.no_grad():
+        forwards = [C.fused_message_pass_csr(*args, *tiling, bf16)
+                    for bf16 in (False, True)]
+    outputs = digest([*results(), *forwards])
+    log(f"[kernel-csr-bwd] outputs sha256 (10 backward outputs of one C call, "
+        f"the f32 and bf16 forwards): {outputs}")
     plain_ms = event_ms(lambda: C.fused_message_pass_csr_backward_reference(
         *args, g, *tiling))
 
@@ -676,7 +808,8 @@ def time_csr_bwd(torch, C):
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
-        "device_kernels_us": [[name, us] for name, us in breakdown],
+        "device_kernels_us": breakdown,
+        "outputs_sha256": outputs,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -879,7 +1012,12 @@ def phase_deploy(torch, FM):
         f"{np.median(deploy_ms):.3f} (min {min(deploy_ms):.3f}, max {max(deploy_ms):.3f})")
     with torch.no_grad():
         prof = profile_run(torch, lambda: det_gpu.model.deploy(graph))
+        layout_kernels = len(kernel_breakdown(lambda: FM.fused_layout(
+            graph.senders, graph.receivers, graph.node_feat.shape[0])))
     log(f"[deploy] profile of one deploy forward (last frame): {json.dumps(prof)}")
+    log(f"[deploy] launches per frame: {prof['device_kernels']} device kernels in one "
+        f"deploy forward, {rounds} of them fused_message_pass and {layout_kernels} "
+        f"the graph's fused_layout (made once per frame)")
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
     return launches
@@ -1219,30 +1357,28 @@ def phase_kernel_bf16(torch, FM):
     for e_valid, e_total in ((9216, E), (E - 3, E - 3)):
         args = kernel_problem(torch, rng, e_valid, e_total)
         got = FM.fused_message_pass(*args, 0.01, True)
+        again = FM.fused_message_pass(*args, 0.01, True)
         f32 = FM.fused_message_pass(*args, 0.01)
         torch.cuda.synchronize()
         want = FM.fused_message_pass_reference(*args, 0.01, bf16=True)
         err, bad, ratio, n_out = bf16_verdict(torch, got, f32, want, "fused_message_pass bf16")
+        same = bool(torch.equal(got, again))
         max_err = max(max_err, err)
         log(f"[kernel-bf16] E={e_total} valid={e_valid}: max_abs_err={err:.3e}, "
             f"violations(rtol={BF16_RTOL}, atol={BF16_ATOL})={bad} (flipped roundings); "
             f"the f32 kernel lies up to {ratio:.1f} tolerances away ({n_out} of "
-            f"{want.numel()} elements outside)")
+            f"{want.numel()} elements outside); two launches bitwise equal={same}")
+        if not same:
+            raise AssertionError("the fused bf16 forward is not deterministic")
 
     args = kernel_problem(torch, rng, 9216, E)
-    x, ef, s, r, w1, b1, w2, b2 = args[:8]
-    xa, xb = x @ w1[:D], x @ w1[D:2 * D]
-    w1e = w1[2 * D:]
-    scal = torch.cat(args[8:])
-    agg = torch.zeros(N, D2, device="cuda")
+    r = args[3]
+    raw, alive = fused_fwd_raw(torch, FM, args, torch.empty(N, D2, device="cuda"))
     fn = FM._kernel(True)
-    raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(),
-           r.data_ptr(), w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-           b2.data_ptr(), scal.data_ptr(), 0.01, agg.data_ptr(), N, E, DE, H,
-           D2, torch.cuda.current_stream().cuda_stream)
     kernel_ms = event_ms(lambda: fn(*raw))
     f32_ms = event_ms(lambda: FM._kernel(False)(*raw))
-    wrapper_ms = event_ms(lambda: FM.fused_message_pass(*args, 0.01, True))
+    wrapper_ms = event_ms(lambda: FM.fused_message_pass(*args, 0.01, True,
+                                                         layout=alive[-1]))
     plain_ms = event_ms(lambda: FM.fused_message_pass_reference(
         *args, 0.01, bf16=True))
 
@@ -1363,18 +1499,30 @@ def phase_microbench(torch):
     tab = torch.from_numpy(rng.normal(size=(MB.N, MB.D)).astype(np.float32)).to(dev)
     msg = torch.from_numpy(rng.normal(size=(m, MB.D)).astype(np.float32)).to(dev)
     got_g, got_s = MB.gather_rows(tab, idx_c), MB.scatter_add_rows(msg, idx_c, MB.N)
+    again_s = MB.scatter_add_rows(msg, idx_c, MB.N)
     torch.cuda.synchronize()
     want_g = MB.gather_rows_reference(tab, idx_c)
     want_s = MB.scatter_add_rows_reference(msg, idx_c, MB.N)
     err_s = (got_s - want_s).abs()
     bad_s = int((err_s > MB.SCATTER_TOL["atol"] + MB.SCATTER_TOL["rtol"] * want_s.abs()).sum())
     same_g = bool(torch.equal(got_g, want_g))
+    # np.add.at adds each row's messages in index order, as the kernel does:
+    # the same bits (the plain version's index_add_ on the card uses atomics).
+    keep = (idx >= 0) & (idx < MB.N)
+    add_at = np.zeros((MB.N, MB.D), np.float32)
+    np.add.at(add_at, idx[keep], msg.cpu().numpy()[keep])
+    exact_s = bool(np.array_equal(got_s.cpu().numpy(), add_at))
+    same_s = bool(torch.equal(got_s, again_s))
     log(f"[kernel-gather] {m} indices ({int(bad.sum())} outside [0, {MB.N})): kernel "
         f"bitwise equal to plain={same_g}")
     log(f"[kernel-scatter] {m} messages ({int(bad.sum())} dropped): max_abs_err="
-        f"{float(err_s.max()):.3e} violations({json.dumps(MB.SCATTER_TOL)})={bad_s}")
+        f"{float(err_s.max()):.3e} violations({json.dumps(MB.SCATTER_TOL)})={bad_s}; "
+        f"bitwise equal to np.add.at={exact_s}; two launches bitwise equal={same_s}")
     if not same_g or bad_s:
         raise AssertionError("a microbenchmark kernel disagrees with its plain version")
+    if not exact_s or not same_s:
+        raise AssertionError("scatter_add_rows is not np.add.at's sum, bit for bit, "
+                             "on every launch")
 
     MB.gather_rows.launches = 0
     MB.scatter_add_rows.launches = 0
@@ -1561,8 +1709,12 @@ def card() -> str:
 def main(argv) -> int:
     import torch
 
-    phases = {"kernel-csr-bwd": phase_kernel_csr_bwd,
-              "kernel-csr-bwd-timing": time_csr_bwd}
+    # Phases that run alone, and the library each needs.
+    phases = {"kernel-timing": (time_fused_fwd, "fused_mp"),
+              "kernel-bwd": (phase_kernel_bwd, "fused_mp"),
+              "kernel-bwd-timing": (time_fused_bwd, "fused_mp"),
+              "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
+              "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -1580,11 +1732,13 @@ def main(argv) -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    if argv:  # phase 5, or its timing, alone
+    if argv:  # one phase or timing alone
+        phase, lib = phases[argv[1]]
+        module = FM if lib == "fused_mp" else C
         t0 = time.perf_counter()
-        C._bwd_kernel()
-        log(f"[build] csr_mp: {time.perf_counter() - t0:.1f} s")
-        log(json.dumps(phases[argv[1]](torch, C)))
+        module._bwd_kernel()
+        log(f"[build] {lib}: {time.perf_counter() - t0:.1f} s")
+        log(json.dumps(phase(torch, module)))
         log(card())
         return 0
 

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import csr_mp as C
+from ..ops import fused_mp as FM
 from ..ops import norms as N
 from ..ops import segment as S
 from ..ops.fused_mp import fused_message_pass
@@ -202,9 +203,11 @@ class ResidualGraphConvBlock(nn.Module):
                                 norm_layer, num_groups)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                csr_layout=None, mp_bf16=False):
+                csr_layout=None, mp_bf16=False, fused_layout=None):
         """On the fused path, masked edges must carry the sentinel index N
-        at both ends (``GraphConvolution`` maps them).  With a
+        at both ends (``GraphConvolution`` maps them); ``fused_layout`` is
+        the graph's ``ops.fused_mp.fused_layout``, shared by its rounds, or
+        None to make it per round.  With a
         ``csr_layout`` (the graph's ``ops.csr_mp.csr_layout``, shared by its
         rounds) the round goes through the CSR pass: position p is the edge
         (receivers[p] → senders[p]), so dst = senders (sorted), src =
@@ -231,7 +234,8 @@ class ResidualGraphConvBlock(nn.Module):
                     bf16=mp_bf16, layout=csr_layout)
             else:
                 agg = fused_message_pass(x, edge_feat, senders, receivers,
-                                         *params, bf16=mp_bf16)
+                                         *params, bf16=mp_bf16,
+                                         layout=fused_layout)
         else:
             m = torch.cat([S.gather_nodes(x, receivers),
                            S.gather_nodes(x, senders), edge_feat], dim=-1)
@@ -286,15 +290,19 @@ class GraphConvolution(nn.Module):
             receivers = torch.where(edge_mask, receivers, n).int()
             edge_feat = torch.where(edge_mask[:, None], edge_feat,
                                     torch.zeros_like(edge_feat))
-        layout = None
+        layout = fused = None
         if mp_impl == "csr":
             edge_feat = edge_feat + self._csr_guard(senders, receivers,
                                                     x.shape[0])
             layout = C.csr_layout(receivers, senders, x.shape[0],
                                   *self.csr_tiling)
+        elif self.fused and FM.needs_layout(x):
+            # The fused kernels' fixed-order sums walk the edges by receiver
+            # and by sender: sorted once per graph.
+            fused = FM.fused_layout(senders, receivers, x.shape[0])
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
-                    layout, mp_bf16)
+                    layout, mp_bf16, fused)
         return x
 
     def _csr_guard(self, senders, receivers, n):

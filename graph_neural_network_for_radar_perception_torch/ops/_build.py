@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``.  Libraries go to ``build/torch_kernels/``
-at the root of the checkout, keyed by a hash of the source and the flags, so
-an edited source is rebuilt.  There is no fallback: a missing ``nvcc`` or a
-failed build raises.
+at the root of the checkout, keyed by a hash of the source, the headers of
+``csrc/`` and the flags, so an edited source or header is rebuilt.  There is
+no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -42,13 +42,21 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every header beside it (``csrc/*.cuh``:
+    a source may include any of them) and the flags: the key of its
+    library, so that an edited source or header is rebuilt."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()

@@ -59,6 +59,7 @@ import torch
 
 from ._build import load
 from .fused_mp import (
+    BackwardPlan,
     _bf16,
     _check,
     _check_kernel_widths,
@@ -436,15 +437,6 @@ def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
     else:
         fused_message_pass_csr.launches += 1
     return agg
-
-
-class BackwardPlan(NamedTuple):
-    """How ``csr_mp_backward`` runs at given widths on a device."""
-
-    floats: int   # its scratch
-    tile: int     # edges a tile of its edge kernel (32, 16 or 8)
-    stages: int   # input stages of the edge kernel (2 or 1)
-    blocks: int   # edge blocks
 
 
 def _backward_plan(n, e, d, de, h, d2, device) -> BackwardPlan:

@@ -13,8 +13,8 @@ through ``_FusedMessagePass``:
   ``csrc/fused_mp.cu`` (the port of the JAX package's
   ``ops/pallas/fused_mp.py::_kernel``); on a CPU tensor
   ``fused_message_pass_reference``, the plain PyTorch version;
-* backward: ``fused_message_pass_backward`` — on a CUDA tensor the kernel
-  ``fused_mp_backward`` of the same source (the port of
+* backward: ``fused_message_pass_backward`` — on a CUDA tensor the kernels
+  of ``fused_mp_backward`` in the same source (the port of
   ``fused_mp.py::_bwd_kernel``), on a CPU tensor
   ``fused_message_pass_backward_reference`` — then the node-level products
   that the JAX package also computes outside Pallas (``_backward_impl``).
@@ -22,6 +22,11 @@ through ``_FusedMessagePass``:
 Sentinel semantics are the TPU kernel's: a receiver outside [0, N) drops
 the message; a sender outside [0, N) contributes a zero x_s while the
 message still counts.  Padded edges carry N at both ends.
+
+The kernels sum in a fixed order, as the TPU kernel's sequential grid
+does, so two launches give the same bits: they walk the graph's
+``fused_layout`` (its edges by receiver and by sender, stable), which the
+model makes once per graph and hands to every round.
 
 ``bf16=True`` is the TPU kernel's bf16 mode (``_kernel`` with ``bf16``):
 every operand of a matrix product is rounded to bfloat16 and every product
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -168,14 +174,64 @@ def fused_message_pass_backward_reference(
             a1.t() @ g_pre2, g_pre2.sum(0), dg1, dbe1, dg2, dbe2)
 
 
+class FusedLayout(NamedTuple):
+    """The index preparation of one graph's fused rounds, shared by all of
+    them (it depends on the edges only): the edges by receiver and by
+    sender, each in a stable order, so that every node sums its edges in
+    edge order, with its segments.  An end outside [0, N) sorts last, past
+    offset N: no segment holds it."""
+
+    recv_order: torch.Tensor  # [E] int32, the edges by receiver
+    recv_off: torch.Tensor    # [N+1] int32, node v's: recv_order[recv_off[v]:recv_off[v+1]]
+    send_order: torch.Tensor  # [E] int32, the edges by sender
+    send_off: torch.Tensor    # [N+1] int32, node v's: send_order[send_off[v]:send_off[v+1]]
+
+
+def fused_layout(senders: torch.Tensor, receivers: torch.Tensor,
+                 n: int) -> FusedLayout:
+    """The ``FusedLayout`` of a graph's edges (senders, receivers [E] int32)
+    over n nodes.  Both orders come from one stable argsort: the receivers
+    as keys [0, n] and the senders as keys [n+1, 2n+1] side by side (an end
+    outside [0, n) counts as n).  On the card everything stays on the
+    device (no host sync)."""
+    e = senders.shape[0]
+
+    def key(idx):
+        return torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+
+    keys = torch.cat([key(receivers), key(senders) + (n + 1)])
+    order = torch.argsort(keys, stable=True)
+    nodes = torch.arange(2 * (n + 1), dtype=keys.dtype, device=keys.device)
+    off = torch.searchsorted(keys[order].contiguous(), nodes, out_int32=True)
+    return FusedLayout(order[:e].int(), off[: n + 1],
+                       (order[e:] - e).int(), off[n + 1 :] - e)
+
+
+def needs_layout(x: torch.Tensor) -> bool:
+    """Whether the rounds over node features ``x`` run the kernels, which
+    walk the graph's ``FusedLayout``: on every device but the CPU, whose
+    plain versions need none."""
+    return x.device.type != "cpu"
+
+
+class BackwardPlan(NamedTuple):
+    """How a backward C call (``fused_mp_backward``, ``csr_mp_backward``)
+    runs at given widths on a device, as its library plans it."""
+
+    floats: int   # its scratch
+    tile: int     # edges a tile of its edge kernel (32, 16 or 8)
+    stages: int   # input stages of the edge kernel (2 or 1)
+    blocks: int   # edge blocks
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(bf16: bool = False):
     """The forward kernel's C entry point (its bf16 instantiation with
     ``bf16``), built and loaded on first use."""
     lib = load("fused_mp")
     fn = lib.fused_mp_forward_bf16 if bf16 else lib.fused_mp_forward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_float, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -185,11 +241,20 @@ def _kernel(bf16: bool = False):
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    """The backward kernel's C entry point (same library as the forward)."""
+    """The backward's C entry point (same library as the forward)."""
     fn = load("fused_mp").fused_mp_backward
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_scratch():
+    """``fused_mp_backward_scratch``: the backward's scratch size and plan."""
+    fn = load("fused_mp").fused_mp_backward_scratch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -236,10 +301,16 @@ def _check_kernel_widths(name, x, ef, w1, w2):
         )
 
 
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
-             slope, bf16=False):
-    """One forward round: the plain version on the CPU, else the kernel
-    (its bf16 instantiation with ``bf16``)."""
+             slope, bf16, layout):
+    """One forward round: the plain version on the CPU, else the kernels
+    of one C call (its bf16 instantiation with ``bf16``) over the graph's
+    ``layout``: the messages into a scratch by edge, then every agg row
+    written once."""
     if x.device.type == "cpu":
         return fused_message_pass_reference(
             x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope,
@@ -254,17 +325,15 @@ def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
     xa = x @ w1[:d]
     xb = x @ w1[d : 2 * d]
     w1e = w1[2 * d :]
-    agg = torch.zeros(n, d2, dtype=torch.float32, device=x.device)
-    if e == 0:
-        return agg
-    fn = _kernel(bf16)
+    msgs = torch.empty(e, d2, dtype=torch.float32, device=x.device)
+    agg = torch.empty(n, d2, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = fn(
+        rc = _kernel(bf16)(
             xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), senders.data_ptr(),
-            receivers.data_ptr(), w1e.data_ptr(), b1.data_ptr(),
+            receivers.data_ptr(), layout.recv_order.data_ptr(),
+            layout.recv_off.data_ptr(), w1e.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), float(slope),
-            agg.data_ptr(), n, e, de, h, d2,
-            torch.cuda.current_stream().cuda_stream,
+            msgs.data_ptr(), agg.data_ptr(), n, e, de, h, d2, _stream(),
         )
     if rc != 0:
         raise RuntimeError(f"fused_mp_forward{'_bf16' if bf16 else ''} failed: "
@@ -276,21 +345,73 @@ def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
     return agg
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_plan(n, e, de, h, d2, device) -> BackwardPlan:
+    """How ``fused_mp_backward`` runs at these widths on ``device``, as the
+    C library plans it (``fused_mp_backward_scratch``); the same on every
+    call, so asked once."""
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        floats = _bwd_scratch()(n, e, de, h, d2, plan)
+    if floats < 0:
+        raise ValueError(f"fused_mp_backward: De={de}, H={h}, D2={d2}: "
+                         f"cudaError_t {-floats}")
+    return BackwardPlan(floats, *plan)
+
+
+def _backward_launch(x, ef, senders, receivers, layout, w1, b1, w2, b2, scal,
+                     g_out, slope):
+    """The arguments of one ``fused_mp_backward`` call, with its buffers
+    allocated and xa = x·W1r, xb = x·W1s computed (as ``_backward_impl``
+    recomputes them), and the function that returns its results: views of
+    the C call's outputs, every element of which the call writes."""
+    _check_kernel_widths("fused_message_pass_backward", x, ef, w1, w2)
+    n, d = x.shape
+    e, de = ef.shape
+    h, d2 = w1.shape[1], w2.shape[1]
+    xa = x @ w1[:d]
+    xb = x @ w1[d : 2 * d]
+    w1e = w1[2 * d :]
+    emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    scratch = emp(_backward_plan(n, e, de, h, d2, x.device).floats)
+    # Outputs: gef, dxa ‖ dxb and dw = dW1e ‖ db1 ‖ dW2 ‖ db2 ‖ dγ1 dβ1 dγ2 dβ2.
+    gef, dxab = emp(e, de), emp(2, n, h)
+    k = de * h
+    dw = emp(k + h + h * d2 + d2 + 4)
+    args = (
+        xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), senders.data_ptr(),
+        receivers.data_ptr(), layout.recv_order.data_ptr(),
+        layout.recv_off.data_ptr(), layout.send_order.data_ptr(),
+        layout.send_off.data_ptr(), w1e.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
+        float(slope), scratch.data_ptr(), gef.data_ptr(), dxab.data_ptr(),
+        dw.data_ptr(), n, e, de, h, d2, _stream(),
+    )
+
+    def results(_alive=(xa, xb, layout, scratch)):
+        # _alive holds the tensors only the pointers above refer to.
+        return (gef, dxab[0], dxab[1], dw[:k].view(de, h), dw[k : k + h],
+                dw[k + h : k + h + h * d2].view(h, d2),
+                dw[k + h + h * d2 : -4], *dw[-4:].unbind())
+
+    return args, results
+
+
 def fused_message_pass_backward(
     x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, g_out,
-    slope=0.01,
+    slope=0.01, layout=None,
 ):
     """Cotangents of one round for the cotangent ``g_out`` [N, D2] of agg.
 
     Returns what ``fused_message_pass_backward_reference`` returns.  A CUDA
-    input launches the kernel (or raises); a CPU input runs the plain
-    version.  ``fused_message_pass_backward.launches`` counts kernel
-    launches.  xa/xb are recomputed here with two matmuls (as
+    input runs the kernels of one ``fused_mp_backward`` call (or raises)
+    over the graph's ``layout`` (made here if None); a CPU input runs the
+    plain version.  ``fused_message_pass_backward.launches`` counts the C
+    calls.  xa/xb are recomputed here with two matmuls (as
     ``_backward_impl`` recomputes them), not saved by the forward."""
     _check(x, ef, senders, receivers, w1, b1, w2, b2)
     n, d = x.shape
-    e, de = ef.shape
-    h, d2 = w1.shape[1], w2.shape[1]
+    d2 = w2.shape[1]
     if tuple(g_out.shape) != (n, d2) or g_out.dtype != torch.float32:
         raise ValueError(f"g_out: {tuple(g_out.shape)} {g_out.dtype}, "
                          f"expected ({n}, {d2}) float32")
@@ -300,37 +421,17 @@ def fused_message_pass_backward(
         return fused_message_pass_backward_reference(
             x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
             g_out, slope)
-    _check_kernel_widths("fused_message_pass_backward", x, ef, w1, w2)
+    if layout is None:
+        layout = fused_layout(senders, receivers, n)
     scal = torch.cat([_scalar(v, x) for v in (g1, be1, g2, be2)])
-    xa = x @ w1[:d]
-    xb = x @ w1[d : 2 * d]
-    w1e = w1[2 * d :]
-    # Transposed copies, so that the kernel's lanes read both products'
-    # weights along contiguous rows.
-    w1e_t = w1e.t().contiguous()
-    w2_t = w2.t().contiguous()
-    z = functools.partial(torch.zeros, dtype=torch.float32, device=x.device)
-    gef, dxa, dxb = z(e, de), z(n, h), z(n, h)
-    dw1e, db1, dw2, db2, dscal = z(de, h), z(h), z(h, d2), z(d2), z(4)
-    if e > 0:
-        fn = _bwd_kernel()
-        with torch.cuda.device(x.device):
-            rc = fn(
-                xa.data_ptr(), xb.data_ptr(), ef.data_ptr(),
-                senders.data_ptr(), receivers.data_ptr(), w1e.data_ptr(),
-                w1e_t.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                w2_t.data_ptr(), b2.data_ptr(), scal.data_ptr(),
-                g_out.data_ptr(), float(slope), gef.data_ptr(),
-                dxa.data_ptr(), dxb.data_ptr(), dw1e.data_ptr(),
-                db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-                dscal.data_ptr(), n, e, de, h, d2,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"fused_mp_backward failed: cudaError_t {rc}")
-        fused_message_pass_backward.launches += 1
-    return (gef, dxa, dxb, dw1e, db1, dw2, db2,
-            dscal[0], dscal[1], dscal[2], dscal[3])
+    args, results = _backward_launch(x, ef, senders, receivers, layout, w1,
+                                     b1, w2, b2, scal, g_out, slope)
+    with torch.cuda.device(x.device):
+        rc = _bwd_kernel()(*args)
+    if rc != 0:
+        raise RuntimeError(f"fused_mp_backward failed: cudaError_t {rc}")
+    fused_message_pass_backward.launches += 1
+    return results()
 
 
 class _FusedMessagePass(torch.autograd.Function):
@@ -338,16 +439,18 @@ class _FusedMessagePass(torch.autograd.Function):
     ``pallas_backward=True``).  The forward saves its inputs; the backward
     runs ``fused_message_pass_backward`` and finishes as ``_backward_impl``
     does: dx = dxa·W1rᵀ + dxb·W1sᵀ, dW1 = [xᵀ·dxa; xᵀ·dxb; dW1e].  A bf16
-    forward gets the same f32 backward: the flag is not passed on."""
+    forward gets the same f32 backward: the flag is not passed on.  On the
+    card both walk the graph's ``FusedLayout``; the plain versions take
+    none."""
 
     @staticmethod
     def forward(ctx, x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2,
-                be2, slope, bf16):
-        ctx.slope = slope
+                be2, slope, bf16, layout):
+        ctx.slope, ctx.layout = slope, layout
         ctx.save_for_backward(x, ef, senders, receivers, w1, b1, w2, b2, g1,
                               be1, g2, be2)
         return _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1,
-                        g2, be2, slope, bf16)
+                        g2, be2, slope, bf16, layout)
 
     @staticmethod
     def backward(ctx, g_out):
@@ -357,17 +460,18 @@ class _FusedMessagePass(torch.autograd.Function):
         (gef, dxa, dxb, dw1e, db1, dw2, db2, dg1, dbe1, dg2,
          dbe2) = fused_message_pass_backward(
             x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
-            g_out.contiguous(), ctx.slope)
+            g_out.contiguous(), ctx.slope, ctx.layout)
         d = x.shape[1]
         dx = dxa @ w1[:d].t() + dxb @ w1[d : 2 * d].t()
         dw1 = torch.cat([x.t() @ dxa, x.t() @ dxb, dw1e])
         return (dx, gef, None, None, dw1, db1, dw2, db2, dg1.reshape(1),
-                dbe1.reshape(1), dg2.reshape(1), dbe2.reshape(1), None, None)
+                dbe1.reshape(1), dg2.reshape(1), dbe2.reshape(1), None, None,
+                None)
 
 
 def fused_message_pass(
     x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope=0.01,
-    bf16=False,
+    bf16=False, layout=None,
 ):
     """agg[n] = Σ_{e: recv=n} msgMLP([x_recv ‖ x_send ‖ ef]), differentiable.
 
@@ -376,17 +480,23 @@ def fused_message_pass(
     g2, be2: scalar norm affine parameters (one-element tensors or floats;
     their gradients have shape (1,), as ``ScalarNorm``'s parameters).
     ``bf16``: the TPU kernel's bf16 operands (module docstring); the
-    gradients are those of the f32 round.  Returns agg [N, D2] f32.
+    gradients are those of the f32 round.  ``layout``: the graph's
+    ``fused_layout(senders, receivers, N)``, made once and passed to every
+    round of the graph, or None to make it here (on the card; the plain
+    versions need none).  Returns agg [N, D2] f32.
 
     A CUDA input launches the kernels (or raises); a CPU input runs the
-    plain versions.  ``fused_message_pass.launches`` counts launches of the
-    f32 forward kernel, ``fused_message_pass.launches_bf16`` those of its
-    bf16 instantiation; under ``torch.no_grad()`` nothing is saved for a
+    plain versions.  ``fused_message_pass.launches`` counts calls of the
+    f32 forward's C entry point (two kernels each),
+    ``fused_message_pass.launches_bf16`` those of its bf16 instantiation;
+    under ``torch.no_grad()`` nothing is saved for a
     backward."""
     _check(x, ef, senders, receivers, w1, b1, w2, b2)
     scalars = [_scalar(v, x) for v in (g1, be1, g2, be2)]
+    if layout is None and needs_layout(x):
+        layout = fused_layout(senders, receivers, x.shape[0])
     return _FusedMessagePass.apply(x, ef, senders, receivers, w1, b1, w2, b2,
-                                   *scalars, slope, bool(bf16))
+                                   *scalars, slope, bool(bf16), layout)
 
 
 fused_message_pass.launches = 0

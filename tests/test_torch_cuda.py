@@ -45,11 +45,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _problem(seed, n, e, d, de, h, d2, device):
-    """Random round with sentinel padding and one-sided sentinels."""
+def _problem(seed, n, e, d, de, h, d2, device, hub=False):
+    """Random round with sentinel padding and one-sided sentinels; ``hub``
+    sends a third of the edges to receiver 5 (a segment of ~E/3 edges)."""
     rng = np.random.default_rng(seed)
     s = rng.integers(0, n, size=e).astype(np.int32)
     r = rng.integers(0, n, size=e).astype(np.int32)
+    if hub:
+        r[rng.random(e) < 0.33] = 5
     pad = rng.random(e) < 0.1
     s[pad] = n
     r[pad] = n
@@ -66,11 +69,20 @@ def _problem(seed, n, e, d, de, h, d2, device):
     return out + [1.1, 0.05, 0.9, -0.02]
 
 
+FUSED_SHAPES = {
+    "deploy": dict(n=768, e=15360, d=64, de=64, h=128, d2=64),
+    "ragged": dict(n=768, e=15357, d=64, de=64, h=128, d2=64),  # ragged E
+    "tiny": dict(n=64, e=300, d=16, de=16, h=32, d2=16),        # tiny_test_config
+    "hub": dict(n=768, e=15360, d=64, de=64, h=128, d2=64, hub=True),
+}
+
+
 @pytest.mark.parametrize("shape", [
     dict(n=768, e=15360, d=64, de=64, h=128, d2=64),   # deploy shapes
     dict(n=768, e=15357, d=64, de=64, h=128, d2=64),   # ragged E
     dict(n=64, e=300, d=16, de=16, h=32, d2=16),       # tiny_test_config
-], ids=["deploy", "ragged", "tiny"])
+    FUSED_SHAPES["hub"],
+], ids=["deploy", "ragged", "tiny", "hub"])
 def test_kernel_matches_plain(cuda_device, shape):
     args = _problem(0, device=cuda_device, **shape)
     before = FM.fused_message_pass.launches
@@ -107,7 +119,11 @@ def test_deploy_on_card_matches_cpu(cuda_device):
     dict(n=768, e=15360, d=64, de=64, h=128, d2=64),   # main-path shapes
     dict(n=768, e=15357, d=64, de=64, h=128, d2=64),   # ragged E
     dict(n=64, e=300, d=16, de=16, h=32, d2=16),       # tiny_test_config
-], ids=["main", "ragged", "tiny"])
+    FUSED_SHAPES["hub"],
+    dict(n=256, e=3001, d=64, de=64, h=256, d2=64),    # 16-edge tiles
+    dict(n=256, e=3001, d=64, de=96, h=256, d2=64),    # 8-edge tiles
+    dict(n=256, e=3001, d=64, de=64, h=128, d2=128),   # two weight-gradient items
+], ids=["main", "ragged", "tiny", "hub", "wide-h", "wide-t8", "wide-d2"])
 def test_backward_kernel_matches_plain(cuda_device, shape):
     """All 11 outputs at the JAX package's gradient tolerance, with a
     cotangent of a train step's scale (1e-2)."""
@@ -125,6 +141,55 @@ def test_backward_kernel_matches_plain(cuda_device, shape):
     for name, a, b in zip(names, got, want):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=5e-4, atol=5e-5, err_msg=name)
+
+
+FUSED_BWD_NAMES = "gef dxa dxb dw1e db1 dw2 db2 dg1 dbe1 dg2 dbe2".split()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(FUSED_SHAPES))
+def test_fused_forward_is_bitwise_repeatable(cuda_device, shape, bf16):
+    """The forward sums each receiver's messages in a fixed order: two
+    launches, and a launch with the graph's layout made beforehand, give
+    the same bits."""
+    args = _problem(3, device=cuda_device, **FUSED_SHAPES[shape])
+    layout = FM.fused_layout(args[2], args[3], args[0].shape[0])
+    a = FM.fused_message_pass(*args, 0.01, bf16)
+    b = FM.fused_message_pass(*args, 0.01, bf16)
+    c = FM.fused_message_pass(*args, 0.01, bf16, layout=layout)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shape", list(FUSED_SHAPES))
+def test_fused_backward_is_bitwise_repeatable(cuda_device, shape):
+    """All 11 outputs of the backward's C call are fixed-order sums: two
+    launches give the same bits."""
+    sh = FUSED_SHAPES[shape]
+    args = _problem(4, device=cuda_device, **sh)
+    g = torch.from_numpy((1e-2 * np.random.default_rng(5).normal(
+        size=(sh["n"], sh["d2"]))).astype(np.float32)).to(cuda_device)
+    a = FM.fused_message_pass_backward(*args, g, 0.01)
+    b = FM.fused_message_pass_backward(*args, g, 0.01)
+    torch.cuda.synchronize()
+    for name, x, y in zip(FUSED_BWD_NAMES, a, b):
+        assert torch.equal(x, y), name
+
+
+def test_fused_round_without_edges(cuda_device):
+    """E = 0: the forward writes zero rows and the backward zero
+    cotangents, one launch each, nothing zeroed by the wrapper."""
+    args = _problem(6, n=64, e=0, d=16, de=16, h=32, d2=16, device=cuda_device)
+    before = (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches)
+    agg = FM.fused_message_pass(*args, 0.01)
+    out = FM.fused_message_pass_backward(*args, torch.ones(64, 16, device=cuda_device), 0.01)
+    torch.cuda.synchronize()
+    assert (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert agg.shape == (64, 16) and not agg.any()
+    assert out[0].shape == (0, 16)
+    for name, v in zip(FUSED_BWD_NAMES[1:], out[1:]):
+        assert not v.any(), name
 
 
 def _tiny_batch(cfg, seed=1):
@@ -441,6 +506,29 @@ def test_microbench_kernels_match_plain_and_library(cuda_device):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **MB.SCATTER_TOL)
     assert MB.gather_rows(tab, inside[:0]).shape == (0, MB.D)
     assert not MB.scatter_add_rows(msg[:0], inside[:0], MB.N).any()
+
+
+@pytest.mark.parametrize("n, d, m", [(768, 64, 15360), (100, 64, 15360), (768, 4, 15360),
+                                     (50, 12, 5000), (300, 1024, 3000)])
+def test_scatter_is_np_add_at_bitwise(cuda_device, n, d, m):
+    """Each row's messages are added in index order: np.add.at's result,
+    bit for bit, on every launch; with out-of-range indices, and a row that
+    takes a fifth of them (its list is summed and emptied several times)."""
+    rng = np.random.default_rng(n + d)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx[rng.random(m) < 0.2] = 17
+    idx[rng.random(m) < 0.05] = n + 1
+    idx[rng.random(m) < 0.05] = -3
+    msg = rng.normal(size=(m, d)).astype(np.float32)
+    keep = (idx >= 0) & (idx < n)
+    want = np.zeros((n, d), np.float32)
+    np.add.at(want, idx[keep], msg[keep])
+    t_idx, t_msg = torch.from_numpy(idx).to(cuda_device), torch.from_numpy(msg).to(cuda_device)
+    got = MB.scatter_add_rows(t_msg, t_idx, n)
+    again = MB.scatter_add_rows(t_msg, t_idx, n)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, again)
 
 
 def test_microbench_runs(cuda_device):

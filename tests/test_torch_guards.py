@@ -84,7 +84,8 @@ def test_import_scan_covers_the_bf16_and_microbenchmark_slice():
 
 @pytest.mark.parametrize("module, entry, args", [
     (FM, "_kernel", (True,)), (CM, "_kernel", (True,)), (MB, "_kernels", ()),
-], ids=["fused_bf16", "csr_bf16", "microbench_gather"])
+    (FM, "_bwd_scratch", ()),
+], ids=["fused_bf16", "csr_bf16", "microbench_gather", "fused_bwd_scratch"])
 def test_new_loaders_raise_without_nvcc(monkeypatch, tmp_path, module, entry,
                                         args):
     """The bf16 instantiations and the microbenchmark's kernels build from

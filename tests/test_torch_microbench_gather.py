@@ -159,3 +159,47 @@ def test_benchmark_refuses_to_run_without_a_card(monkeypatch, capsys):
         MB.run()
     assert MB.main() == 1
     assert capsys.readouterr().out == ""
+
+
+def test_plain_scatter_is_np_add_at():
+    """The plain version adds each row's messages in index order, as
+    np.add.at does and as the kernel does on the card
+    (tests/test_torch_cuda.py): bitwise equal, messages outside [0, N)
+    dropped."""
+    idx, _, msg = MB.make_inputs(0)
+    idx = idx[:, 0].copy()
+    rng = np.random.default_rng(1)
+    idx[rng.random(idx.shape[0]) < 0.05] = MB.N + 3
+    idx[rng.random(idx.shape[0]) < 0.05] = -1
+    keep = (idx >= 0) & (idx < MB.N)
+    want = np.zeros((MB.N, MB.D), np.float32)
+    np.add.at(want, idx[keep], msg[keep])
+    got = MB.scatter_add_rows(torch.from_numpy(msg), torch.from_numpy(idx), MB.N)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_ablation_variants_apply():
+    """Every variant of scripts/scatter_ablation.py rewrites text that the
+    kernel's source holds exactly once (no nvcc needed)."""
+    from graph_neural_network_for_radar_perception_torch.scripts import (
+        scatter_ablation as A,
+    )
+
+    text = (A._build.CSRC_DIR / "microbench_gather.cu").read_text()
+    for name, (_, edits) in A.VARIANTS.items():
+        variant = text
+        for old, new in edits:
+            assert variant.count(old) == 1, (name, old)
+            variant = variant.replace(old, new)
+
+
+def test_edge_tile_ablation_variants_apply():
+    """Every variant of scripts/edge_tile_ablation.py rewrites text that the
+    shared edge-tile header holds exactly once (no nvcc needed)."""
+    from graph_neural_network_for_radar_perception_torch.scripts import (
+        edge_tile_ablation as A,
+    )
+
+    shipped = (A._build.CSRC_DIR / "mp_edge_tile.cuh").read_text()
+    for name, (_, edits) in A.VARIANTS.items():
+        assert (A.rewrite(name) == shipped) == (not edits), name
