@@ -11,8 +11,9 @@ Phases, each reported on its own line:
    ``microbench_gather`` (row gather and scatter-add);
 2. [kernel] hold the fused forward kernel against its plain PyTorch version
    on the card at the main path's shapes (N=768, E=15360, D=De=D2=64,
-   H=128, plus a ragged E), two launches bitwise equal, and time both with
-   CUDA events;
+   H=128, plus a ragged E) and at the wider widths (FWD_WIDE) where its
+   edge kernel runs in one input stage, 16- and 8-edge tiles, two launches
+   bitwise equal, and time both with CUDA events;
 3. [kernel-bwd] the same for the fused backward's C call (all 11 outputs,
    each checked bitwise across two launches; also at H=256 and at De=96,
    H=256, where its edge kernel runs in 16- and 8-edge tiles), autograd
@@ -20,8 +21,9 @@ Phases, each reported on its own line:
    tensors, and the device kernels of one ``fused_mp_backward`` call and
    of one wrapper call (``torch.profiler``);
 4. [kernel-csr] the CSR forward kernel against its plain version on a kNN
-   graph (k=10) at N=768, E=15360, a ragged E and a banded graph with a
-   source window; two launches bitwise equal; timing;
+   graph (k=10) at N=768, E=15360, a ragged E, a banded graph with a
+   source window and kNN graphs at FWD_WIDE; two launches bitwise equal;
+   timing and the device kernels of one call;
 5. [kernel-csr-bwd] the same for the CSR backward kernel (all 10 outputs,
    each checked bitwise across two launches; also at H=256 and at De=96,
    H=256, where the edge kernel runs in 16- and 8-edge tiles), autograd
@@ -44,9 +46,8 @@ Phases, each reported on its own line:
 9. [deploy-csr] ``FrameDetector(GNNConfig(mp_impl="csr"))`` on 4 of the
    deploy frames against the default message pass on the card;
 10. [kernel-bf16] the fused forward's bf16 instantiation against its plain
-    bf16 version (N=768, E=15360 and a ragged E), two launches bitwise
-    equal, the f32 kernel's output shown to lie outside that tolerance,
-    timing;
+    bf16 version on the [kernel] problems, two launches bitwise equal, the
+    f32 kernel's output shown to lie outside that tolerance, timing;
 11. [kernel-csr-bf16] the same for the CSR forward on the [kernel-csr]
     graphs, two launches bitwise equal;
 12. [kernel-gather], [kernel-scatter] the microbenchmark's kernels against
@@ -72,13 +73,13 @@ nothing of JAX.
     python3 chip_smoke.py --phase kernel-csr-bwd
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
 
-build the one library a phase needs and run phase 3 (the fused backward)
-or phase 5 (the CSR backward) alone, or only a timing (the fused forward's
-wrapper, f32 and bf16, with its output digest; a backward's C call, the
-CSR one with the digest of its outputs and both forwards), then print its
-row and the card as the last two lines (no ``ok`` line): the quick way to
-time a kernel, e.g. another tree's beside this one's (``time_fused_fwd``,
-``time_fused_bwd``, ``time_csr_bwd``).
+build the libraries a phase needs and run phase 3 (the fused backward)
+or phase 5 (the CSR backward) alone, or only a timing (both forwards' C
+calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
+call, the CSR one with the digest of its outputs and both forwards), then
+print its row and the card as the last two lines (no ``ok`` line): the
+quick way to time a kernel, e.g. another tree's beside this one's
+(``time_forwards``, ``time_fused_bwd``, ``time_csr_bwd``).
 """
 
 from __future__ import annotations
@@ -124,6 +125,11 @@ G_SCALE = 1e-2
 # there the derivative jumps, and two summation orders may fall on either
 # side of the kink.
 KINK = 1e-4
+# Widths (De, H, D2) at which the forwards' edge kernel runs in one input
+# stage, 16- and 8-edge tiles on an H100 (fwd_plan; 32 and two stages at
+# the main path's), each on N=256 nodes and E=3001 edges.
+FWD_WIDE = ((64, 256, 64), (96, 256, 64), (64, 256, 128))
+WIDE_N, WIDE_E = 256, 3001
 # bf16 rounds (tests/test_torch_bf16.py's tolerance): the card and the CPU
 # sum in other orders, and a last-bit difference of an f32 sum can flip one
 # bf16 rounding, which moves one message element by one bf16 ulp (<= 2^-7 of
@@ -155,7 +161,7 @@ def log(msg: str) -> None:
 
 
 def kernel_problem(torch, rng, e_valid: int, e_total: int, n: int = N,
-                   de: int = DE, h: int = H):
+                   de: int = DE, h: int = H, d2: int = D2):
     """Random message round, at the deploy shapes unless told otherwise;
     the edge tail past ``e_valid`` is padding (sentinel n at both ends,
     zero features), as ``pad_frame`` + the model lay out a frame."""
@@ -168,8 +174,8 @@ def kernel_problem(torch, rng, e_valid: int, e_total: int, n: int = N,
     ef[e_valid:] = 0.0
     w1 = (rng.normal(size=(2 * D + de, h)) / np.sqrt(2 * D + de)).astype(np.float32)
     b1 = (0.1 * rng.normal(size=h)).astype(np.float32)
-    w2 = (rng.normal(size=(h, D2)) / np.sqrt(h)).astype(np.float32)
-    b2 = (0.1 * rng.normal(size=D2)).astype(np.float32)
+    w2 = (rng.normal(size=(h, d2)) / np.sqrt(h)).astype(np.float32)
+    b2 = (0.1 * rng.normal(size=d2)).astype(np.float32)
     dev = torch.device("cuda")
     arrays = [torch.from_numpy(a).to(dev) for a in (x, ef, s, r, w1, b1, w2, b2)]
     scalars = [torch.tensor([v], device=dev) for v in (1.1, 0.05, 0.9, -0.02)]
@@ -209,18 +215,32 @@ def fused_fwd_raw(torch, FM, args, agg):
            w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
            scal.data_ptr(), 0.01, msgs.data_ptr(), agg.data_ptr(), N, E, DE, H,
            D2, torch.cuda.current_stream().cuda_stream)
-    return raw, (xa, xb, scal, msgs, layout)
+    return raw, (xa, xb, scal, msgs, agg, layout)
+
+
+def fused_problems(torch, rng):
+    """The fused forward's checks, each (name, round): a frame-like padded
+    tail and a ragged E at the main path's shapes, then FWD_WIDE."""
+    out = [(f"E={e_total} valid={e_valid}", kernel_problem(torch, rng, e_valid, e_total))
+           for e_valid, e_total in ((9216, E), (E - 3, E - 3))]
+    return out + [(f"N={WIDE_N} E={WIDE_E} De={de} H={h} D2={d2}", kernel_problem(
+        torch, rng, WIDE_E - 300, WIDE_E, WIDE_N, de, h, d2)) for de, h, d2 in FWD_WIDE]
+
+
+def plan_of(FM, args) -> str:
+    """The fused forward's edge-kernel plan for the round ``args``."""
+    x, ef, w2 = args[0], args[1], args[6]
+    p = FM._forward_plan(x.shape[0], ef.shape[0], ef.shape[1], w2.shape[0],
+                         w2.shape[1], x.device)
+    return f"{p.tile}-edge tiles, {p.stages} stage(s), {p.blocks} blocks"
 
 
 def phase_kernel(torch, FM):
-    """Phase 2: kernel vs plain version, two launches bitwise, timing;
-    returns the kernel's table row."""
+    """Phase 2: kernel vs plain version at every tile the forward's plan
+    takes, two launches bitwise, timing; returns the kernel's table row."""
     rng = np.random.default_rng(0)
     max_err = 0.0
-    # A frame-like padded tail, and a ragged E that is no multiple of the
-    # kernel's edge group.
-    for e_valid, e_total in ((9216, E), (E - 3, E - 3)):
-        args = kernel_problem(torch, rng, e_valid, e_total)
+    for name, args in fused_problems(torch, rng):
         got = FM.fused_message_pass(*args)
         again = FM.fused_message_pass(*args)
         torch.cuda.synchronize()
@@ -229,7 +249,7 @@ def phase_kernel(torch, FM):
         max_err = max(max_err, float(err.max()))
         bad = int((err > ATOL + RTOL * want.abs()).sum())
         same = bool(torch.equal(got, again))
-        log(f"[kernel] E={e_total} valid={e_valid}: max_abs_err={float(err.max()):.3e} "
+        log(f"[kernel] {name} ({plan_of(FM, args)}): max_abs_err={float(err.max()):.3e} "
             f"violations(rtol={RTOL}, atol={ATOL})={bad}; two launches bitwise equal={same}")
         if bad or not torch.isfinite(got).all():
             raise AssertionError("fused_message_pass kernel disagrees with its plain version")
@@ -289,33 +309,48 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
-def time_fused_fwd(torch, FM):
-    """The fused forward as a round of the model calls it (the wrapper under
-    ``no_grad``, the graph's layout made once) at [kernel]'s timing problem
-    (9216 live edges of E=15360, random receivers), f32 and bf16: its time
-    (CUDA events), the device kernels of one call (torch.profiler) and the
-    digest of its output.  It uses only the wrapper, so that with this file
-    and ``utils/timing.py`` copied into another tree of the port (one with
-    ``fused_layout``), ``--phase kernel-timing`` times that tree's forward
+def time_forwards(torch, FM):
+    """Both forwards as a round of the model calls them, f32 and bf16: the
+    fused one at [kernel]'s timing problem (9216 live edges of E=15360,
+    random receivers), the CSR one at [kernel-csr]'s (the kNN graph).  For
+    each: the C entry point and the wrapper under ``no_grad`` with the
+    graph's layout made once (CUDA events), the device kernels of one C
+    call (torch.profiler) and the digest of agg.  With this file and
+    ``utils/timing.py`` copied into another tree of the port with the same
+    C signatures, ``--phase kernel-timing`` times that tree's forwards
     there, in turns with this one."""
+    from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+
     rng = np.random.default_rng(16)
     args = kernel_problem(torch, rng, 9216, E)
     layout = FM.fused_layout(args[2], args[3], N)
-    row = {"name": "fused_message_pass (wrapper)"}
+    _, csr_args, _ = csr_problems(torch, np.random.default_rng(5))[0]
+    csr_layout = C.csr_layout(csr_args[2], csr_args[3], N, CSR_TILE, CSR_WINDOW, 0)
+    # *_alive hold the tensors that only the raw pointers refer to.
+    raw, fused_alive = fused_fwd_raw(torch, FM, args, torch.empty(N, D2, device="cuda"))
+    csr_raw, csr_alive = csr_fwd_raw(torch, C, csr_args, csr_layout)
+    rounds = {
+        "fused": (lambda bf16: FM._kernel(bf16)(*raw),
+                  lambda bf16: FM.fused_message_pass(*args, 0.01, bf16, layout=layout)),
+        "csr": (lambda bf16: C._kernel(bf16)(*csr_raw),
+                lambda bf16: C.fused_message_pass_csr(
+                    *csr_args, 0.01, CSR_TILE, CSR_WINDOW, bf16, layout=csr_layout)),
+    }
+    row = {"name": "forwards (C entry points and wrappers)"}
     with torch.no_grad():
-        for bf16 in (False, True):
-            def call():
-                return FM.fused_message_pass(*args, 0.01, bf16, layout=layout)
-            tag = "bf16" if bf16 else "f32"
-            ms = event_ms(call)
-            kernels = device_kernels(call)
-            out = digest([call()])
-            log(f"[kernel-timing] {tag}: wrapper {ms * 1e3:.2f} us; one call, "
-                f"{len(kernels)} device kernels (us): "
-                + "; ".join(f"{k} {us:.2f}" for k, us in kernels)
-                + f"; agg sha256 {out}")
-            row[tag] = {"wrapper_ms": ms, "device_kernels_us": kernels,
-                        "agg_sha256": out}
+        for name, (entry, wrapper) in rounds.items():
+            for bf16 in (False, True):
+                tag = f"{name} {'bf16' if bf16 else 'f32'}"
+                entry_ms = event_ms(lambda: entry(bf16))
+                wrapper_ms = event_ms(lambda: wrapper(bf16))
+                kernels = device_kernels(lambda: entry(bf16))
+                out = digest([wrapper(bf16)])
+                log(f"[kernel-timing] {tag}: C call {entry_ms * 1e3:.2f} us, wrapper "
+                    f"{wrapper_ms * 1e3:.2f} us; one C call, {len(kernels)} device "
+                    f"kernels (us): " + "; ".join(f"{k} {us:.2f}" for k, us in kernels)
+                    + f"; agg sha256 {out}")
+                row[tag] = {"ms": entry_ms, "wrapper_ms": wrapper_ms,
+                            "device_kernels_us": kernels, "agg_sha256": out}
     return row
 
 
@@ -587,12 +622,51 @@ def csr_problems(torch, rng):
     return out
 
 
+def csr_fwd_problems(torch, rng):
+    """The CSR forward's checks: the [kernel-csr] problems, then kNN graphs
+    (k=8) at FWD_WIDE."""
+    return csr_problems(torch, rng) + [
+        (f"knn N={WIDE_N} E={WIDE_E} De={de} H={h} D2={d2}", csr_problem(
+            torch, rng, knn_edges(rng, WIDE_N, 8), WIDE_E, WIDE_N, D, de, h, d2), 0)
+        for de, h, d2 in FWD_WIDE]
+
+
+def csr_plan_of(C, args) -> str:
+    """The CSR forward's edge-kernel plan for the round ``args``."""
+    x, ef, w2 = args[0], args[1], args[6]
+    p = C._forward_plan(x.shape[0], ef.shape[0], x.shape[1], ef.shape[1],
+                        w2.shape[0], w2.shape[1], x.device)
+    return f"{p.tile}-edge tiles, {p.stages} stage(s), {p.blocks} blocks"
+
+
+def csr_fwd_raw(torch, C, args, layout):
+    """(raw, alive): the arguments of one ``csr_mp_forward`` (or _bf16) call
+    on the CSR round ``args`` over ``layout`` and the tensors only its
+    pointers refer to (its output among them)."""
+    x, ef, src, dst, w1, b1, w2, b2 = args[:8]
+    n, d = x.shape
+    e, de = ef.shape
+    h, d2 = w1.shape[1], w2.shape[1]
+    scal = torch.cat(args[8:])
+    agg = torch.empty(n, d2, device="cuda")
+    xab = torch.empty(2, n, h, device="cuda")
+    msgs = torch.empty(e, d2, device="cuda")
+    raw = (x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
+           layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
+           b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
+           xab.data_ptr(), 0.01, msgs.data_ptr(), agg.data_ptr(),
+           n, e, d, de, h, d2,
+           torch.cuda.current_stream().cuda_stream)
+    return raw, (scal, xab, msgs, agg, layout)
+
+
 def phase_kernel_csr(torch, C):
-    """Phase 4: the CSR forward kernel vs its plain version, two launches
-    bitwise, timing; returns the kernel's table row."""
+    """Phase 4: the CSR forward kernel vs its plain version at every tile
+    the forward's plan takes, two launches bitwise, timing; returns the
+    kernel's table row."""
     rng = np.random.default_rng(4)
     max_err = 0.0
-    for name, args, src_window in csr_problems(torch, rng):
+    for name, args, src_window in csr_fwd_problems(torch, rng):
         tiling = (CSR_TILE, CSR_WINDOW, False, src_window)
         with torch.no_grad():
             got = C.fused_message_pass_csr(*args, 0.01, *tiling)
@@ -605,7 +679,8 @@ def phase_kernel_csr(torch, C):
         bad = int((err > ATOL + RTOL * want.abs()).sum())
         same = bool(torch.equal(got, again))
         log(f"[kernel-csr] {name} E={args[2].shape[0]} live="
-            f"{int((args[3] < N).sum())} src_window={src_window}: max_abs_err="
+            f"{int((args[3] < args[0].shape[0]).sum())} src_window={src_window} "
+            f"({csr_plan_of(C, args)}): max_abs_err="
             f"{float(err.max()):.3e} violations(rtol={RTOL}, atol={ATOL})={bad}; "
             f"two launches bitwise equal={same}")
         if bad or not torch.isfinite(got).all() or not same:
@@ -613,19 +688,14 @@ def phase_kernel_csr(torch, C):
 
     # Timing on the kNN graph at the main path's shapes.
     _, args, _ = csr_problems(torch, np.random.default_rng(5))[0]
-    x, ef, src, dst, w1, b1, w2, b2 = args[:8]
+    src, dst = args[2], args[3]
     layout = C.csr_layout(src, dst, N, CSR_TILE, CSR_WINDOW, 0)
-    scal = torch.cat(args[8:])
-    agg = torch.empty(N, D2, device="cuda")
-    xab = torch.empty(2, N, H, device="cuda")
+    raw, alive = csr_fwd_raw(torch, C, args, layout)
     fn = C._kernel()
-    raw = (x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
-           layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
-           b1.data_ptr(), w2.data_ptr(),
-           b2.data_ptr(), scal.data_ptr(), xab.data_ptr(), 0.01,
-           agg.data_ptr(), N, E, D, DE, H, D2,
-           torch.cuda.current_stream().cuda_stream)
     kernel_ms = event_ms(lambda: fn(*raw))
+    call = device_kernels(lambda: fn(*raw))
+    log(f"[kernel-csr] one csr_mp_forward call, {len(call)} device kernels "
+        f"(torch.profiler, us): " + "; ".join(f"{k} {us:.2f}" for k, us in call))
     with torch.no_grad():  # the wrapper as a round of the model calls it
         wrapper_ms = event_ms(lambda: C.fused_message_pass_csr(
             *args, 0.01, CSR_TILE, CSR_WINDOW, layout=layout))
@@ -656,6 +726,7 @@ def phase_kernel_csr(torch, C):
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
+        "device_kernels_us": call,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -670,7 +741,7 @@ def csr_bwd_timing_problem(torch, C):
     (the kNN graph at the main path's shapes), a cotangent of a train
     step's scale, its CSR layout, and the arguments of one
     ``csr_mp_backward`` call (``results`` holds the buffers they point
-    to).  scripts/torch_csr_bwd_ablation.py times its variants on it."""
+    to)."""
     _, args, _ = csr_problems(torch, np.random.default_rng(7))[0]
     g = torch.from_numpy((G_SCALE * np.random.default_rng(8).normal(
         size=(N, D2))).astype(np.float32)).cuda()
@@ -1354,8 +1425,7 @@ def phase_kernel_bf16(torch, FM):
     bf16 version, and timing; returns its table row."""
     rng = np.random.default_rng(10)
     max_err = 0.0
-    for e_valid, e_total in ((9216, E), (E - 3, E - 3)):
-        args = kernel_problem(torch, rng, e_valid, e_total)
+    for name, args in fused_problems(torch, rng):
         got = FM.fused_message_pass(*args, 0.01, True)
         again = FM.fused_message_pass(*args, 0.01, True)
         f32 = FM.fused_message_pass(*args, 0.01)
@@ -1364,7 +1434,7 @@ def phase_kernel_bf16(torch, FM):
         err, bad, ratio, n_out = bf16_verdict(torch, got, f32, want, "fused_message_pass bf16")
         same = bool(torch.equal(got, again))
         max_err = max(max_err, err)
-        log(f"[kernel-bf16] E={e_total} valid={e_valid}: max_abs_err={err:.3e}, "
+        log(f"[kernel-bf16] {name} ({plan_of(FM, args)}): max_abs_err={err:.3e}, "
             f"violations(rtol={BF16_RTOL}, atol={BF16_ATOL})={bad} (flipped roundings); "
             f"the f32 kernel lies up to {ratio:.1f} tolerances away ({n_out} of "
             f"{want.numel()} elements outside); two launches bitwise equal={same}")
@@ -1417,7 +1487,7 @@ def phase_kernel_csr_bf16(torch, C):
     returns its table row."""
     rng = np.random.default_rng(12)
     max_err = 0.0
-    for name, args, src_window in csr_problems(torch, rng):
+    for name, args, src_window in csr_fwd_problems(torch, rng):
         with torch.no_grad():
             got = C.fused_message_pass_csr(*args, 0.01, CSR_TILE, CSR_WINDOW, True, src_window)
             again = C.fused_message_pass_csr(*args, 0.01, CSR_TILE, CSR_WINDOW, True, src_window)
@@ -1429,7 +1499,8 @@ def phase_kernel_csr_bf16(torch, C):
             torch, got, f32, want, f"fused_message_pass_csr bf16 {name}")
         same = bool(torch.equal(got, again))
         max_err = max(max_err, err)
-        log(f"[kernel-csr-bf16] {name} E={args[2].shape[0]} src_window={src_window}: "
+        log(f"[kernel-csr-bf16] {name} E={args[2].shape[0]} src_window={src_window} "
+            f"({csr_plan_of(C, args)}): "
             f"max_abs_err={err:.3e}, violations(rtol={BF16_RTOL}, atol={BF16_ATOL})="
             f"{bad} (flipped roundings); the f32 kernel lies up to {ratio:.1f} "
             f"tolerances away ({n_out} elements outside); two launches bitwise "
@@ -1438,16 +1509,8 @@ def phase_kernel_csr_bf16(torch, C):
             raise AssertionError("the CSR bf16 forward is not deterministic")
 
     _, args, _ = csr_problems(torch, np.random.default_rng(5))[0]
-    x, ef, src, dst, w1, b1, w2, b2 = args[:8]
-    layout = C.csr_layout(src, dst, N, CSR_TILE, CSR_WINDOW, 0)
-    scal = torch.cat(args[8:])
-    agg = torch.empty(N, D2, device="cuda")
-    xab = torch.empty(2, N, H, device="cuda")
-    raw = (x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
-           layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
-           b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
-           xab.data_ptr(), 0.01, agg.data_ptr(), N, E, D, DE, H, D2,
-           torch.cuda.current_stream().cuda_stream)
+    layout = C.csr_layout(args[2], args[3], N, CSR_TILE, CSR_WINDOW, 0)
+    raw, alive = csr_fwd_raw(torch, C, args, layout)
     fn = C._kernel(True)
     kernel_ms = event_ms(lambda: fn(*raw))
     f32_ms = event_ms(lambda: C._kernel(False)(*raw))
@@ -1709,8 +1772,8 @@ def card() -> str:
 def main(argv) -> int:
     import torch
 
-    # Phases that run alone, and the library each needs.
-    phases = {"kernel-timing": (time_fused_fwd, "fused_mp"),
+    # Phases that run alone, and the libraries each needs.
+    phases = {"kernel-timing": (time_forwards, "fused_mp", "csr_mp"),
               "kernel-bwd": (phase_kernel_bwd, "fused_mp"),
               "kernel-bwd-timing": (time_fused_bwd, "fused_mp"),
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
@@ -1733,11 +1796,12 @@ def main(argv) -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     if argv:  # one phase or timing alone
-        phase, lib = phases[argv[1]]
-        module = FM if lib == "fused_mp" else C
+        phase, *libs = phases[argv[1]]
+        module = FM if libs[0] == "fused_mp" else C
         t0 = time.perf_counter()
-        module._bwd_kernel()
-        log(f"[build] {lib}: {time.perf_counter() - t0:.1f} s")
+        with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+            list(pool.map(_build.build, libs))
+        log(f"[build] {', '.join(libs)}: {time.perf_counter() - t0:.1f} s")
         log(json.dumps(phase(torch, module)))
         log(card())
         return 0

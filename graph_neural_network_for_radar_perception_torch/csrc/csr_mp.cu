@@ -25,14 +25,18 @@
 // device; here a gather is a gather, and the scatter is a segmented
 // reduction over the sorted destinations, with no atomics:
 //
-// Forward.  (1) x . W1r and x . W1s once per node (gemm_kernel, the TPU
-// body computes them per edge: the same function with less work);
-// (2) csr_fwd_kernel: a warp owns a run of whole destination segments,
-// balanced by edge count (each warp finds its first node by binary search
-// in off).  It computes its edges' messages eight at a time with the fused
-// kernel's register blocking (csrc/fused_mp.cu) and warp-shuffle norms, adds
-// them in edge order in registers, and writes every agg row exactly once
-// (zero for a node without edges).  Two launches give the same bits.
+// Forward, three launches in one C call.  (1) x . W1r and x . W1s once
+// per node (one batched gemm_kernel; the TPU body computes them per edge:
+// the same function with less work); (2) fwd_edge_kernel
+// (csrc/mp_edge_tile.cuh, shared with the fused round's forward): one
+// block per SM, each a balanced contiguous run of the edges before off[N]
+// in tiles of T = 32 (16 or 8 where 32 rows overflow the shared memory:
+// fwd_plan), not cut at segment boundaries; W1e and W2 in shared memory,
+// both layers' products register-tiled on shared memory, the norms row
+// phases; each message to its edge's row of a scratch msgs [E, D2]; (3)
+// segsum_kernel: agg[v] = the sum of v's segment of msgs in edge order,
+// edges whose dst is N skipped, every row written once (zero for a node
+// without edges).  Two launches give the same bits.
 //
 // Backward, six launches in one C call.  (1) x . W1r, x . W1s again (one
 // batched gemm_kernel); (2) bwd_edge_kernel (csrc/mp_edge_tile.cuh, shared
@@ -57,30 +61,30 @@
 // edge's message costs 2 * (De*H + H*D2) = 32 768 FLOP against ~300 bytes,
 // far above the H100's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B):
 // f32 FMA throughput bounds both on paper (no tensor cores: the reference is
-// f32; TF32 would change the function).  The forward's warps fill less than
-// one wave at the main path's shapes (N = 768, E = 15 360), so a launch
-// lasts the chain of the busiest warp: a few edge groups in a row
-// (PERF.md); it streams W1e and W2 through L1 at every step.  The backward's
-// edge kernel does three times the forward's products: it keeps the
-// weights in shared memory once per block, reads no weight from global
-// memory in its k-loops, and gives each thread a register tile of every
-// product; there shared-memory bandwidth, not the FMAs, bounds it (a
-// lane's 16-byte load costs the same whether or not its warp shares the
-// address), so the tiles are as large as the T x N products and the
-// registers allow (tile_gemm, tile_xty).  The weight gradients never leave
-// the block as per-edge rows.  Simple first: no wgmma, no TMA, f32 FMAs on
-// the CUDA cores.
+// f32; TF32 would change the function).  Both edge kernels keep the weights
+// in shared memory once per block, read no weight from global memory in
+// their k-loops, and give each thread a register tile of every product;
+// there shared-memory bandwidth, not the FMAs, bounds them (a lane's
+// 16-byte load costs the same whether or not its warp shares the address),
+// so the tiles are as large as the T x N products and the registers allow
+// (tile_gemm, tile_xty).  The backward's edge kernel does three times the
+// forward's products; the weight gradients never leave the block as
+// per-edge rows.  At the main path's shapes (~70 edges a block) a launch
+// also pays its tiles' fixed cost: the ablations, scripts/fwd_tile_ablation.py
+// and scripts/edge_tile_ablation.py, and PERF.md.  Simple first: no wgmma,
+// no TMA, f32 FMAs on the CUDA cores.
 //
 // bf16 operands (csr_mp_forward_bf16).  The TPU kernel's bf16 mode
 // (_fwd_kernel with bf16=True) rounds every MXU operand to bf16 and
 // accumulates in f32, at other points than the fused kernel's: x is rounded
 // *before* the node products (xw = x[...].astype(dt), then dot(xd,
 // w1r.astype(dt))), so the node GEMM's BF16 instantiation rounds both x and
-// W1r/W1s on load, and the edge kernel takes its products unrounded.  After
-// that, as in csrc/fused_mp.cu: ef and W1e, the layer-1 activations and W2,
-// and each message before the segmented sum are rounded; b1, b2, the norms
-// and every sum stay f32.  The forward stays deterministic.  The backward is
-// the f32 one for either forward, as the JAX package's.
+// W1r/W1s on load, and the edge kernel takes its products unrounded
+// (fwd_edge_kernel<T, false, false, true>).  After that, as in
+// csrc/fused_mp.cu: ef and W1e, the layer-1 activations and W2, and each
+// message before the segmented sum are rounded; b1, b2, the norms and every
+// sum stay f32.  The forward stays deterministic.  The backward is the f32
+// one for either forward, as the JAX package's.
 
 #include "mp_edge_tile.cuh"
 
@@ -199,193 +203,6 @@ cudaError_t gemm(const float* A, long long sab, long long sam, long long sak,
   return cudaGetLastError();
 }
 
-// x . W1r -> xab[0], x . W1s -> xab[1] (w1 rows: [W1r; W1s; W1e]); with
-// BF16, bf16(x) . bf16(W1r) and bf16(x) . bf16(W1s).
-template <bool BF16 = false>
-cudaError_t node_partials(const float* x, const float* w1, float* xab, int n,
-                          int d, int h, cudaStream_t stream) {
-  cudaError_t err = gemm<kNodePartials, BF16>(x, 0, d, 1, w1, 0, h, 1, xab, n,
-                                              h, d, d, 1, stream);
-  if (err != cudaSuccess) return err;
-  return gemm<kNodePartials, BF16>(x, 0, d, 1, w1 + static_cast<size_t>(d) * h,
-                                   0, h, 1, xab + static_cast<size_t>(n) * h, n,
-                                   h, d, d, 1, stream);
-}
-
-// ---------------------------------------------------------------------------
-// Forward: segmented message pass.  Warp gw of num_warps owns the nodes
-// [va, vb) whose segments start in its share of the off[N] kept positions.
-// BF16 rounds W1e, W2, the staged ef rows, the staged layer-1 activations
-// and each message (xa, xb are products of rounded operands already).
-template <int HPL, int DPL, bool BF16>
-__global__ void __launch_bounds__(kWarps * 32)
-csr_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
-               const float* __restrict__ ef, const int* __restrict__ src,
-               const int* __restrict__ dst, const int* __restrict__ off,
-               const float* __restrict__ w1e, const float* __restrict__ b1,
-               const float* __restrict__ w2, const float* __restrict__ b2,
-               const float* __restrict__ scal, float slope,
-               float* __restrict__ agg, int n, int de, int h, int d2,
-               int num_warps) {
-  constexpr int EPW = kEdgesPerWarp;
-  extern __shared__ __align__(16) float smem[];
-  const int stage_w = de > h ? de : h;  // floats per staged edge row
-  float* s_w1e = smem;                  // [de, h]
-  float* s_w2 = s_w1e + de * h;         // [h, d2]
-  float* s_b1 = s_w2 + h * d2;          // [h]
-  float* s_b2 = s_b1 + h;               // [d2]
-  // d2 is a multiple of 4 (checked on the host): the stage is 16-byte aligned.
-  float* s_stage = s_b2 + d2;           // [kWarps][EPW][stage_w]
-
-  const int tid = threadIdx.x;
-  for (int i = tid; i < (de * h) / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(s_w1e)[i] =
-        operand<BF16>(reinterpret_cast<const float4*>(w1e)[i]);
-  for (int i = tid; i < (h * d2) / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(s_w2)[i] =
-        operand<BF16>(reinterpret_cast<const float4*>(w2)[i]);
-  for (int i = tid; i < h; i += blockDim.x) s_b1[i] = b1[i];
-  for (int i = tid; i < d2; i += blockDim.x) s_b2[i] = b2[i];
-  __syncthreads();
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gw = blockIdx.x * kWarps + warp;
-  if (gw >= num_warps) return;
-  const float g1 = scal[0], be1 = scal[1], g2 = scal[2], be2 = scal[3];
-  float* stage = s_stage + warp * EPW * stage_w;
-
-  const int chunk = (off[n] + num_warps - 1) / num_warps;
-  const int va = lower_bound(off, n, gw * chunk);
-  const int vb = gw + 1 == num_warps ? n : lower_bound(off, n, (gw + 1) * chunk);
-  const int p_hi = off[vb];
-
-  float acc[DPL];
-#pragma unroll
-  for (int t = 0; t < DPL; ++t) acc[t] = 0.f;
-  int cur = va;  // the node whose sum acc holds
-
-  for (int e0 = off[va]; e0 < p_hi; e0 += EPW) {
-    int dj[EPW], sj[EPW];
-    bool keep[EPW], any = false;
-#pragma unroll
-    for (int j = 0; j < EPW; ++j) {
-      const bool live = e0 + j < p_hi;
-      dj[j] = live ? dst[e0 + j] : -1;
-      sj[j] = live ? src[e0 + j] : -1;
-      keep[j] = live && dj[j] >= va && dj[j] < vb;
-      any |= keep[j];
-    }
-    if (!any) continue;  // warp-uniform: no message of the group lands
-
-    __syncwarp();  // the previous group's reads of the stage are done
-    for (int i = lane * 4; i < EPW * de; i += 128) {
-      const int j = i / de, k = i - j * de;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e0 + j < p_hi)
-        v = *reinterpret_cast<const float4*>(ef + static_cast<size_t>(e0) * de + i);
-      *reinterpret_cast<float4*>(stage + j * stage_w + k) = operand<BF16>(v);
-    }
-    __syncwarp();
-
-    // ---- layer 1: pre1 = xa[dst] + xb[src] + ef . W1e + b1 ---------------
-    float a1[EPW][HPL];
-#pragma unroll
-    for (int j = 0; j < EPW; ++j) {
-      const bool sok = in_range(sj[j], n);
-#pragma unroll
-      for (int t = 0; t < HPL; ++t) {
-        const int c = lane + 32 * t;
-        float v = 0.f;
-        if (c < h) {
-          v = s_b1[c];
-          if (keep[j]) v += xa[static_cast<size_t>(dj[j]) * h + c];
-          if (sok) v += xb[static_cast<size_t>(sj[j]) * h + c];
-        }
-        a1[j][t] = v;
-      }
-    }
-    rows_times<HPL>(a1, stage, stage_w, s_w1e, h, de, lane, h);
-    cnorm_lrelu<HPL>(a1, lane, h, g1, be1, slope);
-
-    __syncwarp();  // every lane has finished reading ef from the stage
-#pragma unroll
-    for (int j = 0; j < EPW; ++j)
-#pragma unroll
-      for (int t = 0; t < HPL; ++t) {
-        const int c = lane + 32 * t;
-        if (c < h) stage[j * stage_w + c] = operand<BF16>(a1[j][t]);
-      }
-    __syncwarp();
-
-    // ---- layer 2: m1 . W2 + b2 --------------------------------------------
-    float a2[EPW][DPL];
-#pragma unroll
-    for (int j = 0; j < EPW; ++j)
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        const int c = lane + 32 * t;
-        a2[j][t] = c < d2 ? s_b2[c] : 0.f;
-      }
-    rows_times<DPL>(a2, stage, stage_w, s_w2, d2, h, lane, d2);
-    cnorm_lrelu<DPL>(a2, lane, d2, g2, be2, slope);
-
-    // ---- segmented sum in edge order; a finished node's row is written ----
-#pragma unroll
-    for (int j = 0; j < EPW; ++j) {
-      if (!keep[j] || dj[j] < cur) continue;  // dst out of order: not kept
-      for (; cur < dj[j]; ++cur) {
-#pragma unroll
-        for (int t = 0; t < DPL; ++t) {
-          const int c = lane + 32 * t;
-          if (c < d2) agg[static_cast<size_t>(cur) * d2 + c] = acc[t];
-          acc[t] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) acc[t] += operand<BF16>(a2[j][t]);
-    }
-  }
-  for (; cur < vb; ++cur) {
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int c = lane + 32 * t;
-      if (c < d2) agg[static_cast<size_t>(cur) * d2 + c] = acc[t];
-      acc[t] = 0.f;
-    }
-  }
-}
-
-template <int HPL, int DPL, bool BF16>
-cudaError_t launch_fwd(const float* xab, const float* ef, const int* src,
-                       const int* dst, const int* off, const float* w1e,
-                       const float* b1, const float* w2, const float* b2,
-                       const float* scal, float slope, float* agg, int n,
-                       int e, int de, int h, int d2, cudaStream_t stream) {
-  const int stage_w = de > h ? de : h;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(de) * h + static_cast<size_t>(h) * d2 + h + d2 +
-       static_cast<size_t>(kWarps) * kEdgesPerWarp * stage_w);
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(csr_fwd_kernel<HPL, DPL, BF16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // One warp per edge group of the edge capacity: known on the host, so
-  // the launch needs no device->host read of the live count.
-  int num_warps = (e + kEdgesPerWarp - 1) / kEdgesPerWarp;
-  if (num_warps < 1) num_warps = 1;
-  const int grid = (num_warps + kWarps - 1) / kWarps;
-  csr_fwd_kernel<HPL, DPL, BF16><<<grid, kWarps * 32, smem, stream>>>(
-      xab, xab + static_cast<size_t>(n) * h, ef, src, dst, off, w1e, b1, w2,
-      b2, scal, slope, agg, n, de, h, d2, num_warps);
-  return cudaGetLastError();
-}
-
 // csr_mp_backward's scratch, in floats, each part rounded up to 16 bytes:
 // xab [2, n, h]; rows [e, h]; dxab [2, n, h]; p_dx [2, ceil(h /
 // kDxSplitK), n, d]; p_w1rs [2, ceil(n / kSplitRows), d, h]; p_edge
@@ -409,32 +226,31 @@ bool widths_ok(int n, int e, int d, int de, int h, int d2) {
 
 }  // namespace
 
-// The (ceil(h / 32), ceil(d2 / 32)) pairs the kernels are instantiated for.
-#define CSR_WIDTHS(X) \
-  X(1, 1) X(1, 2) X(1, 4) X(2, 1) X(2, 2) X(2, 4) \
-  X(4, 1) X(4, 2) X(4, 4) X(8, 1) X(8, 2) X(8, 4)
-
 namespace {
 
+// The forward's three launches: x . W1r, x . W1s (one batched gemm_kernel;
+// with BF16 of bf16(x) and bf16(W1r), bf16(W1s)), the edge tiles' messages
+// and the destination segments' sums (fwd_round).
 template <bool BF16>
 int forward_entry(const float* x, const float* ef, const int* src,
                   const int* dst, const int* off, const float* w1,
                   const float* b1, const float* w2, const float* b2,
-                  const float* scal, float* xab, float slope, float* agg,
-                  int n, int e, int d, int de, int h, int d2, void* stream) {
-  if (!widths_ok(n, e, d, de, h, d2)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = node_partials<BF16>(x, w1, xab, n, d, h, s);
+                  const float* scal, float* xab, float slope, float* msgs,
+                  float* agg, int n, int e, int d, int de, int h, int d2,
+                  void* stream) {
+  if (!widths_ok(n, e, d, de, h, d2) || !(aligned16(ef) || e == 0) ||
+      !aligned16(w1) || !aligned16(w2) || !aligned16(xab) || !aligned16(msgs))
+    return cudaErrorInvalidValue;
+  FwdPlan p;
+  cudaError_t err = fwd_plan(e, de, h, d2, p);
   if (err != cudaSuccess) return err;
-  const float* w1e = w1 + 2 * static_cast<size_t>(d) * h;
-  const int hpl = (h + 31) / 32, dpl = (d2 + 31) / 32;
-#define CSR_FWD(H, D)                                                        \
-  if (hpl == H && dpl == D)                                                  \
-    return launch_fwd<H, D, BF16>(xab, ef, src, dst, off, w1e, b1, w2, b2,   \
-                                  scal, slope, agg, n, e, de, h, d2, s);
-  CSR_WIDTHS(CSR_FWD)
-#undef CSR_FWD
-  return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long dh = static_cast<long long>(d) * h;
+  err = gemm<kNodePartials, BF16>(x, 0, d, 1, w1, dh, h, 1, xab, n, h, d, d, 2, s);
+  if (err != cudaSuccess) return err;
+  return fwd_round<false, false, BF16>(p, xab, xab + static_cast<size_t>(n) * h, ef,
+                                       src, dst, nullptr, off, w1 + 2 * dh, b1, w2,
+                                       b2, scal, slope, msgs, agg, n, de, h, d2, s);
 }
 
 }  // namespace
@@ -443,18 +259,20 @@ int forward_entry(const float* x, const float* ef, const int* src,
 // pointers to contiguous arrays: x [n, d]; ef [e, de]; src, dst [e] int32
 // (effective indices, see the top of this file); off [n + 1] int32;
 // w1 [2d + de, h] (rows W1r, W1s, W1e); b1 [h]; w2 [h, d2]; b2 [d2];
-// scal [4] = (g1, be1, g2, be2); xab [2, n, h] scratch; agg [n, d2], every
-// row of which is written.  Requires de, h, d2 multiples of 4, h <= 256 and
-// d2 <= 128 (rounded up to a multiple of 32: 32, 64 or 128).  Returns the
-// first failing cudaError_t (0 on success).
+// scal [4] = (g1, be1, g2, be2); xab [2, n, h] and msgs [e, d2] scratch,
+// never read before the call writes them; agg [n, d2], every row of which
+// is written.  ef, w1, w2, xab and msgs are 16-byte aligned.  Requires de,
+// h, d2 multiples of 4 and a plan whose 8-edge tiles fit the shared
+// memory.  Returns the first failing cudaError_t (0 on success).
 extern "C" int csr_mp_forward(const float* x, const float* ef, const int* src,
                               const int* dst, const int* off, const float* w1,
                               const float* b1, const float* w2,
                               const float* b2, const float* scal, float* xab,
-                              float slope, float* agg, int n, int e, int d,
-                              int de, int h, int d2, void* stream) {
+                              float slope, float* msgs, float* agg, int n,
+                              int e, int d, int de, int h, int d2,
+                              void* stream) {
   return forward_entry<false>(x, ef, src, dst, off, w1, b1, w2, b2, scal, xab,
-                              slope, agg, n, e, d, de, h, d2, stream);
+                              slope, msgs, agg, n, e, d, de, h, d2, stream);
 }
 
 // The same with the TPU kernel's bf16 operands (top of this file).
@@ -463,11 +281,20 @@ extern "C" int csr_mp_forward_bf16(const float* x, const float* ef,
                                    const int* off, const float* w1,
                                    const float* b1, const float* w2,
                                    const float* b2, const float* scal,
-                                   float* xab, float slope, float* agg, int n,
-                                   int e, int d, int de, int h, int d2,
-                                   void* stream) {
+                                   float* xab, float slope, float* msgs,
+                                   float* agg, int n, int e, int d, int de,
+                                   int h, int d2, void* stream) {
   return forward_entry<true>(x, ef, src, dst, off, w1, b1, w2, b2, scal, xab,
-                             slope, agg, n, e, d, de, h, d2, stream);
+                             slope, msgs, agg, n, e, d, de, h, d2, stream);
+}
+
+// How the forward's edge kernel runs at these widths on the current device:
+// plan[3] gets its tile, input stages and blocks.  Returns 0, or the
+// cudaError_t of widths csr_mp_forward does not take.  Loaded with ctypes.
+extern "C" int csr_mp_forward_plan(int n, int e, int d, int de, int h, int d2,
+                                   int* plan) {
+  if (!widths_ok(n, e, d, de, h, d2)) return cudaErrorInvalidValue;
+  return fwd_plan_out(e, de, h, d2, plan);
 }
 
 // The scratch of one csr_mp_backward call at these widths on the current

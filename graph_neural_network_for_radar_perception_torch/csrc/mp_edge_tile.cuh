@@ -1,6 +1,6 @@
 // The edge-tile core shared by both message rounds (csrc/fused_mp.cu and
-// csrc/csr_mp.cu): device helpers of the forwards (warp-shuffle channel
-// norms, rows_times), and the whole backward apart from the node products.
+// csrc/csr_mp.cu): the forward and the backward apart from the node
+// products.
 //
 // Both rounds compute, for every edge p with receiver dst[p] and sender
 // src[p] (sentinels: dst = N drops the message, src = N gathers a zero
@@ -11,35 +11,45 @@
 //   m2   = lrelu(cnorm(m1 . W2 + b2; g2, be2))                  [D2]
 //   agg[dst] += m2
 //
-// with xa = x . W1r and xb = x . W1s per node.  The backward of both walks
-// its kept edges in receiver order: positions [0, off[N]) of that order,
-// where position q is the edge q (the CSR round: its edges are sorted by
-// destination already) or the edge order[q] (the fused round: a stable
-// argsort of its receivers, ops/fused_mp.fused_layout).  Three kernels of
-// one C call:
+// with xa = x . W1r and xb = x . W1s per node.  Both walk the kept edges
+// in receiver order: positions [0, off[N]) of that order, where position
+// q is the edge q (the CSR round: its edges are sorted by destination
+// already) or the edge order[q] (the fused round: a stable argsort of its
+// receivers, ops/fused_mp.fused_layout).  Each edge kernel runs one block
+// per SM, each a balanced contiguous run of positions in tiles of T = 32
+// edges (16 or 8 where 32 rows would overflow the shared memory), not cut
+// at segment boundaries, with W1e and W2 in shared memory once per block;
+// the products are block-level register tiles on shared-memory operands
+// (tile_gemm), the norms fixed-order row phases (centre_row).
 //
-// * bwd_edge_kernel: one block per SM, each a balanced contiguous run of
-//   positions in tiles of T = 32 edges (16 or 8 where the shared memory of
-//   32 rows would overflow: bwd_plan), with W1e and W2 in shared memory.
-//   Per tile it recomputes the forward, applies the chain rule of the TPU
-//   kernels' _bwd_kernel with the norm-backward guard of
+// Forward, two launches (after the CSR round's node products):
+// * fwd_edge_kernel: each position's message to its edge's row of a
+//   scratch msgs [E, D2];
+// * segsum_kernel: agg[v] = the sum of v's receiver segment of msgs, in
+//   order of position, dropped edges skipped; every agg row written once.
+//
+// Backward, three launches:
+// * bwd_edge_kernel: per tile it recomputes the forward, applies the chain
+//   rule of the TPU kernels' _bwd_kernel with the norm-backward guard of
 //   ops/fused_mp._cnorm_act_bwd, writes gef and g_pre1 (to a per-edge
 //   scratch, by edge), and accumulates dW1e = ef^T g_pre1, dW2 = a1^T
 //   g_pre2, db1, db2 and the four scalar gradients into one partial per
 //   block.  gef of every edge is written, zero for a dropped one.
 // * segsum_kernel: dxa[v] = the sum of g_pre1 over v's receiver segment,
 //   dxb[u] = over u's sender segment (edges in sender order from a stable
-//   argsort), both in order of position, dropped edges skipped.  The fused
-//   forward sums its messages into agg with it too.
+//   argsort), both in order of position, dropped edges skipped.
 // * bwd_reduce_kernel: every partial summed in block order (and, for the
 //   CSR round, its node-level partials).
 //
 // No atomics: every output is a fixed-order sum, so two launches give the
-// same bits.  What bounds it: the top of csrc/csr_mp.cu and tile_gemm
-// below; the ablation behind the register tiles, stages and edge tiles:
-// scripts/edge_tile_ablation.py and PERF.md.  Each source includes this header
-// inside its own translation unit (each is its own library); ops/_build.py
-// hashes it with the source.
+// same bits.  What bounds them: f32 FMAs on paper (the top of
+// csrc/csr_mp.cu), shared-memory bandwidth for tile_gemm in practice (a
+// lane's 16-byte load costs the same whether or not its warp shares the
+// address).  The ablations behind the register tiles, stages and edge
+// tiles: scripts/edge_tile_ablation.py (backward), scripts/fwd_tile_ablation.py
+// (forward) and PERF.md.  Each source includes this header inside its own
+// translation unit (each is its own library); ops/_build.py hashes it with
+// the source.
 
 #pragma once
 
@@ -48,12 +58,11 @@
 
 namespace {
 
-constexpr int kWarps = 8;          // warps per block (forward and segsum kernels)
-constexpr int kEdgesPerWarp = 8;   // forward: edges a warp carries at once
-constexpr int kPad = 4;            // floats past each shared-memory row (4 mod 32)
-constexpr float kEps = 1e-5f;      // reference modules/neural_net/constants.py
-constexpr float kTiny = 1e-30f;    // ops/fused_mp.py _TINY
-constexpr int kBwdThreads = 256;   // backward: threads per edge block (one block per SM)
+constexpr int kWarps = 8;            // warps per block of segsum_kernel
+constexpr int kPad = 4;              // floats past each shared-memory row (4 mod 32)
+constexpr float kEps = 1e-5f;        // reference modules/neural_net/constants.py
+constexpr float kTiny = 1e-30f;      // ops/fused_mp.py _TINY
+constexpr int kEdgeThreads = 256;    // threads per edge block (one block per SM)
 constexpr int kReduceThreads = 256;  // bwd_reduce_kernel threads per block
 constexpr int kReduceGroups = 8;     // bwd_reduce_kernel: groups of partials per output
 
@@ -80,22 +89,13 @@ __device__ __forceinline__ bool in_range(int i, int n) {
   return static_cast<unsigned>(i) < static_cast<unsigned>(n);
 }
 
-// Smallest v in [0, n] with off[v] >= target, or n.
-__device__ __forceinline__ int lower_bound(const int* off, int n, int target) {
-  int lo = 0, hi = n + 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (off[mid] < target) lo = mid + 1; else hi = mid;
-  }
-  return lo < n ? lo : n;
-}
-
-// Node cotangents, blockIdx.y = 0: dxa[v, :] = sum over q in [off[v],
+// Segmented sums, blockIdx.y = 0: dxa[v, :] = sum over q in [off[v],
 // off[v+1]) of rows[order[q], :] (rows[q, :] where order is null: the CSR
 // round's edges are in receiver order); blockIdx.y = 1: dxb[u, :] = the
-// same over [off_src[u], off_src[u+1]) of rows[perm[q], :].  rows is
-// indexed by edge.  Edges whose destination is out of range (dropped) are
-// skipped: their rows are zero or never written.  In order of q; one warp
+// same over [off_src[u], off_src[u+1]) of rows[perm[q], :].  The forwards
+// sum their messages into agg with blockIdx.y = 0 alone.  rows is indexed
+// by edge.  Edges whose destination is out of range (dropped) are
+// skipped: their rows are never read.  In order of q; one warp
 // per node, lanes own columns, and the lanes load the next 32 edges'
 // indices together; rows and out have width h.
 __global__ void __launch_bounds__(kWarps * 32)
@@ -134,72 +134,6 @@ segsum_kernel(const float* __restrict__ rows, const int* __restrict__ dst,
     for (int t = 0; t < 4; ++t) {
       const int c = cb + lane + 32 * t;
       if (c < h) out[static_cast<size_t>(v) * h + c] = acc[t];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Channel norm + leaky ReLU of kEdgesPerWarp rows of width `width`, each row
-// spread over the warp as v[j][t] = row_j[lane + 32 t] (t < CPL, masked past
-// `width`).  The mean first, then the centred squares, as the reference.
-template <int CPL>
-__device__ __forceinline__ void cnorm_lrelu(float (&v)[kEdgesPerWarp][CPL],
-                                            int lane, int width, float gamma,
-                                            float beta, float slope) {
-  const float inv_n = 1.0f / static_cast<float>(width);
-  const float inv_nm1 = 1.0f / static_cast<float>(width > 1 ? width - 1 : 1);
-#pragma unroll
-  for (int j = 0; j < kEdgesPerWarp; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t)
-      if (lane + 32 * t < width) s += v[j][t];
-    const float mean = warp_sum(s) * inv_n;
-    float q = 0.f;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t)
-      if (lane + 32 * t < width) {
-        const float u = v[j][t] - mean;
-        q += u * u;
-      }
-    const float denom = sqrtf(warp_sum(q) * inv_nm1) + kEps;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      const float y = gamma * ((v[j][t] - mean) / denom) + beta;
-      v[j][t] = y >= 0.f ? y : slope * y;
-    }
-  }
-}
-
-// acc[j][t] += sum_k stage[j*ld + k] * w[k*wld + lane + 32 t], k < kdim (a
-// multiple of 4): one warp, kEdgesPerWarp rows of the stage against a
-// weight matrix whose columns the lanes own (masked past `width`).
-template <int CPL>
-__device__ __forceinline__ void rows_times(float (&acc)[kEdgesPerWarp][CPL],
-                                           const float* stage, int ld,
-                                           const float* w, int wld, int kdim,
-                                           int lane, int width) {
-  for (int k = 0; k < kdim; k += 4) {
-    float wv[4][CPL];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int t = 0; t < CPL; ++t) {
-        const int c = lane + 32 * t;
-        wv[q][t] = c < width ? w[(k + q) * wld + c] : 0.f;
-      }
-#pragma unroll
-    for (int j = 0; j < kEdgesPerWarp; ++j) {
-      const float4 x = *reinterpret_cast<const float4*>(stage + j * ld + k);
-#pragma unroll
-      for (int t = 0; t < CPL; ++t) {
-        float a = acc[j][t];
-        a = fmaf(x.x, wv[0][t], a);
-        a = fmaf(x.y, wv[1][t], a);
-        a = fmaf(x.z, wv[2][t], a);
-        a = fmaf(x.w, wv[3][t], a);
-        acc[j][t] = a;
-      }
     }
   }
 }
@@ -409,7 +343,7 @@ __device__ __forceinline__ void store_xty(const float (&acc)[DWI][8][4],
 int bwd_xty_items(int de, int h, int d2) {
   const int a = ((de + 7) / 8) * (h / 4), b = ((h + 7) / 8) * (d2 / 4);
   const int items = a > b ? a : b;
-  return (items + kBwdThreads - 1) / kBwdThreads;
+  return (items + kEdgeThreads - 1) / kEdgeThreads;
 }
 
 // The sum over the RT threads that share a row (neighbouring
@@ -511,17 +445,18 @@ __device__ __forceinline__ void cnorm_act_bwd_row(
 // staged rows after the floats).
 size_t bwd_smem(int de, int h, int d2, int T, int stages, bool order) {
   const size_t lde = de + kPad, ldh = h + kPad, ldd = d2 + kPad;
-  const size_t floats = de * ldh + h * ldd + stages * T * (lde + 2 * ldh + ldd) +
-                        2 * T * ldh + 2 * (h + d2) + T + 4 * (kBwdThreads / 32);
+  const size_t ldp = (h > d2 ? h : d2) + kPad;
+  const size_t floats = de * ldh + h * ldd + stages * T * (lde + ldh + ldp + ldd) +
+                        2 * T * ldh + 2 * (h + d2) + T + 4 * (kEdgeThreads / 32);
   return sizeof(float) * floats + (order ? 2 : 1) * sizeof(int) * stages * T;
 }
 
-// T edges a tile, RT = kBwdThreads / T threads a row of the tile in the
+// T edges a tile, RT = kEdgeThreads / T threads a row of the tile in the
 // row phases (a warp holds 32 / RT rows), DWI register items a thread of
 // each weight-gradient product (tile_xty); ORDER: position q is the edge
 // order[q] (else the edge q, and order is not read).
 template <int T, int DWI, bool ORDER>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kEdgeThreads, 1)
 bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                     const float* __restrict__ ef, const int* __restrict__ src,
                     const int* __restrict__ dst, const int* __restrict__ order,
@@ -533,11 +468,12 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                     float* __restrict__ gef, float* __restrict__ g_rows,
                     float* __restrict__ partial, int n, int e, int de,
                     int h, int d2, int stages) {
-  constexpr int RT = kBwdThreads / T, WR = 32 / RT;
-  static_assert(RT * T == kBwdThreads && RT >= 8 && RT <= 32, "8 to 32 threads a row");
+  constexpr int RT = kEdgeThreads / T, WR = 32 / RT;
+  static_assert(RT * T == kEdgeThreads && RT >= 8 && RT <= 32, "8 to 32 threads a row");
   extern __shared__ __align__(16) float smem[];
   const int lde = de + kPad, ldh = h + kPad, ldd = d2 + kPad;
-  const int stage_f = T * (lde + 2 * ldh + ldd);
+  const int ldp = (h > d2 ? h : d2) + kPad;  // rows of xb[src], then pre2
+  const int stage_f = T * (lde + ldh + ldp + ldd);
   float* s_w1e = smem;                       // [de][ldh]
   float* s_w2 = s_w1e + de * ldh;            // [h][ldd]
   float* s_stage = s_w2 + h * ldd;           // [stages] of ef | xa | xb | gout
@@ -549,7 +485,7 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   float* s_db2 = s_db1 + h;                  // [d2] ... of g_pre2
   float* s_sd1 = s_db2 + d2;                 // [T] layer-1 Bessel std
   float* s_red = s_sd1 + T;                  // [warps][4]
-  int* s_dst = reinterpret_cast<int*>(s_red + 4 * (kBwdThreads / 32));  // [stages][T]
+  int* s_dst = reinterpret_cast<int*>(s_red + 4 * (kEdgeThreads / 32));  // [stages][T]
   int* s_edge = s_dst + stages * T;  // [stages][T] with ORDER: each row's edge
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -610,8 +546,8 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     const float* g_go = gout + static_cast<size_t>(keep ? dd : 0) * d2;
     float* s_ef = st + row_t * lde;
     float* s_xa = st + T * lde + row_t * ldh;
-    float* s_xb = s_xa + T * ldh;
-    float* s_go = st + T * (lde + 2 * ldh) + row_t * ldd;
+    float* s_xb = st + T * (lde + ldh) + row_t * ldp;
+    float* s_go = st + T * (lde + ldh + ldp) + row_t * ldd;
     for (int c = 4 * part; c < de; c += 4 * RT) cp_async16(s_ef + c, g_ef + c, live);
     for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(s_xa + c, g_xa + c, keep);
     for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(s_xb + c, g_xb + c, sok);
@@ -661,8 +597,8 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     float* st = s_stage + buf * stage_f;
     float* s_ef = st;                // [T][lde]
     float* s_p1 = st + T * lde;      // [T][ldh] xa[dst], then pre1, then u1
-    float* s_p2 = s_p1 + T * ldh;    // [T][ldh] xb[src], then pre2, then u2
-    float* s_g2 = s_p2 + T * ldh;    // [T][ldd] gout[dst], then g_pre2
+    float* s_p2 = s_p1 + T * ldh;    // [T][ldp] xb[src], then pre2, then u2
+    float* s_g2 = s_p2 + T * ldp;    // [T][ldd] gout[dst], then g_pre2
     const int* t_dst = s_dst + buf * T;
     const int* t_edge = s_edge + buf * T;
     const int p0 = e_lo + i * T, rows = min(T, e_hi - p0);
@@ -680,7 +616,7 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     // ---- pre1 = b1 + xa[dst] + xb[src] + ef . W1e, over xa[dst] ----------
     tile_gemm<false>(
         s_ef, lde, s_w1e, ldh, de, h, prows,
-        [&](int t, int c) { return s_b1[c] + s_p1[t * ldh + c] + s_p2[t * ldh + c]; },
+        [&](int t, int c) { return s_b1[c] + s_p1[t * ldh + c] + s_p2[t * ldp + c]; },
         [&](int t, int c, float v) { s_p1[t * ldh + c] = v; });
     __syncthreads();
 
@@ -708,12 +644,12 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     // ---- pre2 = b2 + a1 . W2, over xb[src] ----------------------------------
     tile_gemm<false>(
         s_a1, ldh, s_w2, ldd, h, d2, prows, [&](int, int c) { return s_b2[c]; },
-        [&](int t, int c, float v) { s_p2[t * ldh + c] = v; });
+        [&](int t, int c, float v) { s_p2[t * ldp + c] = v; });
     __syncthreads();
 
     // ---- norm 2 and its backward from gout[dst]: g_pre2 in place -----------
     if (warp_rows) {
-      float* u = s_p2 + row_t * ldh;
+      float* u = s_p2 + row_t * ldp;
       const float sd = centre_row<RT>(u, d2, part, inv_d2, inv_d2m1);
       cnorm_act_bwd_row<RT>(s_g2 + row_t * ldd, u, sd, d2, part, g2, be2, slope,
                         inv_d2, nm1_d2, r_dg2, r_dbe2);
@@ -777,7 +713,7 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   __syncthreads();
   if (tid < 4) {
     float v = 0.f;
-    for (int w = 0; w < kBwdThreads / 32; ++w) v += s_red[w * 4 + tid];
+    for (int w = 0; w < kEdgeThreads / 32; ++w) v += s_red[w * 4 + tid];
     out[de * h + h + h * d2 + d2 + tid] = v;
   }
 
@@ -798,28 +734,35 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 // How bwd_edge_kernel runs at these widths on this device: edges a
 // tile T (32, else 16, else 8: the largest whose shared memory fits a
 // block, with two input stages where they fit, else one), edge blocks (one
-// per SM, no more than there are tiles) and weight-gradient items a thread.
-// Every width csr_mp_forward takes fits at T = 8.
+// per SM, no more than there are tiles) and weight-gradient items a thread;
+// widths whose 8-edge tiles would overflow it are refused.
 struct BwdPlan {
   int tile, stages, blocks, items;
   size_t smem;
 };
 
-cudaError_t bwd_plan(int e, int de, int h, int d2, bool order, BwdPlan& p) {
-  int dev = 0, smem_max = 0, sms = 0;
+// The current device's shared memory a block may opt into, and its SMs.
+cudaError_t device_limits(int& smem_max, int& sms) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Edge blocks for `tiles` tiles: one per SM, no more than there are tiles.
+int edge_blocks(int tiles, int sms) { return tiles < 1 ? 1 : (tiles < sms ? tiles : sms); }
+
+cudaError_t bwd_plan(int e, int de, int h, int d2, bool order, BwdPlan& p) {
+  int smem_max = 0, sms = 0;
+  const cudaError_t err = device_limits(smem_max, sms);
   if (err != cudaSuccess) return err;
   for (int t = 32; t >= 8; t /= 2)
     for (int stages = 2; stages >= 1; --stages) {
       const size_t smem = bwd_smem(de, h, d2, t, stages, order);
       if (smem > static_cast<size_t>(smem_max)) continue;
-      const int tiles = (e + t - 1) / t;
-      p = {t, stages, tiles < 1 ? 1 : (tiles < sms ? tiles : sms),
-           bwd_xty_items(de, h, d2), smem};
+      p = {t, stages, edge_blocks((e + t - 1) / t, sms), bwd_xty_items(de, h, d2), smem};
       return cudaSuccess;
     }
   return cudaErrorInvalidValue;
@@ -841,7 +784,7 @@ cudaError_t launch_bwd_edges(const BwdPlan& p, const float* xa, const float* xb,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.smem));
   if (err != cudaSuccess) return err;
-  bwd_edge_kernel<T, DWI, ORDER><<<p.blocks, kBwdThreads, p.smem, stream>>>(
+  bwd_edge_kernel<T, DWI, ORDER><<<p.blocks, kEdgeThreads, p.smem, stream>>>(
       xa, xb, ef, src, dst, order, off, w1e, b1, w2, b2, scal, gout, slope,
       gef, rows, part, n, e, de, h, d2, p.stages);
   return cudaGetLastError();
@@ -866,6 +809,301 @@ cudaError_t bwd_edges(const BwdPlan& p, const float* xa, const float* xb,
   MP_BWD(32, 1) MP_BWD(32, 2) MP_BWD(16, 1) MP_BWD(16, 2) MP_BWD(8, 1) MP_BWD(8, 2)
 #undef MP_BWD
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Forward, per edge tile (fwd_edge_kernel).  The backward's runs: block b
+// of G takes the positions [b off[n] / G, (b+1) off[n] / G) of the
+// receiver order in tiles of T (the last one short), so a hub's or a
+// degree-20 node's segment spreads over tiles and blocks like any other
+// run.  W1e, W2, b1 and b2 sit in shared memory for the whole block; each
+// tile's ef rows and gathered xa[dst], xb[src] rows arrive by cp.async,
+// the next tile's while this one computes (two stages when they fit, else
+// one).  Per tile:
+//
+//   pre1 = b1 + xa + xb + ef . W1e     tile_gemm, in place over xa
+//   a1   = lrelu(cnorm(pre1))          row phase, in place
+//   pre2 = b2 + a1 . W2                tile_gemm
+//   msgs[p] = lrelu(cnorm(pre2))       row phase, to the row's edge p
+//
+// A position whose destination is out of range (a dropped CSR edge)
+// computes its message from zero rows, and segsum_kernel never reads it.
+// BF16 rounds where the TPU kernels round an MXU operand: W1e and W2 once
+// staged, each staged ef row, the layer-1 activations, each message; with
+// ROUND_X also each gathered xa, xb element (the fused round rounds the
+// products x . W1r, x . W1s; the CSR round rounds x before its node
+// products instead).  b1, b2, the norms and every sum stay f32.
+
+// Dynamic shared memory of fwd_edge_kernel with tiles of T edges and
+// `stages` input stages.
+size_t fwd_smem(int de, int h, int d2, int T, int stages) {
+  const size_t lde = de + kPad, ldh = h + kPad, ldd = d2 + kPad;
+  return sizeof(float) *
+         (de * ldh + h * ldd + stages * T * (lde + 2 * ldh) + T * ldd + h + d2);
+}
+
+// T edges a tile, RT = kEdgeThreads / T threads a row in the row phases;
+// ORDER: position q is the edge order[q] (else the edge q, and order is not
+// read).
+template <int T, bool ORDER, bool ROUND_X, bool BF16>
+__global__ void __launch_bounds__(kEdgeThreads, 1)
+fwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
+                const float* __restrict__ ef, const int* __restrict__ src,
+                const int* __restrict__ dst, const int* __restrict__ order,
+                const int* __restrict__ off, const float* __restrict__ w1e,
+                const float* __restrict__ b1, const float* __restrict__ w2,
+                const float* __restrict__ b2, const float* __restrict__ scal,
+                float slope, float* __restrict__ msgs, int n, int de, int h,
+                int d2, int stages) {
+  constexpr int RT = kEdgeThreads / T, WR = 32 / RT;
+  static_assert(RT * T == kEdgeThreads && RT >= 8 && RT <= 32, "8 to 32 threads a row");
+  extern __shared__ __align__(16) float smem[];
+  const int lde = de + kPad, ldh = h + kPad, ldd = d2 + kPad;
+  const int stage_f = T * (lde + 2 * ldh);
+  float* s_w1e = smem;                       // [de][ldh]
+  float* s_w2 = s_w1e + de * ldh;            // [h][ldd]
+  float* s_stage = s_w2 + h * ldd;           // [stages] of ef | xa | xb
+  float* s_p2 = s_stage + stages * stage_f;  // [T][ldd] pre2, then the messages
+  float* s_b1 = s_p2 + T * ldd;              // [h]
+  float* s_b2 = s_b1 + h;                    // [d2]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int q_end = off[n];
+  const int q_lo = static_cast<int>(static_cast<long long>(blockIdx.x) * q_end / gridDim.x);
+  const int q_hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * q_end / gridDim.x);
+  const int tiles = (q_hi - q_lo + T - 1) / T;
+  const float g1 = scal[0], be1 = scal[1], g2 = scal[2], be2 = scal[3];
+  const float inv_h = 1.0f / static_cast<float>(h);
+  const float inv_d2 = 1.0f / static_cast<float>(d2);
+  const float inv_hm1 = 1.0f / static_cast<float>(h > 1 ? h - 1 : 1);
+  const float inv_d2m1 = 1.0f / static_cast<float>(d2 > 1 ? d2 - 1 : 1);
+
+  // The weights, once per block (their copies join the first tile's group).
+  const int ch = h >> 2, cd = d2 >> 2;
+  for (int i = tid; i < de * ch; i += blockDim.x) {
+    const int r = i / ch, c = (i - r * ch) * 4;
+    cp_async16(s_w1e + r * ldh + c, w1e + static_cast<size_t>(r) * h + c, true);
+  }
+  for (int i = tid; i < h * cd; i += blockDim.x) {
+    const int r = i / cd, c = (i - r * cd) * 4;
+    cp_async16(s_w2 + r * ldd + c, w2 + static_cast<size_t>(r) * d2 + c, true);
+  }
+  for (int i = tid; i < h; i += blockDim.x) s_b1[i] = b1[i];
+  for (int i = tid; i < d2; i += blockDim.x) s_b2[i] = b2[i];
+
+  // Row t of a tile belongs to the RT threads tid / RT = t; `part` says
+  // which of its float4s a thread copies and reduces.
+  const int row_t = tid / RT, part = tid % RT;
+  auto edge_at = [&](int q) {
+    if constexpr (ORDER) return order[q]; else return q;
+  };
+  // The edge of this thread's row in tile i (-1 past the run) and its two
+  // ends, read a tile ahead of its staging.
+  auto fetch = [&](int i, int& pp, int& dd, int& ss) {
+    const int q = q_lo + i * T + row_t;
+    pp = q < q_hi ? edge_at(q) : -1;
+    dd = pp >= 0 ? dst[pp] : n;
+    ss = pp >= 0 ? src[pp] : n;
+  };
+  // Stage `buf` gets this row's ef row, xa[dst] and xb[src] (zero past the
+  // run or for an index out of range).
+  auto stage_rows = [&](int buf, int pp, int dd, int ss) {
+    float* st = s_stage + buf * stage_f;
+    const bool live = pp >= 0, keep = in_range(dd, n), sok = in_range(ss, n);
+    const float* g_ef = ef + static_cast<size_t>(live ? pp : 0) * de;
+    const float* g_xa = xa + static_cast<size_t>(keep ? dd : 0) * h;
+    const float* g_xb = xb + static_cast<size_t>(sok ? ss : 0) * h;
+    float* r_ef = st + row_t * lde;
+    float* r_xa = st + T * lde + row_t * ldh;
+    float* r_xb = r_xa + T * ldh;
+    for (int c = 4 * part; c < de; c += 4 * RT) cp_async16(r_ef + c, g_ef + c, live);
+    for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(r_xa + c, g_xa + c, keep);
+    for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(r_xb + c, g_xb + c, sok);
+  };
+  // lrelu(gamma * u * inv_den + beta), rounded as an operand.
+  auto act = [&](float u, float inv_den, float gamma, float beta) {
+    const float y = gamma * (u * inv_den) + beta;
+    return operand<BF16>(y >= 0.f ? y : slope * y);
+  };
+
+  const bool two = stages == 2;
+  int pp = -1, dd = n, ss = n;  // the next tile to stage
+  fetch(0, pp, dd, ss);
+  if (two && tiles > 0) {
+    stage_rows(0, pp, dd, ss);
+    fetch(1, pp, dd, ss);
+  }
+  cp_async_commit();
+  for (int i = 0; i < tiles; ++i) {
+    const int buf = two ? i & 1 : 0;
+    const int next = two ? i + 1 : i;
+    if (next < tiles) {
+      stage_rows(two ? buf ^ 1 : 0, pp, dd, ss);
+      fetch(next + 1, pp, dd, ss);  // in flight during this tile
+    }
+    cp_async_commit();
+    if (two)
+      cp_async_wait<1>();  // every group but the next tile's has landed
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    float* st = s_stage + buf * stage_f;
+    float* t_ef = st;              // [T][lde]
+    float* t_p1 = st + T * lde;    // [T][ldh] xa[dst], then pre1, then a1
+    float* t_xb = t_p1 + T * ldh;  // [T][ldh] xb[src]
+    const int q0 = q_lo + i * T, rows = min(T, q_hi - q0);
+    // The products and the row phases take the rows before prows (`rows`
+    // rounded up to the products' groups of 4 rows: zero inputs past
+    // `rows`); a warp whose rows are all past it skips the row phases.
+    const int prows = (rows + 3) & ~3;
+    const bool warp_rows = warp * WR < prows;
+    const int edge = row_t < rows ? edge_at(q0 + row_t) : 0;  // for the store
+
+    if constexpr (BF16) {  // the MXU operands of layer 1, rounded in place
+      if (i == 0) {
+        for (int k = tid; k < de * ch; k += blockDim.x) {
+          float4* w = reinterpret_cast<float4*>(s_w1e + (k / ch) * ldh) + k % ch;
+          *w = operand<true>(*w);
+        }
+        for (int k = tid; k < h * cd; k += blockDim.x) {
+          float4* w = reinterpret_cast<float4*>(s_w2 + (k / cd) * ldd) + k % cd;
+          *w = operand<true>(*w);
+        }
+      }
+      for (int c = 4 * part; c < de; c += 4 * RT) {
+        float4* v = reinterpret_cast<float4*>(t_ef + row_t * lde + c);
+        *v = operand<true>(*v);
+      }
+      __syncthreads();
+    }
+
+    // ---- pre1 = b1 + xa[dst] + xb[src] + ef . W1e, over xa[dst] ----------
+    tile_gemm<false>(
+        t_ef, lde, s_w1e, ldh, de, h, prows,
+        [&](int t, int c) {
+          return s_b1[c] + operand<ROUND_X && BF16>(t_p1[t * ldh + c]) +
+                 operand<ROUND_X && BF16>(t_xb[t * ldh + c]);
+        },
+        [&](int t, int c, float v) { t_p1[t * ldh + c] = v; });
+    __syncthreads();
+
+    // ---- a1 = lrelu(cnorm(pre1)) in place -----------------------------------
+    if (warp_rows) {
+      float* u1 = t_p1 + row_t * ldh;
+      const float sd1 = centre_row<RT>(u1, h, part, inv_h, inv_hm1);
+      const float inv1 = 1.0f / (sd1 + kEps);
+      for (int c = 4 * part; c < h; c += 4 * RT) {
+        const float4 v = ld4(u1 + c);
+        *reinterpret_cast<float4*>(u1 + c) =
+            make_float4(act(v.x, inv1, g1, be1), act(v.y, inv1, g1, be1),
+                        act(v.z, inv1, g1, be1), act(v.w, inv1, g1, be1));
+      }
+    }
+    __syncthreads();
+
+    // ---- pre2 = b2 + a1 . W2 ------------------------------------------------
+    tile_gemm<false>(
+        t_p1, ldh, s_w2, ldd, h, d2, prows, [&](int, int c) { return s_b2[c]; },
+        [&](int t, int c, float v) { s_p2[t * ldd + c] = v; });
+    __syncthreads();
+
+    // ---- the message, lrelu(cnorm(pre2)), to msgs[edge] -------------------
+    if (warp_rows) {
+      float* u2 = s_p2 + row_t * ldd;
+      const float sd2 = centre_row<RT>(u2, d2, part, inv_d2, inv_d2m1);
+      const float inv2 = 1.0f / (sd2 + kEps);
+      if (row_t < rows) {
+        float* out = msgs + static_cast<size_t>(edge) * d2;
+        for (int c = 4 * part; c < d2; c += 4 * RT) {
+          const float4 v = ld4(u2 + c);
+          *reinterpret_cast<float4*>(out + c) =
+              make_float4(act(v.x, inv2, g2, be2), act(v.y, inv2, g2, be2),
+                          act(v.z, inv2, g2, be2), act(v.w, inv2, g2, be2));
+        }
+      }
+    }
+    // No barrier: the next tile writes s_p2 and this stage after two.
+  }
+  cp_async_wait<0>();  // a block without tiles still has the weights in flight
+}
+
+// How fwd_edge_kernel runs at these widths on this device: edges a tile
+// (32, else 16, else 8: the largest whose shared memory
+// fits a block, with two input stages where they fit, else one) and edge
+// blocks (one per SM, no more than there are tiles).
+struct FwdPlan {
+  int tile, stages, blocks;
+  size_t smem;
+};
+
+cudaError_t fwd_plan(int e, int de, int h, int d2, FwdPlan& p) {
+  int smem_max = 0, sms = 0;
+  const cudaError_t err = device_limits(smem_max, sms);
+  if (err != cudaSuccess) return err;
+  for (int t = 32; t >= 8; t /= 2)
+    for (int s = 2; s >= 1; --s) {
+      const size_t smem = fwd_smem(de, h, d2, t, s);
+      if (smem > static_cast<size_t>(smem_max)) continue;
+      p = {t, s, edge_blocks((e + t - 1) / t, sms), smem};
+      return cudaSuccess;
+    }
+  return cudaErrorInvalidValue;
+}
+
+// fwd_plan's tile, input stages and blocks into plan[3]; the forwards'
+// plan entry points (fused_mp_forward_plan, csr_mp_forward_plan).
+cudaError_t fwd_plan_out(int e, int de, int h, int d2, int* plan) {
+  FwdPlan p;
+  const cudaError_t err = fwd_plan(e, de, h, d2, p);
+  if (err != cudaSuccess) return err;
+  plan[0] = p.tile;
+  plan[1] = p.stages;
+  plan[2] = p.blocks;
+  return cudaSuccess;
+}
+
+template <int T, bool ORDER, bool ROUND_X, bool BF16>
+cudaError_t launch_fwd_edges(const FwdPlan& p, const float* xa, const float* xb,
+                             const float* ef, const int* src, const int* dst,
+                             const int* order, const int* off,
+                             const float* w1e, const float* b1,
+                             const float* w2, const float* b2,
+                             const float* scal, float slope, float* msgs,
+                             int n, int de, int h, int d2, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fwd_edge_kernel<T, ORDER, ROUND_X, BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(p.smem));
+  if (err != cudaSuccess) return err;
+  fwd_edge_kernel<T, ORDER, ROUND_X, BF16><<<p.blocks, kEdgeThreads, p.smem, stream>>>(
+      xa, xb, ef, src, dst, order, off, w1e, b1, w2, b2, scal, slope, msgs, n,
+      de, h, d2, p.stages);
+  return cudaGetLastError();
+}
+
+// A forward round's two launches over the node products xa, xb [n, h]:
+// fwd_edge_kernel at the plan's tile (messages into msgs [e, d2]), then
+// segsum_kernel (agg [n, d2], every row written).  order: the receiver
+// order (ORDER) or null.  xa, xb, ef, w1e, w2 and msgs are 16-byte aligned.
+template <bool ORDER, bool ROUND_X, bool BF16>
+cudaError_t fwd_round(const FwdPlan& p, const float* xa, const float* xb,
+                      const float* ef, const int* src, const int* dst,
+                      const int* order, const int* off, const float* w1e,
+                      const float* b1, const float* w2, const float* b2,
+                      const float* scal, float slope, float* msgs, float* agg,
+                      int n, int de, int h, int d2, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+#define MP_FWD(T)                                                              \
+  if (p.tile == T)                                                             \
+    err = launch_fwd_edges<T, ORDER, ROUND_X, BF16>(p, xa, xb, ef, src, dst,   \
+                                                    order, off, w1e, b1, w2,   \
+                                                    b2, scal, slope, msgs, n,  \
+                                                    de, h, d2, stream);
+  MP_FWD(32) MP_FWD(16) MP_FWD(8)
+#undef MP_FWD
+  if (err != cudaSuccess) return err;
+  segsum_kernel<<<(n + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      msgs, dst, order, nullptr, off, nullptr, n, d2, agg);
+  return cudaGetLastError();
 }
 
 // The partial of one edge block, in floats: dW1e | db1 | dW2 | db2 | 4.
@@ -930,13 +1168,13 @@ bwd_reduce_kernel(const float* __restrict__ p_w1rs, int splits,
   }
 }
 
-// The widths both rounds' kernels take: de, h, d2 multiples of 4, h <= 256
-// and d2 <= 128 (rounded up to a multiple of 32: 32, 64 or 128).
+// The widths both rounds' kernels take: de, h, d2 positive multiples of 4
+// (rows are moved as float4s).  How wide they may be is the plans' to say
+// (fwd_plan, bwd_plan): the widths whose 8-edge tiles fit the shared
+// memory of a block.
 bool edge_widths_ok(int n, int e, int de, int h, int d2) {
-  const int hpl = (h + 31) / 32, dpl = (d2 + 31) / 32;
-  return n > 0 && e >= 0 && de > 0 && de % 4 == 0 && h % 4 == 0 &&
-         d2 % 4 == 0 && (hpl == 1 || hpl == 2 || hpl == 4 || hpl == 8) &&
-         (dpl == 1 || dpl == 2 || dpl == 4);
+  return n > 0 && e >= 0 && de > 0 && h > 0 && d2 > 0 && de % 4 == 0 &&
+         h % 4 == 0 && d2 % 4 == 0;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }

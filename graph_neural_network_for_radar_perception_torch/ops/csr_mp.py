@@ -60,11 +60,13 @@ import torch
 from ._build import load
 from .fused_mp import (
     BackwardPlan,
+    ForwardPlan,
     _bf16,
     _check,
     _check_kernel_widths,
     _cnorm_act_bwd,
     _cnorm_stats,
+    _plan,
     _scalar,
     fused_message_pass_reference,
     message_pass_bf16_plain,
@@ -383,8 +385,8 @@ def _kernel(bf16: bool = False):
     ``bf16``), built and loaded on first use."""
     lib = load("csr_mp")
     fn = lib.csr_mp_forward_bf16 if bf16 else lib.csr_mp_forward
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_float, ctypes.c_void_p] + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -413,20 +415,22 @@ def _stream(x):
 
 
 def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
-    """One launch of ``csr_mp_forward`` (``csr_mp_forward_bf16`` with
-    ``bf16``); every agg row is written once."""
+    """One call of ``csr_mp_forward`` (``csr_mp_forward_bf16`` with
+    ``bf16``): the node products, the edge tiles' messages into a scratch
+    by edge, then every agg row written once."""
     _check_kernel_widths("fused_message_pass_csr", x, ef, w1, w2)
     n, d = x.shape
     e, de = ef.shape
     h, d2 = w1.shape[1], w2.shape[1]
-    agg = torch.empty(n, d2, dtype=torch.float32, device=x.device)
-    xab = torch.empty(2, n, h, dtype=torch.float32, device=x.device)  # scratch
+    emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    agg = emp(n, d2)
+    xab, msgs = emp(2, n, h), emp(e, d2)  # scratch
     with torch.cuda.device(x.device):
         rc = _kernel(bf16)(
             x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
             layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
-            xab.data_ptr(), float(slope),
+            xab.data_ptr(), float(slope), msgs.data_ptr(),
             agg.data_ptr(), n, e, d, de, h, d2, _stream(x),
         )
     if rc != 0:
@@ -437,6 +441,12 @@ def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
     else:
         fused_message_pass_csr.launches += 1
     return agg
+
+
+def _forward_plan(n, e, d, de, h, d2, device) -> ForwardPlan:
+    """How ``csr_mp_forward``'s edge kernel runs at these widths on
+    ``device`` (``csr_mp_forward_plan``)."""
+    return _plan("csr_mp", "csr_mp_forward_plan", device, n, e, d, de, h, d2)
 
 
 def _backward_plan(n, e, d, de, h, d2, device) -> BackwardPlan:

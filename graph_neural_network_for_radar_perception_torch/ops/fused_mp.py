@@ -48,8 +48,6 @@ import torch.nn.functional as F
 from ._build import load
 from .norms import EPS, channel_norm
 
-_SUPPORTED_HPL = (1, 2, 4, 8)  # ceil(H / 32) the kernels are instantiated for
-_SUPPORTED_DPL = (1, 2, 4)     # ceil(D2 / 32)
 _TINY = 1e-30  # guards 0/0 in the norm backward for all-constant rows
 
 
@@ -214,6 +212,15 @@ def needs_layout(x: torch.Tensor) -> bool:
     return x.device.type != "cpu"
 
 
+class ForwardPlan(NamedTuple):
+    """How a forward C call's edge kernel (``fwd_edge_kernel``) runs at
+    given widths on a device, as its library plans it."""
+
+    tile: int     # edges a tile (32, 16 or 8)
+    stages: int   # input stages (2 or 1)
+    blocks: int   # edge blocks
+
+
 class BackwardPlan(NamedTuple):
     """How a backward C call (``fused_mp_backward``, ``csr_mp_backward``)
     runs at given widths on a device, as its library plans it."""
@@ -237,6 +244,26 @@ def _kernel(bf16: bool = False):
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _plan(lib: str, entry: str, device, *widths) -> ForwardPlan:
+    """The forward plan that library ``lib``'s entry point ``entry`` gives
+    at ``widths`` (its int arguments) on ``device``."""
+    fn = getattr(load(lib), entry)
+    fn.argtypes = [ctypes.c_int] * len(widths) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = fn(*widths, plan)
+    if rc != 0:
+        raise ValueError(f"{entry}: widths {widths}: cudaError_t {rc}")
+    return ForwardPlan(*plan)
+
+
+def _forward_plan(n, e, de, h, d2, device) -> ForwardPlan:
+    """How ``fused_mp_forward``'s edge kernel runs at these widths on
+    ``device`` (``fused_mp_forward_plan``)."""
+    return _plan("fused_mp", "fused_mp_forward_plan", device, n, e, de, h, d2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -293,11 +320,10 @@ def _check_kernel_widths(name, x, ef, w1, w2):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     de, h, d2 = ef.shape[1], w1.shape[1], w2.shape[1]
-    if (de % 4 or h % 4 or d2 % 4 or -(-h // 32) not in _SUPPORTED_HPL
-            or -(-d2 // 32) not in _SUPPORTED_DPL):
+    if de % 4 or h % 4 or d2 % 4:
         raise ValueError(
             f"{name} kernel: unsupported widths De={de}, H={h}, D2={d2} "
-            "(multiples of 4, H <= 256, D2 <= 128)"
+            "(multiples of 4)"
         )
 
 

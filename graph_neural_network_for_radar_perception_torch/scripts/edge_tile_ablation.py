@@ -52,7 +52,8 @@ _NORMS = [("const float sd = centre_row<RT>(u, h, part, inv_h, inv_hm1);",
           ("      cnorm_act_bwd_row<RT>(s_g2", "      if (part < 0) cnorm_act_bwd_row<RT>(s_g2"),
           ("      cnorm_act_bwd_row<RT>(g, s_p1", "      if (part < 0) cnorm_act_bwd_row<RT>(g, s_p1")]
 _STAGES = "for (int stages = 2; stages >= 1; --stages) {"
-_TILES = "for (int t = 32; t >= 8; t /= 2)"
+# bwd_plan's largest tile (fwd_plan's loop names its stages `s`).
+_TILES = "for (int t = 32; t >= 8; t /= 2)\n    for (int stages = 2;"
 _STAGE = [(f"for (int c = 4 * part; c < {w}; c += 4 * RT) cp_async16({dst}",
            f"for (int c = 4 * part; c < 0; c += 4 * RT) cp_async16({dst}")
           for w, dst in (("de", "s_ef"), ("h", "s_xa"), ("h", "s_xb"), ("d2", "s_go"))]
@@ -75,25 +76,27 @@ VARIANTS = {
 }
 
 
-def rewrite(name: str) -> str:
-    """The header as variant ``name`` has it."""
+def rewrite(name: str, variants: dict = VARIANTS) -> str:
+    """The header as variant ``name`` of ``variants`` has it."""
     text = (_build.CSRC_DIR / "mp_edge_tile.cuh").read_text()
-    for old, new in VARIANTS[name][1]:
+    for old, new in variants[name][1]:
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: pattern not once in mp_edge_tile.cuh: {old!r}")
         text = text.replace(old, new)
     return text
 
 
-def build(name: str) -> str:
-    """The variant's ``fused_mp`` library: the source beside the rewritten
-    header (a quoted include finds the source's own directory first)."""
-    out_dir = OUT / name
+def build(name: str, source: str = "fused_mp", variants: dict = VARIANTS,
+          out=OUT) -> str:
+    """The variant's library of ``csrc/<source>.cu``: the source beside the
+    rewritten header (a quoted include finds the source's own directory
+    first), in a directory of its own under ``out``."""
+    out_dir = out / name / source
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "mp_edge_tile.cuh").write_text(rewrite(name))
-    src = out_dir / "fused_mp.cu"
-    shutil.copyfile(_build.CSRC_DIR / "fused_mp.cu", src)
-    lib = out_dir / "libfused_mp.so"
+    (out_dir / "mp_edge_tile.cuh").write_text(rewrite(name, variants))
+    src = out_dir / f"{source}.cu"
+    shutil.copyfile(_build.CSRC_DIR / f"{source}.cu", src)
+    lib = out_dir / f"lib{source}.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:

@@ -94,6 +94,26 @@ def test_fused_bf16_matches_pallas_interpret(rng, e, edge_tile):
         _assert_bf16_close(got, f32, want)
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("de, h, d2", [(64, 256, 128), (96, 256, 64)],
+                         ids=["wide-t8", "wide-t16"])
+def test_wide_fused_forward_matches_pallas_interpret(rng, de, h, d2, bf16):
+    """The plain fused round (the version the card's forward kernel is held
+    against) at the widest widths that kernel takes on an H100, those of
+    its 8- and 16-edge tiles (tests/test_torch_cuda.py FWD_SHAPES), against
+    ``fused_message_pass(..., interpret=True)``: f32 at the f32 tolerance,
+    bf16 at ``BF16_TOL`` and CLOSER times closer than f32."""
+    args = make_problem(rng, n=64, e=300, d=16, de=de, h=h, d2=d2)
+    want = np.asarray(JFM.fused_message_pass(
+        *map(jnp.asarray, args), 0.01, 128, True, bf16))
+    t = _torch(args)
+    got = FM.fused_message_pass_reference(*t, 0.01, bf16=bf16)
+    if bf16:
+        _assert_bf16_close(got, FM.fused_message_pass_reference(*t, 0.01), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL)
+
+
 # -------------------------------------------------------------- the CSR round
 @pytest.mark.parametrize("graph", list(GRAPHS))
 def test_csr_bf16_matches_pallas_interpret(rng, graph):

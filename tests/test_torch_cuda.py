@@ -75,16 +75,26 @@ FUSED_SHAPES = {
     "tiny": dict(n=64, e=300, d=16, de=16, h=32, d2=16),        # tiny_test_config
     "hub": dict(n=768, e=15360, d=64, de=64, h=128, d2=64, hub=True),
 }
+# The forwards' edge kernel also at the narrow and wide ends of the widths
+# and at widths that are no power of two, and its (tile, input stages) on
+# an H100 (227 KB of shared memory a block) where they are not (32, 2).
+FWD_SHAPES = {
+    **FUSED_SHAPES,
+    "narrow-h": dict(n=64, e=300, d=16, de=16, h=32, d2=64),     # H < D2
+    "wide-h": dict(n=256, e=3001, d=64, de=64, h=256, d2=64),    # one stage
+    "wide-t16": dict(n=256, e=3001, d=64, de=96, h=256, d2=64),  # 16-edge tiles
+    "wide-t8": dict(n=256, e=3001, d=64, de=64, h=256, d2=128),  # 8-edge tiles
+    "odd": dict(n=256, e=3001, d=64, de=48, h=96, d2=96),        # 3 x 32 columns
+}
+FWD_PLANS = {"wide-h": (32, 1), "wide-t16": (16, 1), "wide-t8": (8, 1)}
 
 
-@pytest.mark.parametrize("shape", [
-    dict(n=768, e=15360, d=64, de=64, h=128, d2=64),   # deploy shapes
-    dict(n=768, e=15357, d=64, de=64, h=128, d2=64),   # ragged E
-    dict(n=64, e=300, d=16, de=16, h=32, d2=16),       # tiny_test_config
-    FUSED_SHAPES["hub"],
-], ids=["deploy", "ragged", "tiny", "hub"])
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
 def test_kernel_matches_plain(cuda_device, shape):
-    args = _problem(0, device=cuda_device, **shape)
+    """The fused forward against its plain version, one count a call, at
+    the tile and input stages its plan takes (FWD_PLANS)."""
+    sh = FWD_SHAPES[shape]
+    args = _problem(0, device=cuda_device, **sh)
     before = FM.fused_message_pass.launches
     got = FM.fused_message_pass(*args, 0.01)
     torch.cuda.synchronize()
@@ -92,6 +102,8 @@ def test_kernel_matches_plain(cuda_device, shape):
     want = FM.fused_message_pass_reference(*args, 0.01)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-4, atol=2e-5)
+    plan = FM._forward_plan(sh["n"], sh["e"], sh["de"], sh["h"], sh["d2"], cuda_device)
+    assert (plan.tile, plan.stages) == FWD_PLANS.get(shape, (32, 2))
 
 
 def test_deploy_on_card_matches_cpu(cuda_device):
@@ -123,7 +135,9 @@ def test_deploy_on_card_matches_cpu(cuda_device):
     dict(n=256, e=3001, d=64, de=64, h=256, d2=64),    # 16-edge tiles
     dict(n=256, e=3001, d=64, de=96, h=256, d2=64),    # 8-edge tiles
     dict(n=256, e=3001, d=64, de=64, h=128, d2=128),   # two weight-gradient items
-], ids=["main", "ragged", "tiny", "hub", "wide-h", "wide-t8", "wide-d2"])
+    dict(n=64, e=300, d=16, de=16, h=32, d2=64),       # H < D2
+    FWD_SHAPES["odd"],
+], ids=["main", "ragged", "tiny", "hub", "wide-h", "wide-t8", "wide-d2", "narrow-h", "odd"])
 def test_backward_kernel_matches_plain(cuda_device, shape):
     """All 11 outputs at the JAX package's gradient tolerance, with a
     cotangent of a train step's scale (1e-2)."""
@@ -145,14 +159,13 @@ def test_backward_kernel_matches_plain(cuda_device, shape):
 
 FUSED_BWD_NAMES = "gef dxa dxb dw1e db1 dw2 db2 dg1 dbe1 dg2 dbe2".split()
 
-
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", list(FUSED_SHAPES))
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
 def test_fused_forward_is_bitwise_repeatable(cuda_device, shape, bf16):
     """The forward sums each receiver's messages in a fixed order: two
     launches, and a launch with the graph's layout made beforehand, give
     the same bits."""
-    args = _problem(3, device=cuda_device, **FUSED_SHAPES[shape])
+    args = _problem(3, device=cuda_device, **FWD_SHAPES[shape])
     layout = FM.fused_layout(args[2], args[3], args[0].shape[0])
     a = FM.fused_message_pass(*args, 0.01, bf16)
     b = FM.fused_message_pass(*args, 0.01, bf16)
@@ -265,24 +278,39 @@ CSR_BWD_CASES = {  # the backward's edge tiles and blocks, besides CSR_CASES
     # De=96, H=256: 8-edge tiles, three weight-gradient items a thread (the
     # third in the block's partial in global memory); E not a multiple of 8.
     "wide-t8": (lambda rng: knn_edges(rng, 256, 8), 256, 3001, (64, 96, 256, 64), (512, 256, 0)),
+    # H < D2: pre2 rows wider than the hidden ones.
+    "narrow-h": (lambda rng: knn_edges(rng, 64, 6), 64, 601, (16, 16, 32, 64), (128, 64, 0)),
+    # Widths that are no power of two (3 x 32 columns).
+    "odd": (lambda rng: knn_edges(rng, 256, 8), 256, 3001, (64, 48, 96, 96), (512, 256, 0)),
+}
+# The forward's cases: its edge kernel's tiles and stages, as FWD_SHAPES
+# and FWD_PLANS.
+CSR_FWD_CASES = {
+    **CSR_CASES,
+    **{k: CSR_BWD_CASES[k] for k in ("hub-ragged", "narrow-h", "wide-h")},
+    "wide-t16": CSR_BWD_CASES["wide-t8"],
+    "wide-t8": (lambda rng: knn_edges(rng, 256, 8), 256, 3001, (64, 64, 256, 128), (512, 256, 0)),
+    "odd": CSR_BWD_CASES["odd"],
 }
 # The edge kernel's (tile, input stages) at each case's widths on an H100
 # (227 KB of shared memory a block).
 CSR_BWD_PLANS = {"wide-d2": (32, 1), "wide-h": (16, 1), "wide-t8": (8, 1)}
 
 
-def _csr_case(name, seed, device):
-    edges, n, e_total, (d, de, h, d2), tiling = CSR_BWD_CASES[name]
+def _csr_case(name, seed, device, cases=CSR_BWD_CASES):
+    edges, n, e_total, (d, de, h, d2), tiling = cases[name]
     rng = np.random.default_rng(seed)
     args = csr_problem(torch, rng, edges(rng), e_total, n, d, de, h, d2, device)
     return args, tiling, rng
 
 
-@pytest.mark.parametrize("case", list(CSR_CASES))
+@pytest.mark.parametrize("case", list(CSR_FWD_CASES))
 def test_csr_kernel_matches_plain(cuda_device, case):
     """The forward kernel against its plain version at the deploy
-    tolerance of chip_smoke's [kernel] phase, and bitwise across launches."""
-    args, (tile, window, src_window), _ = _csr_case(case, 0, cuda_device)
+    tolerance of chip_smoke's [kernel] phase, and bitwise across launches,
+    at the tile and input stages its plan takes (FWD_PLANS); "hub-ragged"
+    has a destination segment longer than a tile."""
+    args, (tile, window, src_window), _ = _csr_case(case, 0, cuda_device, CSR_FWD_CASES)
     before = C.fused_message_pass_csr.launches
     with torch.no_grad():
         got = C.fused_message_pass_csr(*args, 0.01, tile, window, False, src_window)
@@ -293,6 +321,10 @@ def test_csr_kernel_matches_plain(cuda_device, case):
     want = C.fused_message_pass_csr_reference(*args, 0.01, tile, window, src_window)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-4, atol=2e-5)
+    x, ef, w2 = args[0], args[1], args[6]
+    plan = C._forward_plan(x.shape[0], ef.shape[0], x.shape[1], ef.shape[1],
+                           w2.shape[0], w2.shape[1], cuda_device)
+    assert (plan.tile, plan.stages) == FWD_PLANS.get(case, (32, 2))
 
 
 def _edge_block(p, p_end, blocks):
@@ -382,10 +414,10 @@ def test_csr_model_gradients_on_card_match_cpu(cuda_device):
 
 # ------------------------------------------------------- bf16 operand rounds
 @pytest.mark.parametrize("shape", [
-    dict(n=768, e=15360, d=64, de=64, h=128, d2=64),   # main-path shapes
-    dict(n=768, e=15357, d=64, de=64, h=128, d2=64),   # ragged E
-    dict(n=64, e=300, d=16, de=16, h=32, d2=16),       # tiny_test_config
-], ids=["main", "ragged", "tiny"])
+    FWD_SHAPES["deploy"],  # main-path shapes
+    *(FWD_SHAPES[k] for k in ("ragged", "tiny", "hub", "narrow-h", "wide-h",
+                              "wide-t16", "wide-t8", "odd")),
+], ids=["main", "ragged", "tiny", "hub", "narrow-h", "wide-h", "wide-t16", "wide-t8", "odd"])
 def test_bf16_kernel_matches_plain(cuda_device, shape):
     """The fused forward's bf16 instantiation against its plain bf16
     version at chip_smoke's bf16 tolerance; the f32 kernel lies outside it
@@ -401,11 +433,11 @@ def test_bf16_kernel_matches_plain(cuda_device, shape):
     bf16_verdict(torch, got, f32, want, "fused bf16")
 
 
-@pytest.mark.parametrize("case", list(CSR_CASES))
+@pytest.mark.parametrize("case", list(CSR_FWD_CASES))
 def test_csr_bf16_kernel_matches_plain(cuda_device, case):
     """The CSR forward's bf16 instantiation against its plain bf16 version,
     bitwise across launches."""
-    args, (tile, window, src_window), _ = _csr_case(case, 2, cuda_device)
+    args, (tile, window, src_window), _ = _csr_case(case, 2, cuda_device, CSR_FWD_CASES)
     before = C.fused_message_pass_csr.launches_bf16
     with torch.no_grad():
         got = C.fused_message_pass_csr(*args, 0.01, tile, window, True, src_window)

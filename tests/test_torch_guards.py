@@ -99,6 +99,21 @@ def test_new_loaders_raise_without_nvcc(monkeypatch, tmp_path, module, entry,
     getattr(module, entry).cache_clear()
 
 
+@pytest.mark.parametrize("plan, widths", [
+    (FM._forward_plan, (64, 300, 16, 32, 16)),
+    (CM._forward_plan, (64, 300, 16, 16, 32, 16)),
+], ids=["fused", "csr"])
+def test_forward_plans_raise_without_nvcc(monkeypatch, tmp_path, plan, widths):
+    """The forwards' plan entry points load their library like the kernels:
+    without nvcc they raise before asking any device."""
+    monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing cached
+    _build.load.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        plan(*widths, torch.device("cpu"))
+    _build.load.cache_clear()
+
+
 @pytest.mark.parametrize("entry", ["_kernel", "_bwd_kernel", "_bwd_scratch"])
 def test_csr_loaders_raise_without_nvcc(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)

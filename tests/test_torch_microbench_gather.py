@@ -203,3 +203,15 @@ def test_edge_tile_ablation_variants_apply():
     shipped = (A._build.CSRC_DIR / "mp_edge_tile.cuh").read_text()
     for name, (_, edits) in A.VARIANTS.items():
         assert (A.rewrite(name) == shipped) == (not edits), name
+
+
+def test_fwd_tile_ablation_variants_apply():
+    """Every variant of scripts/fwd_tile_ablation.py rewrites text that the
+    shared edge-tile header holds exactly once (no nvcc needed)."""
+    from graph_neural_network_for_radar_perception_torch.scripts import (
+        fwd_tile_ablation as A,
+    )
+
+    shipped = (A._build.CSRC_DIR / "mp_edge_tile.cuh").read_text()
+    for name, (_, edits) in A.VARIANTS.items():
+        assert (A.EA.rewrite(name, A.VARIANTS) == shipped) == (not edits), name
