@@ -8,7 +8,8 @@ Phases, each reported on its own line:
 1. [build] build the port's CUDA kernels from ``csrc/`` with nvcc, one
    ``nvcc`` per source, started together: ``fused_mp`` (the fused round's
    forward, f32 and bf16, and backward), ``csr_mp`` (the CSR round's) and
-   ``microbench_gather`` (row gather and scatter-add);
+   ``microbench_gather`` (row gather and scatter-add), and beside them the
+   gather ablation's ``empty`` variant (the launch floor of [kernel-gather]);
 2. [kernel] hold the fused forward kernel against its plain PyTorch version
    on the card at the main path's shapes (N=768, E=15360, D=De=D2=64,
    H=128, plus a ragged E) and at the wider widths (FWD_WIDE) where its
@@ -52,16 +53,29 @@ Phases, each reported on its own line:
     graphs, two launches bitwise equal;
 12. [kernel-gather], [kernel-scatter] the microbenchmark's kernels against
     their plain versions with indices outside [0, N) (the scatter also
-    bitwise against ``np.add.at`` and across two launches), then the
-    microbenchmark itself (``scripts/microbench_gather.run``: numpy check,
-    timing beside the plain versions and ``index_select``/``index_add_``);
+    bitwise against ``np.add.at`` and across two launches; the gather also
+    bitwise against numpy indexing and across two launches with no rows, a
+    ragged count and rows of 4 and 1024 floats), then the microbenchmark
+    itself (``scripts/microbench_gather.run``: numpy check, timing beside
+    the plain versions and ``index_select``/``index_add_``), and the
+    gather's launch floor (an empty kernel on its grid, replayed from a CUDA
+    graph in a process of its own) against its time and bound;
 13. [train-bf16] ``trainer.train`` with ``make_train_step(GNNConfig(),
     mp_bf16=True)`` on the [train] batches, then with ``mp_impl="csr"``:
     bf16 forwards and f32 backwards counted (no f32 forward), the steps
     replayed on the CPU (losses and params), the f32 [train] run's losses
     shown to lie outside that tolerance, metrics against the f32 run,
     ms/step;
-14. print the kernel table as JSON and the card's name and power limit.
+14. [checkpoint] ``trainer.train`` with ``GNNConfig()`` at batch 8, under
+    PyTorch's deterministic algorithms: 2 steps saved by the checkpoint hook
+    (``utils/checkpoint.CheckpointManager``), restored into a state made
+    from another seed, 2 more from ``starting_iter=2``, against 4
+    uninterrupted steps (twice): params, optimiser state and counters
+    bitwise equal;
+15. [bench] the port bench (``scripts/bench.run``: root ``bench.py``'s
+    train_b8 in four rows, stress_dense, deploy and ``FrameDetector.detect``)
+    with one short repeat per config;
+16. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -72,9 +86,11 @@ nothing of JAX.
     python3 chip_smoke.py --phase kernel-bwd-timing
     python3 chip_smoke.py --phase kernel-csr-bwd
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
+    python3 chip_smoke.py --phase checkpoint
 
-build the libraries a phase needs and run phase 3 (the fused backward)
-or phase 5 (the CSR backward) alone, or only a timing (both forwards' C
+build the libraries a phase needs and run phase 3 (the fused backward),
+phase 5 (the CSR backward) or phase 14 (the checkpoint) alone, or only a
+timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
 print its row and the card as the last two lines (no ``ok`` line): the
@@ -106,6 +122,7 @@ from graph_neural_network_for_radar_perception_torch.utils.timing import (  # no
     PEAK_F32_FLOPS,
     event_ms,
     kernel_breakdown,
+    profile_run,
 )
 
 N, E, D, DE, H, D2 = 768, 15360, 64, 64, 128, 64
@@ -960,48 +977,6 @@ def compare_decisions(gpu, cpu, node_logits, obj_logits, eps: float) -> dict:
     return report
 
 
-def profile_run(torch, fn) -> dict:
-    """One call of ``fn`` under torch.profiler, after a warm call: device
-    kernels launched, device busy time (union of kernel intervals), host
-    wall time, and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # The train step's named ranges also appear on the device timeline as
-    # annotations spanning their kernels: not kernels, so left out.
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.name.startswith("train_step.")
-    )
-    ranges = {}  # host time of the train step's named parts
-    for e in prof.events():
-        if e.name.startswith("train_step.") and e.device_type != torch.autograd.DeviceType.CUDA:
-            ranges[e.name] = ranges.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    busy, end, by_name, count = 0.0, float("-inf"), {}, {}
-    for start, stop, name in spans:
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
-        count[name] = count.get(name, 0) + 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {
-        "wall_ms": wall_us / 1e3,
-        "device_kernels": len(spans),
-        "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1.0 - busy / wall_us,
-        "top_kernels_ms_launches": {name[:60]: [t / 1e3, count[name]]
-                                    for name, t in top},
-        **({"host_ms_by_part": ranges} if ranges else {}),
-    }
-
-
 def phase_deploy(torch, FM):
     """Phase 4: the deploy path on the card, against the CPU."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
@@ -1082,7 +1057,7 @@ def phase_deploy(torch, FM):
     log(f"[deploy] RadarGNN.deploy forward alone on the card: ms/frame median "
         f"{np.median(deploy_ms):.3f} (min {min(deploy_ms):.3f}, max {max(deploy_ms):.3f})")
     with torch.no_grad():
-        prof = profile_run(torch, lambda: det_gpu.model.deploy(graph))
+        prof = profile_run(lambda: det_gpu.model.deploy(graph))
         layout_kernels = len(kernel_breakdown(lambda: FM.fused_layout(
             graph.senders, graph.receivers, graph.node_feat.shape[0])))
     log(f"[deploy] profile of one deploy forward (last frame): {json.dumps(prof)}")
@@ -1190,7 +1165,7 @@ def phase_train(torch, FM):
     log(f"[train] ms/step (numpy batch in, synchronised; median of {len(timed)} "
         f"after 2 warm-up): {np.median(timed):.3f} (min {min(timed):.3f}, max "
         f"{max(timed):.3f})")
-    prof = profile_run(torch, lambda: step(state, batches[0]))
+    prof = profile_run(lambda: step(state, batches[0]))
     log(f"[train] profile of one train step: {json.dumps(prof)}")
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
@@ -1320,7 +1295,7 @@ def phase_train_csr(torch, FM, C):
     log(f"[train-csr] ms/step (numpy batch in, synchronised; median of {len(timed)} "
         f"after 2 warm-up): {np.median(timed):.3f} (min {min(timed):.3f}, max "
         f"{max(timed):.3f})")
-    prof = profile_run(torch, lambda: step(state, batches[0]))
+    prof = profile_run(lambda: step(state, batches[0]))
     log(f"[train-csr] profile of one train step: {json.dumps(prof)}")
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
@@ -1545,11 +1520,13 @@ def phase_kernel_csr_bf16(torch, C):
     }
 
 
-def phase_microbench(torch):
+def phase_microbench(torch, floor_lib: str):
     """Phase 12: the gather and scatter kernels against their plain
-    versions with indices outside [0, N) (not counted), then the
-    microbenchmark's own path with both counts from 0; returns the two
-    table rows."""
+    versions with indices outside [0, N), the gather also at odd shapes
+    (not counted), then the microbenchmark's own path with both counts from
+    0, and the gather's launch floor (``floor_lib``: the gather ablation's
+    ``empty`` build) in a process of its own; returns the two table rows."""
+    from graph_neural_network_for_radar_perception_torch.scripts import gather_ablation as GA
     from graph_neural_network_for_radar_perception_torch.scripts import microbench_gather as MB
 
     rng = np.random.default_rng(13)
@@ -1586,6 +1563,21 @@ def phase_microbench(torch):
     if not exact_s or not same_s:
         raise AssertionError("scatter_add_rows is not np.add.at's sum, bit for bit, "
                              "on every launch")
+    # The gather where its runs and pieces are ragged: no rows, a count that
+    # is no multiple of a warp's rows, rows of 4 and of 1024 floats.
+    for n, d, rows in ((MB.N, MB.D, 0), (MB.N, MB.D, m + 1), (MB.N, 4, m), (50, 1024, 3000)):
+        i = rng.integers(-2, n + 2, rows).astype(np.int32)
+        t_np = rng.normal(size=(n, d)).astype(np.float32)
+        keep = (i >= 0) & (i < n)
+        want = np.where(keep[:, None], t_np[np.where(keep, i, 0)], np.float32(0))
+        t_c, i_c = torch.from_numpy(t_np).to(dev), torch.from_numpy(i).to(dev)
+        got, again = MB.gather_rows(t_c, i_c), MB.gather_rows(t_c, i_c)
+        torch.cuda.synchronize()
+        ok = np.array_equal(got.cpu().numpy(), want) and bool(torch.equal(got, again))
+        log(f"[kernel-gather] N={n} D={d} M={rows} ({int((~keep).sum())} outside [0, N)): "
+            f"bitwise numpy indexing and across two launches={ok}")
+        if not ok:
+            raise AssertionError("gather_rows is not numpy indexing on every launch")
 
     MB.gather_rows.launches = 0
     MB.scatter_add_rows.launches = 0
@@ -1597,6 +1589,16 @@ def phase_microbench(torch):
         f"*launch_ms issued back to back): {json.dumps(res['gather'])}")
     log(f"[kernel-scatter] microbenchmark (launches {launches[1]}): "
         f"{json.dumps(res['scatter'])}; {res['bytes'] / 1e6:.3f} MB moved each")
+    floor = GA.run_one("empty", floor_lib)
+    if "error" in floor:
+        raise AssertionError(f"the gather's launch floor did not run: {floor['error']}")
+    g = res["gather"]
+    log(f"[kernel-gather] launch floor (an empty kernel on gather_rows' grid, replayed "
+        f"from a CUDA graph, own process): {floor['ms'] * 1e3:.3f} us; gather_rows "
+        f"{g['ms'] * 1e3:.3f} us = floor + {(g['ms'] - floor['ms']) * 1e3:.3f} us; bound "
+        f"{g['bound_ms'] * 1e3:.3f} us ({g['ms'] / g['bound_ms']:.2f}x); index_select "
+        f"{g['library_ms'] * 1e3:.3f} us")
+    res["gather"]["launch_floor_ms"] = floor["ms"]
     rows = []
     for (name, key, line), n in zip(
             (("gather_rows", "gather", 69), ("scatter_add_rows", "scatter", 128)), launches):
@@ -1610,6 +1612,7 @@ def phase_microbench(torch):
             "library_ms": r["library_ms"], "launch_ms": r["launch_ms"],
             "wrapper_ms": r["wrapper_ms"], "library_launch_ms": r["library_launch_ms"],
             "deterministic": r["deterministic"],
+            **({"launch_floor_ms": r["launch_floor_ms"]} if "launch_floor_ms" in r else {}),
         })
     if min(launches) < 1:
         raise AssertionError("the microbenchmark did not launch both kernels")
@@ -1761,6 +1764,112 @@ def phase_train_bf16(torch, FM, C, f32_metrics):
     return launches
 
 
+def _train_snapshot(torch, state) -> dict:
+    """Everything a resume must restore, on the host: params, optimiser
+    state, counters."""
+    snap = {f"param/{k}": v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            snap[f"optim/{i}/{k}"] = torch.as_tensor(v).detach().cpu().clone()
+    snap["counters"] = torch.tensor([state.step, state.updates, state.mini_step])
+    return snap
+
+
+def _snapshot_diff(a: dict, b: dict):
+    """(max abs difference of two snapshots, the tensor where it is); inf if
+    their keys differ."""
+    if a.keys() != b.keys():
+        return float("inf"), "keys"
+    diffs = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a if a[k].numel()}
+    worst = max(diffs, key=diffs.get)
+    return diffs[worst], worst
+
+
+def phase_checkpoint(torch, FM):
+    """Phase 14: resume on the card: 2 steps of trainer.train saved by the
+    checkpoint hook, restored into a state made from another seed, 2 more,
+    against 4 uninterrupted steps, twice.  The port's kernels are
+    deterministic, but the model's ``index_add_`` sums and its gathers'
+    backward use atomics on the card unless PyTorch's deterministic
+    algorithms are on (two runs of 4 steps differed by up to 1.6e-05
+    without them on an H100).  So the phase turns
+    them on (``warn_only``: cuBLAS only warns), and every run must equal the
+    first 4 steps bit for bit: params, optimiser state and counters."""
+    import shutil
+
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train.trainer import TrainHooks, train
+    from graph_neural_network_for_radar_perception_torch.utils.checkpoint import CheckpointManager
+
+    cfg = GNNConfig()
+    rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
+    gen = SyntheticRadarDataset(cfg, seed=3, num_objects=(6, 10)).batches(bsz)
+    batches = [next(gen) for _ in range(4)]
+
+    def fresh(seed):
+        return S.create_train_state(cfg, torch.Generator().manual_seed(seed), device="cuda")
+
+    def run(state, part, start, stop, ckpt=None):
+        return train(cfg, iter(part), state=state, starting_iter=start, max_iters=stop,
+                     hooks=TrainHooks(checkpoint=ckpt, print_fn=lambda s: None))
+
+    directory = os.path.join(REPO, "build", "chip_smoke_checkpoints")
+    shutil.rmtree(directory, ignore_errors=True)
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        FM.fused_message_pass.launches = 0
+        whole = _train_snapshot(torch, run(fresh(0), batches, 0, 4))
+        mgr = CheckpointManager(directory)
+        first = run(fresh(0), batches[:2], 0, 2, mgr)
+        saved = mgr.all_steps()
+        resumed = mgr.restore(template=fresh(1))
+        restore_err, _ = _snapshot_diff(_train_snapshot(torch, resumed),
+                                        _train_snapshot(torch, first))
+        resumed = _train_snapshot(torch, run(resumed, batches[2:], 2, 4))
+        again = _train_snapshot(torch, run(fresh(0), batches, 0, 4))
+        launches = FM.fused_message_pass.launches
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
+        shutil.rmtree(directory, ignore_errors=True)
+    (err, at), (repeat, repeat_at) = _snapshot_diff(resumed, whole), _snapshot_diff(again, whole)
+    log(f"[checkpoint] GNNConfig() batch {bsz}, deterministic algorithms: saved steps "
+        f"{saved}, restore vs the saved state max abs diff {restore_err:.3e}; 2 + 2 steps vs 4 "
+        f"uninterrupted: {err:.3e} (at {at}) over {len(whole)} params/optimiser tensors and "
+        f"the counters; 4 steps twice: {repeat:.3e} (at {repeat_at}); fused_message_pass "
+        f"launches {launches} (expected {rounds} x {bsz} x 12)")
+    if saved != [2] or restore_err != 0.0 or launches != rounds * bsz * 12:
+        raise AssertionError("the checkpoint hook did not save or restore the state")
+    if repeat != 0.0 or err != 0.0:
+        raise AssertionError("4 steps do not repeat bit for bit, or a resumed run differs")
+    return {"bitwise": True, "max_abs_diff": err, "repeat_max_abs_diff": repeat}
+
+
+def phase_bench(torch):
+    """Phase 15: the port bench, one short repeat per config."""
+    from graph_neural_network_for_radar_perception_torch.scripts import bench as PB
+
+    t0 = time.perf_counter()
+    res = PB.run("cuda", warmup=1, steps=1)
+    rows = dict(res["train_b8"]["rows"], stress_dense=res["stress_dense"],
+                deploy=res["deploy"], detect=res["deploy"]["detect"])
+    log(f"[bench] scripts/bench.run(warmup=1, steps=1) in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(res)}")
+    for name, row in rows.items():
+        log(f"[bench] {name}: host ms median {row['host_ms']:.3f} (min {row['host_ms_min']:.3f}, "
+            f"max {row['host_ms_max']:.3f}), event ms {row['event_ms']:.3f}, device busy "
+            f"{row['device_busy_ms']:.3f} ms, idle {row['device_idle_share']:.3f}, "
+            f"{row['device_kernels']} kernels, mfu {row.get('mfu')}")
+        if not (np.isfinite(row["host_ms"]) and row["host_ms"] > 0 and row["device_kernels"] > 0):
+            raise AssertionError(f"[bench] {name}: no time or no kernel on the card")
+    if any(r["skipped"] for r in res["train_b8"]["rows"].values()):
+        raise AssertionError("[bench] a train_b8 step was skipped")
+    return res
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1777,7 +1886,8 @@ def main(argv) -> int:
               "kernel-bwd": (phase_kernel_bwd, "fused_mp"),
               "kernel-bwd-timing": (time_fused_bwd, "fused_mp"),
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
-              "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp")}
+              "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp"),
+              "checkpoint": (phase_checkpoint, "fused_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -1787,6 +1897,7 @@ def main(argv) -> int:
     from graph_neural_network_for_radar_perception_torch.ops import _build
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+    from graph_neural_network_for_radar_perception_torch.scripts import gather_ablation as GA
     from graph_neural_network_for_radar_perception_torch.scripts import microbench_gather as MB
 
     # f32 means f32: no TF32 in matmuls (the default, stated here).
@@ -1809,16 +1920,18 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     # One nvcc per source, all started together (each build is a process).
     sources = ("fused_mp", "csr_mp", "microbench_gather")
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        floor_lib = pool.submit(GA.build, "empty")
         libs = dict(zip(sources, pool.map(_build.build, sources)))
+        floor_lib = floor_lib.result()
     FM._kernel(), FM._kernel(True), FM._bwd_kernel()
     C._kernel(), C._kernel(True), C._bwd_kernel()
     MB._kernels()
     log(f"[build] fused_mp (fused_mp_forward, fused_mp_forward_bf16, "
         f"fused_mp_backward), csr_mp (csr_mp_forward, csr_mp_forward_bf16, "
         f"csr_mp_backward), microbench_gather (gather_rows, scatter_add_rows), "
-        f"in parallel: {time.perf_counter() - t0:.1f} s -> "
-        f"{', '.join(os.path.relpath(p, REPO) for p in libs.values())}")
+        f"the gather's empty variant, in parallel: {time.perf_counter() - t0:.1f} s -> "
+        f"{', '.join(os.path.relpath(p, REPO) for p in [*libs.values(), floor_lib])}")
 
     fwd_row = phase_kernel(torch, FM)
     bwd_row = phase_kernel_bwd(torch, FM)
@@ -1830,8 +1943,10 @@ def main(argv) -> int:
     csr_deploy = phase_deploy_csr(torch, FM, C)
     bf16_row = phase_kernel_bf16(torch, FM)
     csr_bf16_row = phase_kernel_csr_bf16(torch, C)
-    gather_row, scatter_row = phase_microbench(torch)
+    gather_row, scatter_row = phase_microbench(torch, floor_lib)
     bf16_launches = phase_train_bf16(torch, FM, C, f32_metrics)
+    phase_checkpoint(torch, FM)
+    phase_bench(torch)
     fwd_row["launches"] = deploy_launches + train_fwd
     fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd}
     bwd_row["launches"] = train_bwd

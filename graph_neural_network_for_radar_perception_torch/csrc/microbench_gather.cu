@@ -20,7 +20,19 @@
 // dominated by its fixed cost and its latencies.
 // * gather: one thread per 16-byte piece (float4) of the output, so that a
 //   warp reads two table rows and writes two output rows with 16-byte
-//   accesses on neighbouring addresses; the table (192 KB) stays in L2.
+//   accesses on neighbouring addresses, and every thread of the card has
+//   its piece's chain (index load, row load, store) in flight at once; the
+//   row is a shift of the piece's number where d / 4 is a power of two.
+//   The table (192 KB) stays in L2.  At the script's shapes this is a
+//   latency chain, not a rate: in a CUDA-graph replay an empty kernel on
+//   this grid takes ~1.2 us and one that only stores the output ~2.4-2.5
+//   us, so launch, the stores' drain and the two dependent round trips
+//   (index, then row) add up to ~2.9 us whatever the design.  A persistent
+//   grid of warps over runs of rows (indices shared by __shfl_sync, 4 row
+//   loads a lane in flight, fewer memory instructions), Hopper's bulk
+//   copies (cp.async.bulk rows into shared memory, one bulk store a tile)
+//   and streaming stores (__stcs) were all slower;
+//   scripts/gather_ablation.py holds them (PERF.md).
 // * scatter: one launch, no zeroing and no atomics.  Block b owns R output
 //   rows, one block an SM where the rows allow it (R = 6 at n = 768 on 132
 //   SMs: R * d / 4 = 96 threads own one float4 of an output row each).
@@ -48,22 +60,26 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGatherThreads = 256;
 
 __device__ __forceinline__ bool in_range(int i, int n) {
   return static_cast<unsigned>(i) < static_cast<unsigned>(n);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// out [m, d4] float4 = table rows at idx (zero rows outside [0, n)): thread
+// i writes piece i, column i % d4 of row i / d4 (shift = log2(d4) where d4
+// is a power of two, else -1: no division on the chain before the loads).
+__global__ void __launch_bounds__(kGatherThreads)
 gather_rows_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
-                   float4* __restrict__ out, int n, long long pieces, int d4) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+                   float4* __restrict__ out, int n, long long pieces, int d4, int shift) {
+  const long long i = static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
   if (i >= pieces) return;
-  const long long row = i / d4;
-  const int c = static_cast<int>(i - row * d4);
+  const long long row = shift >= 0 ? i >> shift : i / d4;
   const int j = idx[row];
-  out[i] = in_range(j, n) ? table[static_cast<long long>(j) * d4 + c]
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 v = in_range(j, n) ? table[static_cast<long long>(j) * d4 + (i - row * d4)]
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  out[i] = v;
 }
 
 constexpr int kScatterThreads = 256;
@@ -134,7 +150,7 @@ scatter_add_rows_kernel(const float4* __restrict__ msg, const int* __restrict__ 
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         r[k] = static_cast<unsigned>(v[k]) - static_cast<unsigned>(r0);
-        mk[k] = __ballot_sync(0xffffffffu, r[k] < static_cast<unsigned>(nr));
+        mk[k] = __ballot_sync(kFull, r[k] < static_cast<unsigned>(nr));
         pos += __popc(mk[k] & lt);
       }
 #pragma unroll
@@ -147,7 +163,7 @@ scatter_add_rows_kernel(const float4* __restrict__ msg, const int* __restrict__ 
     // This warp's entries a row: the first lane of each row's group adds.
     for (int k0 = 0; k0 < hits; k0 += 32) {
       const int row = k0 + lane < hits ? wl[k0 + lane] & 15 : -1;
-      const unsigned grp = __match_any_sync(0xffffffffu, row);
+      const unsigned grp = __match_any_sync(kFull, row);
       if (row >= 0 && (grp & lt) == 0) s_cnt[warp][row] += __popc(grp);
       __syncwarp();
     }
@@ -159,7 +175,7 @@ scatter_add_rows_kernel(const float4* __restrict__ msg, const int* __restrict__ 
       int inc = t;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, inc, o);
+        const int v = __shfl_up_sync(kFull, inc, o);
         if (lane >= o) inc += v;
       }
       if (lane < kScatterRows) s_start[lane] = inc - t;
@@ -178,7 +194,7 @@ scatter_add_rows_kernel(const float4* __restrict__ msg, const int* __restrict__ 
     for (int k0 = 0; k0 < hits; k0 += 32) {
       const int e = k0 + lane < hits ? wl[k0 + lane] : -1;
       const int row = e >= 0 ? (e & 15) : -1;
-      const unsigned grp = __match_any_sync(0xffffffffu, row);
+      const unsigned grp = __match_any_sync(kFull, row);
       if (row >= 0) s_idx[s_base[warp][row] + __popc(grp & lt)] = s0 + (e >> 4);
       __syncwarp();
       if (row >= 0 && (grp & lt) == 0) s_base[warp][row] += __popc(grp);
@@ -211,8 +227,12 @@ scatter_add_rows_kernel(const float4* __restrict__ msg, const int* __restrict__ 
   if (owner) out[static_cast<size_t>(r0 + own_row) * d4 + own_col] = acc;
 }
 
-int grid_for(long long pieces) {
-  return static_cast<int>((pieces + kThreads - 1) / kThreads);
+// The device's SM count (the scatter's grid), or an error.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace
@@ -226,11 +246,13 @@ extern "C" int gather_rows(const float* table, const int* idx, float* out,
                            int n, int m, int d, void* stream) {
   if (n < 0 || m < 0 || d <= 0 || d % 4) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const long long pieces = static_cast<long long>(m) * (d / 4);
-  gather_rows_kernel<<<grid_for(pieces), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(table), idx,
-      reinterpret_cast<float4*>(out), n, pieces, d / 4);
+  const int d4 = d / 4;
+  const int shift = (d4 & (d4 - 1)) ? -1 : __builtin_ctz(d4);
+  const long long pieces = static_cast<long long>(m) * d4;
+  gather_rows_kernel<<<static_cast<int>((pieces + kGatherThreads - 1) / kGatherThreads),
+                       kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(table), idx, reinterpret_cast<float4*>(out), n, pieces,
+      d4, shift);
   return cudaGetLastError();
 }
 
@@ -245,10 +267,8 @@ extern "C" int scatter_add_rows(const float* msg, const int* idx, float* out,
   const int d4 = d / 4;
   // One block an SM where the rows allow it: ceil(n / SMs) rows a block,
   // at most kScatterRows and as many as the block's threads can own.
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   int rows = (n + sms - 1) / sms;
   const int most = kScatterThreads / d4 < kScatterRows ? kScatterThreads / d4 : kScatterRows;

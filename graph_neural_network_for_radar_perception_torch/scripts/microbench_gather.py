@@ -138,7 +138,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_rows_reference(table, idx)
     out = torch.empty(idx.shape[0], table.shape[1], dtype=torch.float32,
                       device=table.device)
-    _launch_gather(table, idx, out)
+    if idx.shape[0]:  # no rows, no launch
+        _launch_gather(table, idx, out)
     return out
 
 

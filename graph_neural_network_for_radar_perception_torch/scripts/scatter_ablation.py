@@ -57,17 +57,23 @@ VARIANTS = {
 }
 
 
-def build(name: str) -> str:
-    """The variant's library, built from a rewritten copy of the source."""
+def rewrite(name: str, variants: dict = VARIANTS) -> str:
+    """``csrc/microbench_gather.cu`` as variant ``name`` of ``variants``
+    has it: each pattern (which must occur exactly once) replaced."""
     text = (_build.CSRC_DIR / "microbench_gather.cu").read_text()
-    for old, new in VARIANTS[name][1]:
-        if old not in text:
-            raise RuntimeError(f"{name}: pattern not in microbench_gather.cu: {old!r}")
+    for old, new in variants[name][1]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: pattern not once in microbench_gather.cu: {old!r}")
         text = text.replace(old, new)
-    out_dir = OUT / name
+    return text
+
+
+def build(name: str, variants: dict = VARIANTS, out=OUT) -> str:
+    """The variant's library, built from its rewritten source."""
+    out_dir = out / name
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / "microbench_gather.cu", out_dir / "libmicrobench_gather.so"
-    src.write_text(text)
+    src.write_text(rewrite(name, variants))
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
                            "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:

@@ -1,7 +1,10 @@
-"""Timing on the card with CUDA events, and the published peaks of one
-H100 SXM from which a kernel's least time is computed."""
+"""Timing on the card with CUDA events, the device kernels and busy share
+of a call from ``torch.profiler``, and the published peaks of one H100 SXM
+from which a kernel's least time is computed."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -65,3 +68,47 @@ def kernel_breakdown(fn) -> list:
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     return [(name, float(us)) for _, us, name in spans]
+
+
+def profile_run(fn) -> dict:
+    """One call of ``fn`` under torch.profiler, after a warm call: device
+    kernels launched, device busy time (union of kernel intervals), host
+    wall time, the card's idle share of it, the kernels that take the most
+    device time, and the host time of the train step's named parts
+    (``train_step.*`` ranges) where it has them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # The train step's named ranges also appear on the device timeline as
+    # annotations spanning their kernels: not kernels, so left out.
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith("train_step.")
+    )
+    ranges = {}  # host time of the train step's named parts
+    for e in prof.events():
+        if e.name.startswith("train_step.") and e.device_type != torch.autograd.DeviceType.CUDA:
+            ranges[e.name] = ranges.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy, end, by_name, count = 0.0, float("-inf"), {}, {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+        count[name] = count.get(name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_kernels": len(spans),
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "top_kernels_ms_launches": {name[:60]: [t / 1e3, count[name]]
+                                    for name, t in top},
+        **({"host_ms_by_part": ranges} if ranges else {}),
+    }

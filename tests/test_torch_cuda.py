@@ -563,6 +563,34 @@ def test_scatter_is_np_add_at_bitwise(cuda_device, n, d, m):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("n, d, m", [
+    (768, 64, 15360), (768, 64, 0), (768, 64, 15361), (768, 64, 37), (768, 4, 15360),
+    (50, 1024, 3000), (10, 12, 1000), (768, 64, 100000)])
+def test_gather_is_numpy_indexing_bitwise(cuda_device, n, d, m):
+    """The gather equals numpy indexing bit for bit, zero rows where an index
+    lies outside [0, n), on every launch: at the microbenchmark's shapes, with
+    no indices, a count that is no multiple of a warp's rows, widths of 4,
+    12 (no power of two) and 1024 floats, and more rows than the grid's
+    warps take in one run each."""
+    rng = np.random.default_rng(n + d + m)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx[rng.random(m) < 0.05] = n
+    idx[rng.random(m) < 0.05] = -1
+    idx[rng.random(m) < 0.01] = 2**31 - 1
+    tab = rng.normal(size=(n, d)).astype(np.float32)
+    keep = (idx >= 0) & (idx < n)
+    want = np.where(keep[:, None], tab[np.where(keep, idx, 0)], np.float32(0))
+    t_idx, t_tab = torch.from_numpy(idx).to(cuda_device), torch.from_numpy(tab).to(cuda_device)
+    before = MB.gather_rows.launches
+    got = MB.gather_rows(t_tab, t_idx)
+    again = MB.gather_rows(t_tab, t_idx)
+    torch.cuda.synchronize()
+    assert got.shape == (m, d)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, again)
+    assert MB.gather_rows.launches == before + (2 if m else 0)
+
+
 def test_microbench_runs(cuda_device):
     res = MB.run()
     for key in ("gather", "scatter"):

@@ -215,3 +215,37 @@ def test_fwd_tile_ablation_variants_apply():
     shipped = (A._build.CSRC_DIR / "mp_edge_tile.cuh").read_text()
     for name, (_, edits) in A.VARIANTS.items():
         assert (A.EA.rewrite(name, A.VARIANTS) == shipped) == (not edits), name
+
+
+@pytest.mark.parametrize("n, d, m", [(768, 64, 15360), (768, 64, 0), (768, 4, 15361),
+                                     (50, 12, 1000)])
+def test_plain_gather_is_numpy_indexing(n, d, m):
+    """The plain gather equals numpy indexing bit for bit, with a zero row
+    where an index lies outside [0, N): at the microbenchmark's shapes, with
+    no indices, with rows of 4 floats and of a width that is no power of
+    two; no launch on the CPU."""
+    rng = np.random.default_rng(n + d + m)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx[rng.random(m) < 0.05] = n
+    idx[rng.random(m) < 0.05] = -1
+    idx[rng.random(m) < 0.01] = 2**31 - 1
+    tab = rng.normal(size=(n, d)).astype(np.float32)
+    keep = (idx >= 0) & (idx < n)
+    want = np.where(keep[:, None], tab[np.where(keep, idx, 0)], np.float32(0))
+    before = MB.gather_rows.launches
+    got = MB.gather_rows(torch.from_numpy(tab), torch.from_numpy(idx))
+    assert got.shape == (m, d) and MB.gather_rows.launches == before
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_ablation_variants_apply():
+    """Every variant of scripts/gather_ablation.py rewrites text that the
+    kernel's source holds exactly once (no nvcc needed), and every variant
+    but the shipped one changes it."""
+    from graph_neural_network_for_radar_perception_torch.scripts import (
+        gather_ablation as A,
+    )
+
+    shipped = (A._build.CSRC_DIR / "microbench_gather.cu").read_text()
+    for name, (_, edits) in A.VARIANTS.items():
+        assert (A.rewrite(name) == shipped) == (not edits), name

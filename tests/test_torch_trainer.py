@@ -19,6 +19,9 @@ from graph_neural_network_for_radar_perception_torch.train.trainer import (
     TrainHooks,
     train,
 )
+from graph_neural_network_for_radar_perception_torch.utils.checkpoint import (
+    CheckpointManager,
+)
 from graph_neural_network_for_radar_perception_torch.utils.metrics_writer import (
     RunningMeans,
 )
@@ -120,9 +123,16 @@ def test_train_defaults_make_a_seeded_state(cfg):
                            fresh.model.predict_node.head.out.weight)
 
 
-def test_train_checkpoint_hook_not_ported(cfg):
-    with pytest.raises(NotImplementedError, match="A6"):
-        train(cfg, iter([]), hooks=TrainHooks(checkpoint=object()), device="cpu")
+def test_train_checkpoint_hook_not_ported(cfg, tmp_path):
+    """The checkpoint hook saves the state at every validation period and
+    once at the end, and the saved state restores (it raised before
+    utils/checkpoint.py was ported)."""
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    s = train(cfg, iter(_batches(cfg, 3)), hooks=TrainHooks(val_period=2, checkpoint=mgr,
+                                                              print_fn=lambda s: None),
+              state=_state(cfg), max_iters=3)
+    assert mgr.all_steps() == [2, 3]
+    _assert_same(mgr.restore(template=_state(cfg, seed=9)), s)
 
 
 def test_eval_step_takes_no_gradient(cfg):
