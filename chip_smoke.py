@@ -72,10 +72,21 @@ Phases, each reported on its own line:
     from another seed, 2 more from ``starting_iter=2``, against 4
     uninterrupted steps (twice): params, optimiser state and counters
     bitwise equal;
-15. [bench] the port bench (``scripts/bench.run``: root ``bench.py``'s
+15. [data-plane] the host data plane: the native graph builder (built by
+    the host compiler in [build]) against the numpy builder on the [deploy]
+    frames (graph, degree and labels equal, float features at rtol 1e-5 /
+    atol 1e-6); ``FrameDetector.detect`` through the native default against
+    the numpy builder (decisions, p50 of each in turns); ``ops/graph_build``
+    on the card against the numpy builder (structure equal, features close;
+    time and kernels of one build); ``trainer.train_bucketed`` with
+    ``GNNConfig()``'s default buckets (two reached) for 3 steps, its batches
+    through ``device_prefetch``, both kernels counted, each step replayed on
+    the CPU from the card's state before it; ``MultiprocessBatches`` (2
+    forked workers) feeding 2 steps, no worker initialising CUDA;
+16. [bench] the port bench (``scripts/bench.run``: root ``bench.py``'s
     train_b8 in four rows, stress_dense, deploy and ``FrameDetector.detect``)
     with one short repeat per config;
-16. print the kernel table as JSON and the card's name and power limit.
+17. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -87,9 +98,11 @@ nothing of JAX.
     python3 chip_smoke.py --phase kernel-csr-bwd
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
     python3 chip_smoke.py --phase checkpoint
+    python3 chip_smoke.py --phase data-plane
 
 build the libraries a phase needs and run phase 3 (the fused backward),
-phase 5 (the CSR backward) or phase 14 (the checkpoint) alone, or only a
+phase 5 (the CSR backward), phase 14 (the checkpoint) or phase 15 (the data
+plane) alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -134,6 +147,12 @@ PARAM_RTOL, PARAM_ATOL = 1e-3, 1e-5    # params after the train steps
 NUM_FRAMES = 8
 NUM_CSR_FRAMES = 4     # [deploy-csr]: the first frames of [deploy]
 TRAIN_STEPS = 3        # steps through trainer.train, replayed on the CPU
+BUCKETED_STEPS = 3     # [data-plane]: steps of trainer.train_bucketed, replayed on the CPU
+LOADER_STEPS = 2       # [data-plane]: steps fed by MultiprocessBatches
+DETECT_REPS = 4        # [data-plane]: detect timings per frame and graph builder, in turns
+# The native and numpy graph builders round some edge features differently
+# in the last bit (ROADMAP.md C4; tests/test_native.py's tolerance).
+BUILDER_RTOL, BUILDER_ATOL = 1e-5, 1e-6
 TIMED_STEPS = 7        # 2 warm-up + 5 timed
 # Cotangent scale of the backward check: a train step hands a round dL/dagg
 # of this order (the loss is a mean over ~10^3 nodes).
@@ -982,7 +1001,6 @@ def phase_deploy(torch, FM):
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
     from graph_neural_network_for_radar_perception_torch.data.pipeline import pad_frame, preprocess_frame
-    from graph_neural_network_for_radar_perception_torch.data.synthetic import make_synthetic_frame
     from graph_neural_network_for_radar_perception_torch.infer.pipeline import FrameDetector
     from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 
@@ -990,12 +1008,7 @@ def phase_deploy(torch, FM):
     state = RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
     det_gpu = FrameDetector(cfg, state, device="cuda")
     det_cpu = FrameDetector(cfg, state, device="cpu")
-    rng = np.random.default_rng(1)
-    frames = [
-        make_synthetic_frame(rng, num_objects=int(rng.integers(8, 13)),
-                             window_size=cfg.temporal_window_size)
-        for _ in range(NUM_FRAMES + 1)
-    ]
+    frames = deploy_frames(cfg, NUM_FRAMES + 1)
     det_gpu.detect(frames[-1])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
@@ -1308,7 +1321,6 @@ def phase_deploy_csr(torch, FM, C):
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
     from graph_neural_network_for_radar_perception_torch.data.pipeline import pad_frame, preprocess_frame
-    from graph_neural_network_for_radar_perception_torch.data.synthetic import make_synthetic_frame
     from graph_neural_network_for_radar_perception_torch.infer.pipeline import FrameDetector
     from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 
@@ -1316,10 +1328,7 @@ def phase_deploy_csr(torch, FM, C):
     state = RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
     det = {"csr": FrameDetector(cfg_csr, state, device="cuda"),
            "onehot": FrameDetector(cfg, state, device="cuda")}
-    rng = np.random.default_rng(1)  # the [deploy] phase's frames
-    frames = [make_synthetic_frame(rng, num_objects=int(rng.integers(8, 13)),
-                                   window_size=cfg.temporal_window_size)
-              for _ in range(NUM_CSR_FRAMES)]
+    frames = deploy_frames(cfg, NUM_CSR_FRAMES)  # the [deploy] phase's first frames
     det["csr"].detect(frames[0])  # warm-up
     torch.cuda.synchronize()
     for c in (FM.fused_message_pass, C.fused_message_pass_csr):
@@ -1848,8 +1857,281 @@ def phase_checkpoint(torch, FM):
     return {"bitwise": True, "max_abs_diff": err, "repeat_max_abs_diff": repeat}
 
 
+def deploy_frames(cfg, count: int) -> list:
+    """The [deploy] phase's raw frames: seed 1, 8-12 objects a frame."""
+    from graph_neural_network_for_radar_perception_torch.data.synthetic import make_synthetic_frame
+
+    rng = np.random.default_rng(1)
+    return [make_synthetic_frame(rng, num_objects=int(rng.integers(8, 13)),
+                                 window_size=cfg.temporal_window_size)
+            for _ in range(count)]
+
+
+def selected_measurements(data: dict, cfg) -> dict:
+    """The measurements ``preprocess_frame`` builds a frame's graph from:
+    inside the region of interest, then moving."""
+    from graph_neural_network_for_radar_perception_torch.data import features as F
+    from graph_neural_network_for_radar_perception_torch.data import groundtruth as G
+    from graph_neural_network_for_radar_perception_torch.data.labels import ID_STATIC
+
+    gt = G.compute_ground_truth_node(data)
+    data, gt = F.select_within_roi(data, gt, cfg.min_x, cfg.max_x, cfg.min_y, cfg.max_y)
+    return F.select_moving(data, gt, ID_STATIC)[0]
+
+
+def _frames_close(nat, num, i: int) -> float:
+    """Native against numpy FrameArrays: integer fields equal, float fields
+    within BUILDER_RTOL/ATOL; returns the largest float difference."""
+    import dataclasses
+
+    worst = 0.0
+    for f in dataclasses.fields(num):
+        a, b = getattr(nat, f.name), getattr(num, f.name)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"frame {i}: {f.name} {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        if b.dtype.kind == "f":
+            err = np.abs(a - b)
+            worst = max(worst, float(err.max(initial=0.0)))
+            if (err > BUILDER_ATOL + BUILDER_RTOL * np.abs(b)).any():
+                raise AssertionError(f"frame {i}: {f.name} native vs numpy beyond tolerance")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"frame {i}: {f.name} native vs numpy differ")
+    return worst
+
+
+def _graph_build_on_card(torch, GB, cfg, data, num, i: int):
+    """``ops/graph_build`` on the card over a frame's selected measurements
+    (padded to a multiple of 128 nodes) against the numpy builder: the
+    structure equal on the valid prefix, the features close.  Returns the
+    build as a closure (for timing) and the largest feature difference."""
+    from graph_neural_network_for_radar_perception_torch.data import features as F
+
+    sel = selected_measurements(data, cfg)
+    n = sel["meas_px"].shape[0]
+    n_cap, k = -(-n // 128) * 128, cfg.k_number_nearest_points
+
+    def pad(a):
+        out = np.zeros(n_cap, np.float32)
+        out[:n] = a
+        return torch.from_numpy(out).to("cuda")
+
+    ts = pad(sel["meas_timestamp"] - sel["meas_timestamp"].min())  # µs, exact in f32
+    px, py, vx, vy, vr, rcs = (pad(sel[f"meas_{c}"]) for c in ("px", "py", "vx", "vy", "vr", "rcs"))
+    mask = torch.arange(n_cap, device="cuda") < n
+    points = torch.stack([px, py], dim=-1)
+
+    def build():
+        return GB.build_graph_structure(
+            points, mask, k=k, eps_sq=cfg.ball_query_eps_square,
+            edge_capacity=2 * (k + 1) * n_cap, und_capacity=(k + 1) * n_cap)
+
+    gs = build()
+    ref = F.adjacency_info(sel["meas_px"], sel["meas_py"], cfg.ball_query_eps_square, k)
+    e, eu = num.senders.shape[0], num.und_senders.shape[0]
+    host = {name: getattr(gs, name).cpu().numpy() for name in gs._fields}
+    same = (int(host["edge_mask"].sum()) == e and int(host["und_mask"].sum()) == eu
+            and np.array_equal(host["senders"][:e], num.senders)
+            and np.array_equal(host["receivers"][:e], num.receivers)
+            and np.array_equal(host["und_senders"][:eu], num.und_senders)
+            and np.array_equal(host["und_receivers"][:eu], num.und_receivers)
+            and np.array_equal(host["degree"][:n], np.asarray(ref["degree"], np.float32)))
+    if not same:
+        raise AssertionError(f"frame {i}: on-card graph structure differs from the numpy builder's")
+    ef = GB.compute_edge_features_device(px, py, vx, vy, ts, gs.senders, gs.receivers,
+                                         gs.edge_mask)[:e].cpu().numpy()
+    nf = GB.compute_node_features_device(
+        vr, rcs, ts, px, py, gs.degree, mask, min_range=cfg.grid_min_r,
+        max_range=cfg.grid_max_r, min_azimuth=cfg.grid_min_th, max_azimuth=cfg.grid_max_th,
+        include_region_confidence=cfg.include_region_confidence)[:n].cpu().numpy()
+    worst = 0.0
+    for name, got, want in (("edge", ef, num.edge_feat), ("node", nf, num.node_feat)):
+        err = np.abs(got - want)
+        worst = max(worst, float(err.max(initial=0.0)))
+        if got.shape != want.shape or (err > BUILDER_ATOL + BUILDER_RTOL * np.abs(want)).any():
+            raise AssertionError(f"frame {i}: on-card {name} features differ beyond tolerance")
+    return build, worst, n_cap
+
+
+def phase_data_plane(torch, FM):
+    """Phase 15: the host data plane on the card.  The native graph builder
+    against the numpy one on the [deploy] frames; FrameDetector.detect
+    through the native default against the numpy builder (decisions, p50 of
+    each in turns); ops/graph_build on the card against the numpy builder;
+    trainer.train_bucketed (GNNConfig()'s default buckets, batches through
+    device_prefetch) replayed step by step on the CPU; MultiprocessBatches
+    feeding train steps with no worker touching CUDA."""
+    import itertools
+
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
+    from graph_neural_network_for_radar_perception_torch.data import bucketing as B
+    from graph_neural_network_for_radar_perception_torch.data import native as NAT
+    from graph_neural_network_for_radar_perception_torch.data.mp_loader import MultiprocessBatches
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import (
+        SyntheticRadarDataset, pad_frame, preprocess_frame)
+    from graph_neural_network_for_radar_perception_torch.data.prefetch import device_prefetch
+    from graph_neural_network_for_radar_perception_torch.infer.pipeline import FrameDetector
+    from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
+    from graph_neural_network_for_radar_perception_torch.ops import _build
+    from graph_neural_network_for_radar_perception_torch.ops import graph_build as GB
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train.trainer import (
+        TrainHooks, train, train_bucketed)
+
+    cfg = GNNConfig()
+    rounds = len(cfg.graph_convolution_stem_channels)
+    t0 = time.perf_counter()
+    lib = _build.build_host("graph_builder")
+    NAT._lib()
+    log(f"[data-plane] native graph builder ({_build.host_compiler()} "
+        f"{' '.join(_build.HOST_FLAGS)}) ready in {time.perf_counter() - t0:.2f} s "
+        f"({os.path.relpath(lib, REPO)}; built in [build] on a full run)")
+
+    # 1. The native builder against the numpy builder.
+    pairs, worst = [], 0.0
+    for i, data in enumerate(deploy_frames(cfg, NUM_FRAMES)):
+        nat, num = preprocess_frame(data, cfg), preprocess_frame(data, cfg, use_native=False)
+        if (nat is None) != (num is None):
+            raise AssertionError(f"frame {i}: presence differs between the builders")
+        if nat is not None:
+            worst = max(worst, _frames_close(nat, num, i))
+            pairs.append((data, nat, num))
+    log(f"[data-plane] {len(pairs)} [deploy] frames (n={[p[2].n for p in pairs]}): native vs "
+        f"numpy builder: senders, receivers, undirected lists, degree and labels equal; float "
+        f"features max abs err {worst:.3e} (rtol={BUILDER_RTOL}, atol={BUILDER_ATOL})")
+    if len(pairs) < 4:
+        raise AssertionError("too few frames for the builder comparison")
+
+    # 2. FrameDetector.detect: the native default against the numpy builder.
+    state = RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    det = FrameDetector(cfg, state, device="cuda")
+    det.detect(pairs[0][0])  # warm-up
+    torch.cuda.synchronize()
+    FM.fused_message_pass.launches = 0
+    native_dets = [det.detect(data) for data, _, _ in pairs]
+    torch.cuda.synchronize()
+    detect_launches = FM.fused_message_pass.launches
+    if detect_launches != rounds * len(pairs):
+        raise AssertionError("detect did not run the fused kernel once per round")
+    for i, ((data, nat, num), ndet) in enumerate(zip(pairs, native_dets)):
+        udet = det.detect_frame_arrays(num)
+        graph_np, _ = pad_frame(num, cfg)
+        with torch.no_grad():
+            out = det.model.deploy(RadarGraph.from_numpy(graph_np, "cuda"), eps=det.eps)
+        rep = compare_decisions(ndet, udet, out.node_cls.cpu().numpy()[: num.n],
+                                out.obj_cls.cpu().numpy(), det.eps)
+        log(f"[data-plane] frame {i}: detect native vs numpy builder {json.dumps(rep)}")
+    paths = {"native": lambda data: det.detect(data),
+             "numpy": lambda data: det.detect_frame_arrays(
+                 preprocess_frame(data, cfg, use_native=False))}
+    ms = {name: [] for name in paths}
+    for rep in range(DETECT_REPS):
+        for data, _, _ in pairs:
+            for name in (("native", "numpy") if rep % 2 == 0 else ("numpy", "native")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                paths[name](data)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    summary = {name: {"p50": float(np.median(v)), "p99": float(np.percentile(v, 99)),
+                      "min": min(v), "max": max(v), "frames": len(v)} for name, v in ms.items()}
+    log(f"[data-plane] FrameDetector.detect ms/frame, in turns: native builder p50 "
+        f"{summary['native']['p50']:.3f}, numpy builder p50 {summary['numpy']['p50']:.3f} "
+        f"({json.dumps(summary)}) on {card()}")
+
+    # 3. ops/graph_build on the card against the numpy builder.
+    worst = 0.0
+    for i, (data, _, num) in enumerate(pairs):
+        build, err, n_cap = _graph_build_on_card(torch, GB, cfg, data, num, i)
+        worst = max(worst, err)
+    build_ms = event_ms(build, reps=20, inner=5)
+    prof = profile_run(build)
+    log(f"[data-plane] ops/graph_build.build_graph_structure on the card: structure equal to "
+        f"the numpy builder's on {len(pairs)} frames, features max abs err {worst:.3e}; one "
+        f"frame (N={n_cap}): {build_ms:.3f} ms (CUDA events), {prof['device_kernels']} kernels, "
+        f"busy {prof['device_busy_ms']:.3f} ms ({json.dumps(prof)})")
+
+    # 4. train_bucketed at the shipped widths, fed by device_prefetch.
+    buckets = B.default_buckets(cfg)
+    ds = SyntheticRadarDataset(cfg, seed=5, num_objects=(1, 8))
+    frames = (ds.sample_frame() for _ in itertools.count())
+    records, make_step = [], B.make_bucketed_train_step
+
+    def recording(cfg_, buckets_, **kw):
+        step = make_step(cfg_, buckets_, **kw)
+
+        def run(st, bucket, batch):
+            before = ({k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()},
+                      copy.deepcopy(st.optimizer.state_dict()), st.step, st.updates)
+            st, m = step(st, bucket, batch)
+            records.append((bucket, batch.to("cpu"), before, {k: float(v) for k, v in m.items()},
+                            {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()}))
+            return st, m
+
+        return run
+
+    st = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+    FM.fused_message_pass.launches = 0
+    FM.fused_message_pass_backward.launches = 0
+    B.make_bucketed_train_step = recording
+    try:
+        t0 = time.perf_counter()
+        st = train_bucketed(cfg, frames, buckets=buckets, state=st, max_iters=BUCKETED_STEPS,
+                            hooks=TrainHooks(log_period=1, val_period=10**9, print_fn=log))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        B.make_bucketed_train_step = make_step
+    tb_fwd, tb_bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
+    graphs = sum(r[0].batch_size for r in records)
+    reached = sorted({(r[0].max_nodes, r[0].batch_size) for r in records})
+    log(f"[data-plane] train_bucketed {BUCKETED_STEPS} steps on the card ({wall:.2f} s incl. "
+        f"first-call set-up): buckets (max_nodes, batch) {[(r[0].max_nodes, r[0].batch_size) for r in records]} "
+        f"of {[(b.max_nodes, b.batch_size) for b in buckets]}; launches forward={tb_fwd} "
+        f"backward={tb_bwd} (expected {rounds} x {graphs} graphs); skipped="
+        f"{[r[3]['skipped'] for r in records]}")
+    if (len(records) != BUCKETED_STEPS or len(reached) < 2 or tb_fwd != rounds * graphs
+            or tb_bwd != rounds * graphs or any(r[3]["skipped"] for r in records)):
+        raise AssertionError("train_bucketed did not run both kernels once per round and graph "
+                             "over two buckets")
+    t0 = time.perf_counter()
+    cpu_step, m_err, p_err = make_step(cfg, buckets), 0.0, 0.0
+    for i, (bucket, batch, (params, optim, step_no, updates), card_m, card_p) in enumerate(records):
+        cpu = S.create_train_state(cfg, device="cpu")
+        cpu.model.load_state_dict(params)
+        cpu.optimizer.load_state_dict(optim)
+        cpu.step, cpu.updates = step_no, updates
+        cpu, m = cpu_step(cpu, bucket, batch)
+        m_err = max(m_err, _metrics_close([card_m], [{k: float(v) for k, v in m.items()}],
+                                          f"[data-plane] step {i}"))
+        p_err = max(p_err, _params_close(card_p, cpu.model.state_dict(), f"[data-plane] step {i}"))
+    log(f"[data-plane] CPU replay of each train_bucketed step from the card's state before it "
+        f"({time.perf_counter() - t0:.1f} s): metrics max abs err {m_err:.3e} (rtol={METRIC_RTOL}, "
+        f"atol={METRIC_ATOL}), params {p_err:.3e} (rtol={PARAM_RTOL}, atol={PARAM_ATOL})")
+
+    # 5. MultiprocessBatches (forked workers) feeding steps through device_prefetch.
+    FM.fused_message_pass.launches = 0
+    FM.fused_message_pass_backward.launches = 0
+    t0 = time.perf_counter()
+    with MultiprocessBatches(cfg, cfg.batch_size, num_workers=2, queue_size=4, seed=7) as loader:
+        st = train(cfg, device_prefetch(loader), state=st, starting_iter=st.step,
+                   max_iters=st.step + LOADER_STEPS,
+                   hooks=TrainHooks(log_period=1, val_period=10**9, print_fn=log))
+        torch.cuda.synchronize()
+        worker_cuda = loader.workers_initialised_cuda()
+    mp_fwd, mp_bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
+    want = rounds * cfg.batch_size * LOADER_STEPS
+    log(f"[data-plane] MultiprocessBatches (2 forked workers) -> device_prefetch -> train, "
+        f"{LOADER_STEPS} steps ({time.perf_counter() - t0:.2f} s): launches forward={mp_fwd} "
+        f"backward={mp_bwd} (expected {want}); CUDA initialised in the workers: {worker_cuda}")
+    if mp_fwd != want or mp_bwd != want or any(worker_cuda):
+        raise AssertionError("the loader's steps did not run, or a worker initialised CUDA")
+    return {"fwd": detect_launches + tb_fwd + mp_fwd, "bwd": tb_bwd + mp_bwd,
+            "detect": summary}
+
+
 def phase_bench(torch):
-    """Phase 15: the port bench, one short repeat per config."""
+    """Phase 16: the port bench, one short repeat per config."""
     from graph_neural_network_for_radar_perception_torch.scripts import bench as PB
 
     t0 = time.perf_counter()
@@ -1879,7 +2161,13 @@ def card() -> str:
 
 
 def main(argv) -> int:
+    import faulthandler
+
     import torch
+
+    # A hang anywhere prints every thread's stack and exits non-zero before
+    # the run's 1200 s limit.
+    faulthandler.dump_traceback_later(1140, exit=True)
 
     # Phases that run alone, and the libraries each needs.
     phases = {"kernel-timing": (time_forwards, "fused_mp", "csr_mp"),
@@ -1887,7 +2175,8 @@ def main(argv) -> int:
               "kernel-bwd-timing": (time_fused_bwd, "fused_mp"),
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
               "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp"),
-              "checkpoint": (phase_checkpoint, "fused_mp")}
+              "checkpoint": (phase_checkpoint, "fused_mp"),
+              "data-plane": (phase_data_plane, "fused_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -1918,20 +2207,30 @@ def main(argv) -> int:
         return 0
 
     t0 = time.perf_counter()
-    # One nvcc per source, all started together (each build is a process).
+
+    def timed_host_build():
+        start = time.perf_counter()
+        return _build.build_host("graph_builder"), time.perf_counter() - start
+
+    # One nvcc per source and the host compiler for the native graph
+    # builder, all started together (each build is a process).
     sources = ("fused_mp", "csr_mp", "microbench_gather")
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
         floor_lib = pool.submit(GA.build, "empty")
+        native = pool.submit(timed_host_build)
         libs = dict(zip(sources, pool.map(_build.build, sources)))
         floor_lib = floor_lib.result()
+        native_lib, native_s = native.result()
     FM._kernel(), FM._kernel(True), FM._bwd_kernel()
     C._kernel(), C._kernel(True), C._bwd_kernel()
     MB._kernels()
     log(f"[build] fused_mp (fused_mp_forward, fused_mp_forward_bf16, "
         f"fused_mp_backward), csr_mp (csr_mp_forward, csr_mp_forward_bf16, "
         f"csr_mp_backward), microbench_gather (gather_rows, scatter_add_rows), "
-        f"the gather's empty variant, in parallel: {time.perf_counter() - t0:.1f} s -> "
-        f"{', '.join(os.path.relpath(p, REPO) for p in [*libs.values(), floor_lib])}")
+        f"the gather's empty variant and the native graph builder "
+        f"({_build.host_compiler()}, {native_s:.1f} s of it), in parallel: "
+        f"{time.perf_counter() - t0:.1f} s -> "
+        f"{', '.join(os.path.relpath(p, REPO) for p in [*libs.values(), floor_lib, native_lib])}")
 
     fwd_row = phase_kernel(torch, FM)
     bwd_row = phase_kernel_bwd(torch, FM)
@@ -1946,11 +2245,13 @@ def main(argv) -> int:
     gather_row, scatter_row = phase_microbench(torch, floor_lib)
     bf16_launches = phase_train_bf16(torch, FM, C, f32_metrics)
     phase_checkpoint(torch, FM)
+    data_plane = phase_data_plane(torch, FM)
     phase_bench(torch)
-    fwd_row["launches"] = deploy_launches + train_fwd
-    fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd}
-    bwd_row["launches"] = train_bwd
-    bwd_row["launches_by_path"] = {"train": train_bwd}
+    fwd_row["launches"] = deploy_launches + train_fwd + data_plane["fwd"]
+    fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd,
+                                   "data-plane": data_plane["fwd"]}
+    bwd_row["launches"] = train_bwd + data_plane["bwd"]
+    bwd_row["launches_by_path"] = {"train": train_bwd, "data-plane": data_plane["bwd"]}
     csr_row["launches"] = csr_deploy + csr_train_fwd
     csr_row["launches_by_path"] = {"deploy-csr": csr_deploy, "train-csr": csr_train_fwd}
     csr_bwd_row["launches"] = csr_train_bwd

@@ -4,9 +4,13 @@ The same preprocessing recipe as the JAX package's ``data/pipeline.py``
 (the reference's ``RadarScenesDataset.__getitem__``,
 modules/data_generator/datagen_gnn.py:48-190), emitting fixed-capacity
 padded ``RadarGraph``/``GraphLabels`` structs of numpy arrays;
-``RadarGraph.from_numpy`` moves them to a device.  The graph is built by the
-numpy builder (``features.adjacency_info``), whose arrays are identical to
-those of the JAX package's native C++ builder.
+``RadarGraph.from_numpy`` moves them to a device.  As in the JAX package the
+graph comes from the native C++ builder (``data/native.py``) unless
+``use_native=False`` or ``cfg.union_ball``, which take the O(n²) numpy
+builder (``features.adjacency_info``).  Each equals its JAX twin bit for bit;
+the two builders agree on the graph and degree, and on the edge features
+only to rtol 1e-5 / atol 1e-6 (ROADMAP.md C4: they round differently in the
+last bit).
 """
 
 from __future__ import annotations
@@ -50,10 +54,14 @@ def preprocess_frame(
     cfg: GNNConfig,
     *,
     flip_along_x: bool = False,
+    use_native: bool = True,
 ) -> Optional[FrameArrays]:
     """data_dict (reference read_data.py:526-532 schema, already
     ego-compensated) → ragged FrameArrays, or None if <2 dynamic points
-    (datagen_gnn.py:104).  Mirrors datagen_gnn.py:82-141 step by step."""
+    (datagen_gnn.py:104).  Mirrors datagen_gnn.py:82-141 step by step.
+
+    The graph comes from the native builder (built on first use; a failed
+    build raises) unless ``use_native=False`` or ``cfg.union_ball``."""
     data = dict(data_dict)
     if flip_along_x:  # read_data.py:522-524
         data = dict(data)
@@ -68,17 +76,32 @@ def preprocess_frame(
     if data["meas_px"].shape[0] <= 1:
         return None
 
-    adj = F.adjacency_info(
-        data["meas_px"], data["meas_py"],
-        cfg.ball_query_eps_square, cfg.k_number_nearest_points,
-        union_ball=cfg.union_ball,
-    )
-    senders = adj["adj_list"][0].astype(np.int32)
-    receivers = adj["adj_list"][1].astype(np.int32)
-    rows, cols = np.nonzero(np.triu(adj["adj_matrix"], k=1))
-    und_s, und_r = rows.astype(np.int32), cols.astype(np.int32)
-    degree = adj["degree"]
-    edge_feat = F.edge_features_np(data, adj["adj_list"])
+    if use_native and not cfg.union_ball:
+        from . import native as NAT
+
+        nat = NAT.build_graph_native(
+            data["meas_px"], data["meas_py"],
+            data["meas_vx"], data["meas_vy"], data["meas_timestamp"],
+            k=cfg.k_number_nearest_points,
+            eps_sq=cfg.ball_query_eps_square,
+        )
+        senders = nat["senders"]
+        receivers = nat["receivers"]
+        und_s, und_r = nat["und_senders"], nat["und_receivers"]
+        degree = nat["degree"]
+        edge_feat = nat["edge_feat"]
+    else:
+        adj = F.adjacency_info(
+            data["meas_px"], data["meas_py"],
+            cfg.ball_query_eps_square, cfg.k_number_nearest_points,
+            union_ball=cfg.union_ball,
+        )
+        senders = adj["adj_list"][0].astype(np.int32)
+        receivers = adj["adj_list"][1].astype(np.int32)
+        rows, cols = np.nonzero(np.triu(adj["adj_matrix"], k=1))
+        und_s, und_r = rows.astype(np.int32), cols.astype(np.int32)
+        degree = adj["degree"]
+        edge_feat = F.edge_features_np(data, adj["adj_list"])
 
     node_feat = F.node_features_np(
         data, degree,

@@ -12,7 +12,8 @@
   unpacked batch of 2;
 * ``deploy`` (``bench.py:299-369``): one frame through
   ``RadarGNN.deploy(eps=1.4)``, and ``FrameDetector.detect`` from the raw
-  frame (host preprocessing, copy, deploy forward, decode) p50/p99.
+  frame (host preprocessing with the native graph builder, as root
+  ``bench.py``'s detector, copy, deploy forward, decode) p50/p99.
 
 The shipped widths, with random weights from a seeded ``torch.Generator``;
 the batches are root ``bench.py``'s (``host_batch``: the same numpy arrays).

@@ -8,8 +8,9 @@ period and at the end (``utils/checkpoint.py``: params, optimiser and
 counters, so a restored run continues where it stopped), and the NaN skip
 inside the step.  Metrics
 are pulled to the host only at log boundaries.  ``train_chunked`` runs
-``make_train_scan`` over chunks of stacked batches.  ``train_bucketed``
-waits for the bucketed data plane (ROADMAP.md A3).
+``make_train_scan`` over chunks of stacked batches; ``train_bucketed`` runs
+``train`` over bucketed batches (``data/bucketing.py``) that
+``data/prefetch.device_prefetch`` moves to the device ahead of the steps.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from ..config.config import GNNConfig
-from ..core.graph import GraphBatch
+from ..core.graph import GraphBatch, resolve_device
 from ..data.pipeline import stack_batch
 from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics_writer import RunningMeans
@@ -169,3 +170,44 @@ def train_chunked(
     if hooks.checkpoint is not None and max_iters > starting_iter:
         hooks.checkpoint.save(max_iters, state, wait=True)
     return state
+
+
+def train_bucketed(
+    cfg: GNNConfig,
+    frames,
+    *,
+    buckets=None,
+    val_batches=None,
+    **train_kwargs,
+) -> TrainState:
+    """The training loop over BUCKETED static-shape batches.
+
+    Frames are routed to the smallest capacity bucket that fits
+    (data/bucketing.py), so padded work tracks the real frame-size
+    distribution instead of the global maximum; one train step per bucket
+    shares the single TrainState.  `frames` is an iterator of FrameArrays
+    (e.g. SyntheticRadarDataset.sample_frame in a loop); the batches reach
+    the device through ``device_prefetch`` (two ahead of the step, on the
+    card through pinned memory and a copy stream), on the device of
+    ``train_kwargs["state"]`` if given, else of ``device`` (the card by
+    default).  Remaining kwargs forward to :func:`train`.  The JAX
+    signature's ``donate`` has no meaning in PyTorch and is not taken."""
+    from ..data.bucketing import (
+        bucketed_batches, default_buckets, make_bucketed_train_step,
+    )
+    from ..data.prefetch import device_prefetch
+
+    buckets = list(buckets or default_buckets(cfg))
+    bstep = make_bucketed_train_step(cfg, buckets)
+
+    def step(state, item):
+        bucket, batch = item
+        return bstep(state, bucket, batch)
+
+    state = train_kwargs.get("state")
+    device = (state.device if state is not None
+              else resolve_device(train_kwargs.get("device", "cuda")))
+    stream = device_prefetch(bucketed_batches(frames, cfg, buckets), device=device)
+    return train(
+        cfg, stream, val_batches, train_step=step, **train_kwargs
+    )

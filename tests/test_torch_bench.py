@@ -7,9 +7,9 @@ CPU dry run prints the JSON keys; without a card the bench refuses.
 Root ``bench.py``'s configs are read by running its ``bench_*`` functions
 up to the point where each builds its batch (``_host_batch``, or the
 dataset for ``deploy``), where a stub records the arguments and stops it.
-The JAX batches are built with the JAX package's numpy graph builder, as
-the port's are (its native builder differs in the last bit of some edge
-features: ROADMAP.md C4)."""
+Both packages' batches are built once with their numpy graph builders
+and once with their default native ones (the two builders differ in the
+last bit of some edge features: ROADMAP.md C4)."""
 
 import dataclasses
 import functools
@@ -21,8 +21,10 @@ import torch
 
 import bench as ROOT
 from graph_neural_network_for_radar_perception_torch.config import config as PC
+from graph_neural_network_for_radar_perception_torch.data import pipeline as TP
 from graph_neural_network_for_radar_perception_torch.scripts import bench as B
 from graph_neural_network_for_radar_perception_tpu.data import pipeline as JP
+from torch_port_fixtures import jax_native  # noqa: F401  (fixture)
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -78,12 +80,24 @@ def _assert_same_arrays(got, want, what):
 
 @pytest.fixture
 def numpy_builder(monkeypatch):
-    monkeypatch.setattr(JP, "preprocess_frame",
-                        functools.partial(JP.preprocess_frame, use_native=False))
+    for module in (JP, TP):
+        monkeypatch.setattr(module, "preprocess_frame",
+                            functools.partial(module.preprocess_frame, use_native=False))
 
 
 @pytest.mark.parametrize("name", list(ROOT_BATCHES))
 def test_host_batch_equals_root_bench(numpy_builder, name):
+    args, kwargs = ROOT_BATCHES[name]
+    cfg = PORT_CONFIGS[name]()
+    got = B.host_batch(cfg, *args, **kwargs)
+    want = ROOT._host_batch(_jax_config(cfg), *args, **kwargs)
+    _assert_same_arrays(got.graph, want.graph, "graph")
+    _assert_same_arrays(got.labels, want.labels, "labels")
+
+
+@pytest.mark.parametrize("name", list(ROOT_BATCHES))
+def test_host_batch_equals_root_bench_native(jax_native, name):
+    """The same through both packages' default native builders."""
     args, kwargs = ROOT_BATCHES[name]
     cfg = PORT_CONFIGS[name]()
     got = B.host_batch(cfg, *args, **kwargs)
@@ -99,6 +113,14 @@ def _jax_config(cfg):
 
 
 def test_deploy_graph_equals_root_bench(numpy_builder):
+    cfg = B.deploy_config()
+    jcfg = _jax_config(cfg)
+    want, _ = JP.pad_frame(JP.SyntheticRadarDataset(jcfg, seed=2, num_objects=8).sample_frame(),
+                           jcfg)
+    _assert_same_arrays(B.deploy_graph(cfg), want, "graph")
+
+
+def test_deploy_graph_equals_root_bench_native(jax_native):
     cfg = B.deploy_config()
     jcfg = _jax_config(cfg)
     want, _ = JP.pad_frame(JP.SyntheticRadarDataset(jcfg, seed=2, num_objects=8).sample_frame(),

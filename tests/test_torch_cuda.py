@@ -596,3 +596,92 @@ def test_microbench_runs(cuda_device):
     for key in ("gather", "scatter"):
         r = res[key]
         assert 0 < r["bound_ms"] <= r["ms"] <= r["launch_ms"], (key, r)
+
+
+# ------------------------------------------------------------ the data plane
+def test_device_prefetch_on_card_is_bitwise_while_the_card_is_busy(cuda_device):
+    """Batches of ~12 MB each, copied on the prefetch's copy stream while
+    the default stream runs long matmuls queued before each batch is taken:
+    every batch arrives bitwise equal to its host arrays, read on the
+    default stream right away and again after all batches (no buffer
+    reused while a batch is alive)."""
+    from graph_neural_network_for_radar_perception_torch.data.prefetch import (
+        device_prefetch,
+    )
+
+    rng = np.random.default_rng(0)
+    host = [{"a": rng.normal(size=(1024, 1024)).astype(np.float32),
+             "b": rng.integers(0, 2**31 - 1, size=(2, 1024, 1024), dtype=np.int32),
+             "m": rng.random(4096) < 0.5} for _ in range(8)]
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    kept = []
+    for i, batch in enumerate(device_prefetch(iter(host), buffer_size=3)):
+        for _ in range(4):  # default-stream work queued before reading the batch
+            busy = torch.tanh(busy @ busy * 1e-3)
+        for k, t in batch.items():
+            assert t.device.type == "cuda"
+            np.testing.assert_array_equal(t.cpu().numpy(), host[i][k], err_msg=f"{i}.{k}")
+        kept.append(batch)
+    torch.cuda.synchronize()
+    assert len(kept) == 8
+    for i, batch in enumerate(kept):
+        for k, t in batch.items():
+            np.testing.assert_array_equal(t.cpu().numpy(), host[i][k], err_msg=f"{i}.{k}")
+
+
+def test_graph_build_on_card_equals_cpu(cuda_device):
+    """ops/graph_build on the card against its CPU run, with exact distance
+    ties: structure bitwise, features within rtol 1e-6 / atol 1e-6."""
+    from graph_neural_network_for_radar_perception_torch.ops import graph_build as GB
+
+    rng = np.random.default_rng(4)
+    n_cap = 768
+    pts = rng.uniform(0, 60, (n_cap, 2)).astype(np.float32)
+    pts[100:110] = pts[99]  # ten copies of one point
+    pts[200] = pts[201] + np.float32([1.0, 0.0])
+    pts[202] = pts[201] - np.float32([1.0, 0.0])
+    for n_valid, union_ball in ((700, False), (700, True), (9, False)):
+        mask = np.arange(n_cap) < n_valid
+        kw = dict(k=10, eps_sq=2.0, edge_capacity=15360, und_capacity=7680,
+                  union_ball=union_ball)
+        got = GB.build_graph_structure(torch.from_numpy(pts).to(cuda_device),
+                                       torch.from_numpy(mask).to(cuda_device), **kw)
+        want = GB.build_graph_structure(torch.from_numpy(pts), torch.from_numpy(mask), **kw)
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g.cpu(), w), (n_valid, union_ball, name)
+        cols = [torch.from_numpy(rng.normal(size=n_cap).astype(np.float32)) for _ in range(3)]
+        args = [torch.from_numpy(pts[:, 0]), torch.from_numpy(pts[:, 1]), *cols]
+        ef_cpu = GB.compute_edge_features_device(*args, want.senders, want.receivers,
+                                                 want.edge_mask)
+        ef_gpu = GB.compute_edge_features_device(*[a.to(cuda_device) for a in args],
+                                                 got.senders, got.receivers, got.edge_mask)
+        torch.testing.assert_close(ef_gpu.cpu(), ef_cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_native_library_builds_from_a_clean_dir(cuda_device, monkeypatch, tmp_path):
+    """The host compiler of the card's machine builds csrc/graph_builder.cpp
+    into an empty build directory; the library loads and agrees with the
+    numpy builder (graph equal, features at rtol 1e-5 / atol 1e-6)."""
+    from graph_neural_network_for_radar_perception_torch.data import features as TF
+    from graph_neural_network_for_radar_perception_torch.data import native as TN
+    from graph_neural_network_for_radar_perception_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    TN._lib.cache_clear()
+    try:
+        assert TN.available() and len(list(tmp_path.glob("*.so"))) == 1
+        rng = np.random.default_rng(0)
+        px, py = (rng.uniform(0, 80, 300).astype(np.float32) for _ in range(2))
+        vx, vy = (rng.normal(size=300).astype(np.float32) for _ in range(2))
+        ts = rng.uniform(0, 6e5, 300)
+        out = TN.build_graph_native(px, py, vx, vy, ts, k=10, eps_sq=25.0)
+        ref = TF.adjacency_info(px, py, 25.0, 10)
+        np.testing.assert_array_equal(out["senders"], ref["adj_list"][0])
+        np.testing.assert_array_equal(out["receivers"], ref["adj_list"][1])
+        np.testing.assert_array_equal(out["degree"], ref["degree"])
+        data = {"meas_px": px, "meas_py": py, "meas_vx": vx, "meas_vy": vy,
+                "meas_timestamp": ts}
+        np.testing.assert_allclose(out["edge_feat"], TF.edge_features_np(data, ref["adj_list"]),
+                                   rtol=1e-5, atol=1e-6)
+    finally:
+        TN._lib.cache_clear()

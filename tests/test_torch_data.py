@@ -23,6 +23,7 @@ from graph_neural_network_for_radar_perception_tpu.data.radarscenes import (
 from graph_neural_network_for_radar_perception_tpu.data.synthetic import (
     make_synthetic_frame,
 )
+from torch_port_fixtures import jax_native  # noqa: F401  (fixture)
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -41,20 +42,25 @@ def _assert_struct_equal(a, b, float_tol=None):
 
 
 def _assert_same_frame(data, tcfg, jcfg, flip=False):
-    """The port's numpy builder against the JAX package's numpy builder
-    (bit-identical) and its default native C++ builder, whose float
-    features the JAX package itself holds to its numpy path only at
-    rtol 1e-5 / atol 1e-6 (tests/test_native.py): they differ in the last
-    bit."""
-    got = TP.preprocess_frame(data, tcfg, flip_along_x=flip)
+    """The port's numpy builder against the JAX package's numpy builder and
+    the port's default native C++ builder against the JAX package's
+    (bit-identical each), and the numpy builder against the native one,
+    whose float features the JAX package itself holds to its numpy path
+    only at rtol 1e-5 / atol 1e-6 (tests/test_native.py): they differ in
+    the last bit."""
+    got = TP.preprocess_frame(data, tcfg, flip_along_x=flip, use_native=False)
     want = JP.preprocess_frame(data, jcfg, flip_along_x=flip, use_native=False)
+    got_native = TP.preprocess_frame(data, tcfg, flip_along_x=flip)
     native = JP.preprocess_frame(data, jcfg, flip_along_x=flip)
-    assert (got is None) == (want is None) == (native is None)
+    assert (got is None) == (want is None) == (native is None) == (got_native is None)
     if got is None:
         return False
     _assert_struct_equal(got, want)
+    _assert_struct_equal(got_native, native)
     _assert_struct_equal(got, native, float_tol=(1e-5, 1e-6))
     for g, w in zip(TP.pad_frame(got, tcfg), JP.pad_frame(want, jcfg)):
+        _assert_struct_equal(g, w)
+    for g, w in zip(TP.pad_frame(got_native, tcfg), JP.pad_frame(native, jcfg)):
         _assert_struct_equal(g, w)
     for g, w in zip(TP.pad_frame(got, tcfg), JP.pad_frame(native, jcfg)):
         _assert_struct_equal(g, w, float_tol=(1e-5, 1e-6))
@@ -78,7 +84,7 @@ def test_config_is_a_copy(make):
     {"spatial_sort": True},
     {"union_ball": True},
 ])
-def test_synthetic_frames_bit_identical(overrides):
+def test_synthetic_frames_bit_identical(jax_native, overrides):
     tcfg, jcfg = TC.GNNConfig(**overrides), JC.GNNConfig(**overrides)
     rng = np.random.default_rng(7)
     for i in range(3):
@@ -86,7 +92,7 @@ def test_synthetic_frames_bit_identical(overrides):
         assert _assert_same_frame(data, tcfg, jcfg, flip=bool(i % 2))
 
 
-def test_fixture_windows_bit_identical(tmp_path):
+def test_fixture_windows_bit_identical(jax_native, tmp_path):
     make_mini_radarscenes(str(tmp_path), seed=777, n_scenes=12, n_objects=4,
                           seq_name="sequence_9", category="validation")
     cache = SequenceCache(str(tmp_path), "data", max_sequences=1)
@@ -189,12 +195,22 @@ def test_merge_and_pack_frames_bit_identical():
 
 
 def test_packed_batches_bit_identical(monkeypatch):
-    """The JAX dataset with its numpy graph builder (its default native
-    builder differs in the last bit; see _assert_same_frame)."""
+    """Both datasets with their numpy graph builders (the native builder
+    differs in the last bit; see _assert_same_frame)."""
     import functools
 
-    monkeypatch.setattr(JP, "preprocess_frame",
-                        functools.partial(JP.preprocess_frame, use_native=False))
+    for module in (JP, TP):
+        monkeypatch.setattr(module, "preprocess_frame",
+                            functools.partial(module.preprocess_frame, use_native=False))
+    _assert_same_packed_batches()
+
+
+def test_packed_batches_bit_identical_native(jax_native):
+    """Both datasets with their default native graph builders."""
+    _assert_same_packed_batches()
+
+
+def _assert_same_packed_batches():
     cfg, jcfg = TC.tiny_test_config(), JC.tiny_test_config()
     got = TP.SyntheticRadarDataset(cfg, seed=17, num_objects=(1, 3)).packed_batches(2)
     want = JP.SyntheticRadarDataset(jcfg, seed=17, num_objects=(1, 3)).packed_batches(2)

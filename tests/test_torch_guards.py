@@ -82,6 +82,21 @@ def test_import_scan_covers_the_bf16_and_microbenchmark_slice():
     assert (PORT / "csrc" / "microbench_gather.cu").exists()
 
 
+def test_import_scan_covers_the_data_plane_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"data/native.py", "data/se2.py", "data/selection.py",
+            "data/radarscenes.py", "data/bucketing.py", "data/prefetch.py",
+            "data/mp_loader.py", "ops/graph_build.py", "utils/export.py",
+            "utils/torch_import.py"} <= names
+    assert (PORT / "csrc" / "graph_builder.cpp").exists()
+
+
+def test_port_loads_no_library_of_the_jax_package():
+    """The native builder is the port's own build of its own source."""
+    text = (PORT / "data" / "native.py").read_text()
+    assert "libradar_native" not in text and "build_host(\"graph_builder\")" in text
+
+
 @pytest.mark.parametrize("module, entry, args", [
     (FM, "_kernel", (True,)), (CM, "_kernel", (True,)), (MB, "_kernels", ()),
     (FM, "_bwd_scratch", ()),
@@ -149,12 +164,18 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_training_refuses_cuda_without_a_card(monkeypatch):
+    from graph_neural_network_for_radar_perception_torch.train.trainer import (
+        train_bucketed,
+    )
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         S.create_train_state(cfg)  # default device: the card
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(cfg, iter([]), max_iters=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_bucketed(cfg, iter([]), buckets=[], max_iters=1)
     assert S.create_train_state(cfg, device="cpu").step == 0
 
 

@@ -13,3 +13,22 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def jax_native():
+    """The JAX package's native library, required (tests comparing with the
+    JAX package's native builder).  Its build runs at import under a lock
+    that holds within one process only, and writes the library in place, so
+    a test process that loaded it while another process was still writing
+    it has it disabled for good (ROADMAP.md C5).  That module is reloaded
+    once, which tries the load again; then the library must be there: the
+    JAX package would otherwise fall back to numpy without a word."""
+    import importlib
+
+    from graph_neural_network_for_radar_perception_tpu.data import native as JNAT
+
+    if not JNAT.available():
+        JNAT = importlib.reload(JNAT)
+    assert JNAT.available(), "the JAX package's native library did not load"
+    return JNAT
