@@ -86,7 +86,33 @@ Phases, each reported on its own line:
 16. [bench] the port bench (``scripts/bench.run``: root ``bench.py``'s
     train_b8 in four rows, stress_dense, deploy and ``FrameDetector.detect``)
     with one short repeat per config;
-17. print the kernel table as JSON and the card's name and power limit.
+17. [eval] the committed fixture-trained weights, read without JAX
+    (``utils/checkpoint.load_params_msgpack``), at the artifact's capacities
+    (max_nodes 256, max_clusters 128, window 5): ``eval/drivers``'
+    ``segmentation_confusion`` and ``evaluate_detection_from_data``
+    (threshold 1, eps 0.7) over 16 seeded synthetic windows on the card
+    against the same calls on the CPU (confusion matrices equal unless a
+    frame's decisions differ within the [deploy] rule), the forward kernel
+    counted, precision/recall and ms per frame;
+18. [variants] ``RadarGNNv1.deploy`` at ``GNNConfig()`` full width through
+    the fused round and through the CSR round, and ``RadarGNNv2.deploy``
+    (GATv2 neck, hidden 512 over 8 heads, plain PyTorch), seeded weights
+    carried to a CPU copy, on 4 [deploy] frames: decisions under the
+    [deploy] rule, logits within its tolerance, launches and ms per frame;
+19. [finetune] ``train/finetune.make_finetune_step(GNNConfig())`` at batch 8
+    for 3 steps: the frozen detector's deploy forward on every graph (the
+    forward kernel, never the backward), everything outside predict_class
+    bitwise unchanged, each step replayed on the CPU from the card's state
+    before it with the card's DBSCAN partitions (themselves held to the
+    CPU's under the [deploy] rule);
+20. [classifier] ``models/classifier`` at ``ClassifierConfig()`` (512 points,
+    64 objects, 8192 edges) and batch 8: 3 SGD steps, each replayed on the
+    CPU;
+21. [cnn] ``models/cnn.GridDetector(CNNConfig())`` on the default
+    ``GridSpec`` (200 × 200 cells), batch 2, TF32 off: grid samples built
+    on the card against the CPU's, 2 SGD steps (ms per step), the first
+    replayed on the CPU;
+22. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -99,10 +125,12 @@ nothing of JAX.
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
     python3 chip_smoke.py --phase checkpoint
     python3 chip_smoke.py --phase data-plane
+    python3 chip_smoke.py --phase eval        # also variants, finetune,
+    python3 chip_smoke.py --phase cnn         # classifier
 
 build the libraries a phase needs and run phase 3 (the fused backward),
-phase 5 (the CSR backward), phase 14 (the checkpoint) or phase 15 (the data
-plane) alone, or only a
+phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
+plane) or one of phases 17-21 alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -150,6 +178,19 @@ TRAIN_STEPS = 3        # steps through trainer.train, replayed on the CPU
 BUCKETED_STEPS = 3     # [data-plane]: steps of trainer.train_bucketed, replayed on the CPU
 LOADER_STEPS = 2       # [data-plane]: steps fed by MultiprocessBatches
 DETECT_REPS = 4        # [data-plane]: detect timings per frame and graph builder, in turns
+EVAL_FRAMES = 16       # [eval]: synthetic windows through both eval drivers
+EVAL_WINDOW = 5        # [eval]: the fixture artifact's temporal window
+VARIANT_FRAMES = 4     # [variants]: the first [deploy] frames
+FINETUNE_STEPS = 3     # [finetune]: steps at batch 8, replayed on the CPU
+CLASSIFIER_STEPS = 3   # [classifier]: steps, replayed on the CPU
+CLASSIFIER_BATCH = 8
+CNN_STEPS = 2          # [cnn]: steps; the first replayed on the CPU
+CNN_BATCH = 2
+CNN_MAX_MEAS = 1024    # preprocess_frame_hybrid's default capacity
+# [eval]: eigenvectors are compared one by one only where the eigenvalues
+# are apart by more than this share of the larger: closer, f32 rounding may
+# turn them by more than the deploy tolerance.
+EIGEN_GAP = 1e-2
 # The native and numpy graph builders round some edge features differently
 # in the last bit (ROADMAP.md C4; tests/test_native.py's tolerance).
 BUILDER_RTOL, BUILDER_ATOL = 1e-5, 1e-6
@@ -957,6 +998,26 @@ def _ties(logits: np.ndarray) -> np.ndarray:
     return top2[:, 1] - top2[:, 0] <= DEPLOY_ATOL + DEPLOY_RTOL * np.abs(top2[:, 1])
 
 
+def check_partition(gpu_ids, cpu_ids, centers, eps: float) -> dict:
+    """Two DBSCAN partitions of the same nodes (ids aside): equal, or, where
+    some pair of ``centers`` has d² within 1e-4 of eps, both between the
+    components of the graph without those pairs and of the graph with
+    them; raises otherwise."""
+    c = np.asarray(centers, np.float64)
+    d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    off_diag = ~np.eye(c.shape[0], dtype=bool)
+    border = (np.abs(d2 - eps) <= 1e-4) & off_diag
+    same = _same_partition(gpu_ids, cpu_ids)
+    if not same:
+        strict = _components((d2 <= eps) & off_diag & ~border)
+        loose = _components(((d2 <= eps) & off_diag) | border)
+        for name, part in (("gpu", gpu_ids), ("cpu", cpu_ids)):
+            if not (_coarser_or_equal(strict, part) and _coarser_or_equal(part, loose)):
+                raise AssertionError(
+                    f"{name} DBSCAN partition differs beyond borderline pairs")
+    return {"borderline_pairs": int(border.sum() // 2), "partition_equal": bool(same)}
+
+
 def compare_decisions(gpu, cpu, node_logits, obj_logits, eps: float) -> dict:
     """Decisions of the card's detector against the CPU's on one frame.
 
@@ -972,20 +1033,8 @@ def compare_decisions(gpu, cpu, node_logits, obj_logits, eps: float) -> dict:
     if not tied[diff].all():
         raise AssertionError(f"node classes differ at {diff[~tied[diff]][:10].tolist()}")
 
-    c = cpu.centers.astype(np.float64)
-    d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
-    off_diag = ~np.eye(c.shape[0], dtype=bool)
-    border = (np.abs(d2 - eps) <= 1e-4) & off_diag
-    report["borderline_pairs"] = int(border.sum() // 2)
-    same = _same_partition(gpu.node2cluster, cpu.node2cluster)
-    report["partition_equal"] = bool(same)
-    if not same:
-        strict = _components((d2 <= eps) & off_diag & ~border)
-        loose = _components(((d2 <= eps) & off_diag) | border)
-        for name, part in (("gpu", gpu.node2cluster), ("cpu", cpu.node2cluster)):
-            if not (_coarser_or_equal(strict, part) and _coarser_or_equal(part, loose)):
-                raise AssertionError(
-                    f"{name} DBSCAN partition differs beyond borderline pairs")
+    report.update(check_partition(gpu.node2cluster, cpu.node2cluster, cpu.centers, eps))
+    if not report["partition_equal"]:
         return report
     # Same partition: cluster ids follow the same scan order on both.
     k = cpu.num_clusters
@@ -2152,6 +2201,510 @@ def phase_bench(torch):
     return res
 
 
+def _deploy_decisions(out, n: int):
+    """A deploy forward's decisions on the first n nodes, in the fields
+    ``compare_decisions`` reads (those of FrameDetections)."""
+    import types
+
+    k = int(out.num_clusters)
+    return types.SimpleNamespace(
+        node_class=out.node_cls[:n].argmax(-1).cpu().numpy(),
+        node2cluster=out.node2cluster[:n].cpu().numpy(),
+        centers=out.centers[:n].cpu().numpy(), num_clusters=k,
+        cluster_class=out.obj_cls.argmax(-1).cpu().numpy())
+
+
+def _outputs_close(a, b, rows: dict, what: str, worst: dict) -> None:
+    """Deploy outputs ``a`` (card) against ``b`` (CPU) on the given rows of
+    each field, within DEPLOY_RTOL/ATOL; the largest errors go to ``worst``."""
+    for field, sel in rows.items():
+        x = getattr(a, field).detach().cpu().numpy()[sel]
+        y = getattr(b, field).detach().cpu().numpy()[sel]
+        if x.shape != y.shape or not np.isfinite(x).all():
+            raise AssertionError(f"{what}: {field} malformed")
+        err = np.abs(x - y)
+        worst[field] = max(worst.get(field, 0.0), float(err.max(initial=0.0)))
+        if (err > DEPLOY_ATOL + DEPLOY_RTOL * np.abs(y)).any():
+            raise AssertionError(f"{what}: {field} card vs CPU beyond tolerance")
+
+
+def eval_windows(count: int) -> list:
+    """The [eval] phase's raw windows: seed 21, 2-6 objects, window 5."""
+    from graph_neural_network_for_radar_perception_torch.data.synthetic import make_synthetic_frame
+
+    rng = np.random.default_rng(21)
+    return [make_synthetic_frame(rng, num_objects=int(rng.integers(2, 7)),
+                                 window_size=EVAL_WINDOW) for _ in range(count)]
+
+
+def phase_eval(torch, FM):
+    """Phase 17: evaluation of the committed fixture-trained weights, read
+    without JAX (``utils/checkpoint.load_params_msgpack``), at the artifact's
+    capacities: ``segmentation_confusion`` and ``evaluate_detection_from_data``
+    (threshold 1, eps 0.7) on the card over seeded synthetic windows, against
+    the same calls through the port on the CPU: confusion matrices equal,
+    unless a frame's decisions differ within the [deploy] rule (tied logits,
+    borderline DBSCAN pairs)."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
+    from graph_neural_network_for_radar_perception_torch.data.groundtruth import (
+        compute_ground_truth_node)
+    from graph_neural_network_for_radar_perception_torch.data.labels import ID_NONE
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import pad_frame, preprocess_frame
+    from graph_neural_network_for_radar_perception_torch.eval import drivers as D
+    from graph_neural_network_for_radar_perception_torch.eval import metrics as M
+    from graph_neural_network_for_radar_perception_torch.infer.pipeline import FrameDetector
+    from graph_neural_network_for_radar_perception_torch.utils.checkpoint import load_params_msgpack
+    from graph_neural_network_for_radar_perception_torch.utils.convert import state_dict_from_flax
+
+    artifact = os.path.join(REPO, "runs", "fixture_artifact")
+    with open(os.path.join(artifact, "config.json")) as f:
+        saved = json.load(f)
+    cfg = GNNConfig(max_nodes=int(saved["max_nodes"]), max_clusters=int(saved["max_clusters"]),
+                    temporal_window_size=int(saved["temporal_window_size"]))
+    t0 = time.perf_counter()
+    params = load_params_msgpack(os.path.join(artifact, "weights.msgpack"))
+    state = state_dict_from_flax(params)
+    log(f"[eval] runs/fixture_artifact/weights.msgpack read without JAX: {len(state)} tensors "
+        f"in {(time.perf_counter() - t0) * 1e3:.1f} ms; caps max_nodes {cfg.max_nodes}, "
+        f"max_clusters {cfg.max_clusters}, window {cfg.temporal_window_size}")
+    det = {dev: FrameDetector(cfg, state, eps=1.4, use_object_head=True, device=dev)
+           for dev in ("cuda", "cpu")}
+    windows = eval_windows(EVAL_FRAMES)
+    frames = [fr for fr in (preprocess_frame(d, cfg) for d in windows) if fr is not None]
+    det["cuda"].detect_frame_arrays(frames[0])  # warm-up
+    torch.cuda.synchronize()
+
+    FM.fused_message_pass.launches = 0
+    t0 = time.perf_counter()
+    seg = {"cuda": D.segmentation_confusion(det["cuda"], frames)}
+    torch.cuda.synchronize()
+    seg_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    dets = {"cuda": D.evaluate_detection_from_data(det["cuda"], windows,
+                                                   cluster_size_threshold=1, eps=0.7)}
+    torch.cuda.synchronize()
+    det_ms = (time.perf_counter() - t0) * 1e3 / len(windows)
+    launches = FM.fused_message_pass.launches
+    seg["cpu"] = D.segmentation_confusion(det["cpu"], frames)
+    dets["cpu"] = D.evaluate_detection_from_data(det["cpu"], windows, cluster_size_threshold=1,
+                                                 eps=0.7)
+
+    # The frames both drivers ran, and each one's decisions card vs CPU.
+    filtered = []
+    for data in windows:
+        keep = compute_ground_truth_node(data)["class_labels"] != ID_NONE
+        fr = preprocess_frame({k: v[keep] for k, v in data.items()}, cfg)
+        if fr is not None:
+            filtered.append(fr)
+    rounds = len(cfg.graph_convolution_stem_channels)
+    want = rounds * (len(frames) + len(filtered))
+    log(f"[eval] {len(frames)} segmentation frames, {len(filtered)} detection frames "
+        f"(NONE dropped) of {len(windows)} windows; fused_message_pass launches={launches} "
+        f"(expected {want}); ms/frame on the card: segmentation_confusion {seg_ms:.3f}, "
+        f"evaluate_detection_from_data {det_ms:.3f} (host preprocess + deploy + decode "
+        f"+ association) on {card()}")
+    if launches != want:
+        raise AssertionError("the eval drivers did not run the fused kernel once per round")
+    exact = True
+    for i, fr in enumerate(frames + filtered):
+        graph_np, _ = pad_frame(fr, cfg)
+        with torch.no_grad():
+            out = {dev: det[dev].model.deploy(RadarGraph.from_numpy(graph_np, dev), 1.4)
+                   for dev in ("cuda", "cpu")}
+        rep = compare_decisions(_deploy_decisions(out["cuda"], fr.n),
+                                _deploy_decisions(out["cpu"], fr.n),
+                                out["cpu"].node_cls.numpy()[: fr.n], out["cpu"].obj_cls.numpy(),
+                                1.4)
+        exact &= (rep["node_class_diffs"] == 0 and rep["partition_equal"]
+                  and rep.get("object_class_diffs", 1) == 0)
+    agree = {name: (acc["cuda"].to_json_dict() == acc["cpu"].to_json_dict())
+             for name, acc in (("segmentation", seg), ("detection", dets))}
+    log(f"[eval] card vs CPU confusion matrices equal: {json.dumps(agree)}; per-frame decisions "
+        f"{'all equal' if exact else 'within the [deploy] rule (ties or borderline pairs)'}")
+    if exact and not all(agree.values()):
+        raise AssertionError("equal decisions but different confusion matrices")
+    eig = check_eigen_helpers(torch, frames)
+    log(f"[eval] rotation_invariant_cluster_features and cov_ellipse on the card against the "
+        f"CPU over the frames' GT clusters, up to the eigenvector signs: {json.dumps(eig)} "
+        f"(rtol={DEPLOY_RTOL}, atol={DEPLOY_ATOL})")
+    summary = {}
+    for name, acc in (("segmentation", seg["cuda"]), ("detection", dets["cuda"])):
+        pr = M.precision_recall(acc.cm)
+        summary[name] = {"count": int(acc.cm.sum()), "confusion": acc.cm.tolist(),
+                         "precision": np.round(pr["precision"], 4).tolist(),
+                         "recall": np.round(pr["recall"], 4).tolist()}
+        log(f"[eval] {name} on the card (classes {pr['classes'].tolist()}, NONE dropped): "
+            f"precision {summary[name]['precision']}, recall {summary[name]['recall']}")
+    return {"fwd": launches, "seg_ms": seg_ms, "det_ms": det_ms, "equal": agree,
+            "eigen": eig, **summary}
+
+
+def check_eigen_helpers(torch, frames) -> dict:
+    """``infer/proposals``' eigenvector helpers on the card (cuSOLVER's eigh)
+    against the CPU's (LAPACK) over the GT clusters of ``frames``: r equal
+    and every ellipse point on the CPU's ellipse (Mahalanobis radius² χ²);
+    where the eigenvalues are apart by more than EIGEN_GAP of the larger
+    (the eigenvectors well conditioned), also x' and y' equal up to one sign
+    per eigenvector column and the ellipse the CPU formula with those signs.
+    Neither package fixes the signs (ROADMAP.md C7).  Returns the counts of
+    clusters, compared columns and flipped ones."""
+    from graph_neural_network_for_radar_perception_torch.infer import proposals as P
+
+    def close(a, b):
+        err = np.abs(a - b)
+        if (err > DEPLOY_ATOL + DEPLOY_RTOL * np.abs(b)).any():
+            raise AssertionError("[eval] eigenvector helpers: card vs CPU beyond tolerance")
+        return float(err.max())
+
+    def well_conditioned(evals):
+        return evals[1] - evals[0] > EIGEN_GAP * abs(evals[1])
+
+    n = cols = flips = 0
+    worst = 0.0
+    for fr in frames:
+        for c in range(fr.cluster_class.shape[0]):
+            idx = np.flatnonzero(fr.node2cluster == c)[:64]
+            if idx.size < 2:
+                continue
+            n += 1
+            xy = np.zeros((64, 2), np.float32)
+            xy[: idx.size] = fr.other_feat[idx, :2]
+            mask = np.arange(64) < idx.size
+            got, want = (P.rotation_invariant_cluster_features(
+                torch.from_numpy(xy).to(dev), torch.from_numpy(mask).to(dev)).cpu().numpy()
+                for dev in ("cuda", "cpu"))
+            worst = max(worst, close(got[:, 2], want[:, 2]))
+            if well_conditioned(np.linalg.eigvalsh(np.cov(xy[mask].T))):
+                signs = np.where((got[:, :2] * want[:, :2]).sum(0) < 0, -1.0, 1.0)
+                cols, flips = cols + 2, flips + int((signs < 0).sum())
+                worst = max(worst, close(got[:, :2], want[:, :2] * signs))
+            mu = xy[mask].mean(0)
+            sigma = np.cov(xy[mask].T).astype(np.float32) + 0.5 * np.eye(2, dtype=np.float32)
+            ell = P.cov_ellipse(torch.from_numpy(mu).to("cuda"),
+                                torch.from_numpy(sigma).to("cuda")).cpu().numpy()
+            d = (ell - mu).astype(np.float64)
+            worst = max(worst, close(np.einsum("pi,ij,pj->p", d, np.linalg.inv(sigma), d),
+                                     np.full(d.shape[0], 9.21)))
+            evals, evecs = (a.numpy() for a in torch.linalg.eigh(torch.from_numpy(sigma)))
+            if well_conditioned(evals):
+                card_evecs = torch.linalg.eigh(torch.from_numpy(sigma).to("cuda"))[1].cpu().numpy()
+                signs = np.where((card_evecs * evecs).sum(0) < 0, -1.0, 1.0)
+                cols, flips = cols + 2, flips + int((signs < 0).sum())
+                t = np.linspace(0.0, 2.0 * np.pi, ell.shape[0])
+                circle = np.stack([np.cos(t), np.sin(t)], -1) * np.sqrt(evals * 9.21) * signs
+                worst = max(worst, close(ell, mu + circle @ evecs.T))
+    return {"clusters": n, "columns": cols, "sign_flips": flips, "max_abs_err": worst}
+
+
+def phase_variants(torch, FM):
+    """Phase 18: the variant models' deploy at GNNConfig() full width with
+    seeded weights carried to a CPU copy: RadarGNNv1 (fused node head) with
+    the fused round and with the CSR round, RadarGNNv2 (GATv2 neck: hidden
+    512 over 8 heads, plain PyTorch) on the [deploy] frames; decisions under
+    the [deploy] rule, logits within its tolerance."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import pad_frame, preprocess_frame
+    from graph_neural_network_for_radar_perception_torch.models.gat import RadarGNNv2
+    from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNNv1
+    from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+
+    runs = (("v1", RadarGNNv1, GNNConfig()), ("v1-csr", RadarGNNv1, GNNConfig(mp_impl="csr")),
+            ("v2", RadarGNNv2, GNNConfig()))
+    frames = [fr for fr in (preprocess_frame(d, runs[1][2]) for d in
+                            deploy_frames(GNNConfig(), VARIANT_FRAMES)) if fr is not None]
+    rounds = len(GNNConfig().graph_convolution_stem_channels)
+    result = {}
+    for name, cls, cfg in runs:
+        cpu = cls(cfg, generator=torch.Generator().manual_seed(0)).eval()
+        gpu = cls(cfg).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.to("cuda")
+        graphs = [pad_frame(fr, cfg)[0] for fr in frames]
+        with torch.no_grad():
+            gpu.deploy(RadarGraph.from_numpy(graphs[0], "cuda"))  # warm-up
+            torch.cuda.synchronize()
+            FM.fused_message_pass.launches = 0
+            C.fused_message_pass_csr.launches = 0
+            outs, ms = [], []
+            for g in graphs:
+                graph = RadarGraph.from_numpy(g, "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(gpu.deploy(graph))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {"fused_mp_forward": FM.fused_message_pass.launches,
+                        "csr_mp_forward": C.fused_message_pass_csr.launches}
+            worst, reports = {}, []
+            for i, (fr, g, out) in enumerate(zip(frames, graphs, outs)):
+                ref = cpu.deploy(RadarGraph.from_numpy(g, "cpu"))
+                k = int(ref.num_clusters)
+                _outputs_close(out, ref, {"node_cls": g.node_mask,
+                                                 "node_offsets": g.node_mask,
+                                                 "edge_cls": g.und_mask,
+                                                 "centers": g.node_mask},
+                               f"[variants] {name} frame {i}", worst)
+                rep = compare_decisions(_deploy_decisions(out, fr.n), _deploy_decisions(ref, fr.n),
+                                        ref.node_cls.numpy()[: fr.n], ref.obj_cls.numpy(), 1.4)
+                if rep["partition_equal"] and int(out.num_clusters) == k:
+                    _outputs_close(out, ref, {"obj_cls": slice(0, k)},
+                                   f"[variants] {name} frame {i}", worst)
+                reports.append(rep)
+        want = {"v1": (rounds * len(frames), 0), "v1-csr": (0, rounds * len(frames)),
+                "v2": (0, 0)}[name]
+        log(f"[variants] {name} ({cls.__name__}, mp_impl={cfg.mp_impl}) deploy on {len(frames)} "
+            f"frames: launches {json.dumps(launches)} (expected {list(want)}); ms/frame median "
+            f"{np.median(ms):.3f} (min {min(ms):.3f}, max {max(ms):.3f}); card vs CPU max abs "
+            f"err {json.dumps(worst)} (rtol={DEPLOY_RTOL}, atol={DEPLOY_ATOL}); decisions "
+            f"{json.dumps(reports)}")
+        if (launches["fused_mp_forward"], launches["csr_mp_forward"]) != want:
+            raise AssertionError(f"[variants] {name}: the message kernels ran other than "
+                                 f"once per round")
+        result[name] = {"launches": launches, "ms_median": float(np.median(ms))}
+    return result
+
+
+def phase_finetune(torch, FM):
+    """Phase 19: object-head finetuning (``train/finetune.py``) at
+    GNNConfig() full width, batch 8, 3 steps on synthetic frames: the
+    frozen detector's deploy forward (DBSCAN at clustering_eps) on every
+    graph through the fused forward kernel and never its backward;
+    everything outside predict_class bitwise unchanged; each step replayed
+    on the CPU from the card's state before it, with the card's DBSCAN
+    partition (itself held to the CPU's under the [deploy] rule), within
+    the train_bucketed replay's tolerance."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.models import gnn as GN
+    from graph_neural_network_for_radar_perception_torch.train import finetune as FT
+    from graph_neural_network_for_radar_perception_torch.train.steps import TrainState
+
+    cfg = GNNConfig()
+    rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
+    gen = SyntheticRadarDataset(cfg, seed=13, num_objects=(6, 10)).batches(bsz)
+    batches = [next(gen) for _ in range(FINETUNE_STEPS)]
+    build, _ = FT.make_finetune_step(cfg)
+    model = GN.RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).to("cuda")
+    step, opt = build(model)
+    state = TrainState(model, opt)
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if not k.startswith(FT.TRAINED + ".")}
+
+    real_dbscan, partitions = GN.dbscan_on_device, []
+
+    def recording_dbscan(centers, mask, eps, **kw):
+        ids, num = real_dbscan(centers, mask, eps, **kw)
+        partitions.append((ids.cpu(), num.cpu(), centers.cpu(), mask.cpu()))
+        return ids, num
+
+    records, step_ms = [], []
+    FM.fused_message_pass.launches = 0
+    FM.fused_message_pass_backward.launches = 0
+    GN.dbscan_on_device = recording_dbscan
+    try:
+        for batch in batches:
+            before = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                      copy.deepcopy(opt.state_dict()), state.step, state.updates)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            records.append((batch, before, {k: float(v) for k, v in m.items()},
+                            {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                            partitions[-bsz:]))
+    finally:
+        GN.dbscan_on_device = real_dbscan
+    fwd, bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
+    want = rounds * bsz * FINETUNE_STEPS
+    changed = [k for k, v in model.state_dict().items()
+               if k in frozen and not torch.equal(v, frozen[k])]
+    log(f"[finetune] make_finetune_step(GNNConfig()) batch {bsz}, {FINETUNE_STEPS} steps on the "
+        f"card: fused_message_pass launches={fwd} (expected {want}), backward={bwd} (expected 0: "
+        f"the trunk is frozen); metrics {json.dumps([r[2] for r in records])}; ms/step "
+        f"{[round(t, 3) for t in step_ms]}; params outside predict_class changed: {changed}")
+    if fwd != want or bwd or changed or any(r[2]["skipped"] for r in records):
+        raise AssertionError("[finetune] the kernels ran other than expected, a step was "
+                             "skipped, or a frozen parameter moved")
+    if not any(not torch.equal(records[-1][3][k], records[0][1][0][k]) for k in records[0][3]
+               if k.startswith(FT.TRAINED + ".")):
+        raise AssertionError("[finetune] predict_class did not move")
+
+    t0 = time.perf_counter()
+    m_err, p_err, borderline = 0.0, 0.0, 0
+    cpu_model = GN.RadarGNN(cfg)
+    cpu_step, cpu_opt = build(cpu_model)
+    for i, (batch, (params, optim, step_no, updates), card_m, card_p, parts) in enumerate(records):
+        cpu_model.load_state_dict(params)
+        cpu_opt.load_state_dict(optim)
+        cpu = TrainState(cpu_model, cpu_opt, step_no, updates)
+        queue = list(parts)
+
+        def card_partition(centers, mask, eps, **kw):
+            ids, num, card_centers, card_mask = queue.pop(0)
+            own, _ = real_dbscan(centers, mask, eps, **kw)
+            n = int(mask.sum())
+            check_partition(ids.numpy()[:n], own.numpy()[:n], centers.numpy()[:n], eps)
+            return ids, num
+
+        GN.dbscan_on_device = card_partition
+        try:
+            cpu, m = cpu_step(cpu, batch)
+        finally:
+            GN.dbscan_on_device = real_dbscan
+        m_err = max(m_err, _metrics_close([card_m], [{k: float(v) for k, v in m.items()}],
+                                          f"[finetune] step {i}"))
+        p_err = max(p_err, _params_close(card_p, cpu_model.state_dict(), f"[finetune] step {i}"))
+    log(f"[finetune] CPU replay of each step from the card's state before it, with the card's "
+        f"DBSCAN partitions ({time.perf_counter() - t0:.1f} s): metrics max abs err "
+        f"{m_err:.3e} (rtol={METRIC_RTOL}, atol={METRIC_ATOL}), params {p_err:.3e} "
+        f"(rtol={PARAM_RTOL}, atol={PARAM_ATOL})")
+    return {"fwd": fwd, "bwd": bwd, "ms": step_ms}
+
+
+def classifier_batches(ccfg, count: int) -> list:
+    """[classifier] batches of 8 samples: the GT clusters of synthetic
+    GNNConfig() frames (6-12 objects) as proposals, seed 17."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.models import classifier as CL
+
+    ds = SyntheticRadarDataset(GNNConfig(), seed=17, num_objects=(6, 12))
+    batches = []
+    while len(batches) < count:
+        samples = []
+        while len(samples) < CLASSIFIER_BATCH:
+            fr = ds.sample_frame()
+            s = CL.build_classifier_sample(fr.other_feat[:, :2], fr.node_feat[:, 1],
+                                           fr.node_class, fr.node2cluster,
+                                           int(fr.cluster_class.shape[0]), ccfg)
+            if s is not None:
+                samples.append(s)
+        batches.append(CL.stack_samples(samples))
+    return batches
+
+
+def _replay(torch, records, make_state, step, what: str):
+    """Each recorded card step replayed on the CPU from the card's state
+    before it: metrics and params within METRIC_*/PARAM_*; returns the
+    largest errors."""
+    m_err, p_err = 0.0, 0.0
+    for i, (args, (params, optim, step_no, updates), card_m, card_p) in enumerate(records):
+        cpu = make_state()
+        cpu.model.load_state_dict(params)
+        cpu.optimizer.load_state_dict(optim)
+        cpu.step, cpu.updates = step_no, updates
+        cpu, m = step(cpu, *args)
+        m_err = max(m_err, _metrics_close([card_m], [{k: float(v) for k, v in m.items()}],
+                                          f"{what} step {i}"))
+        p_err = max(p_err, _params_close(card_p, cpu.model.state_dict(), f"{what} step {i}"))
+    return m_err, p_err
+
+
+def _recorded_steps(torch, state, step, arg_lists):
+    """Run ``step`` on the card over ``arg_lists``, recording for each the
+    state before it, the metrics and the params after, and its time."""
+    records, ms = [], []
+    for args in arg_lists:
+        before = ({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+                  copy.deepcopy(state.optimizer.state_dict()), state.step, state.updates)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        records.append((args, before, {k: float(v) for k, v in m.items()},
+                        {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}))
+    return state, records, ms
+
+
+def phase_classifier(torch, FM):
+    """Phase 20: the stage-2 object classifier at ClassifierConfig()
+    capacities (512 points, 64 objects, 8192 edges) and widths, batch 8:
+    3 SGD steps on the card, each replayed on the CPU from the card's state
+    before it."""
+    from graph_neural_network_for_radar_perception_torch.models import classifier as CL
+
+    del FM
+    ccfg = CL.ClassifierConfig()
+    batches = classifier_batches(ccfg, CLASSIFIER_STEPS)
+    occupancy = [(int(b.point_mask.sum()), int(b.edge_mask.sum()), int(b.object_mask.sum()))
+                 for b in batches]
+    init, step, _ = CL.make_classifier_train_step(ccfg)
+    state = init(torch.Generator().manual_seed(0), device="cuda")
+    state, records, ms = _recorded_steps(torch, state, step, [(b,) for b in batches])
+    metrics = [r[2] for r in records]
+    log(f"[classifier] ObjectClassifierGNN(ClassifierConfig()) batch {CLASSIFIER_BATCH}, "
+        f"{CLASSIFIER_STEPS} steps on the card: (points, edges, objects) per batch {occupancy}; "
+        f"metrics {json.dumps(metrics)}; ms/step {[round(t, 3) for t in ms]}")
+    if any(m["skipped"] for m in metrics) or not all(np.isfinite(m["loss_obj_cls"])
+                                                     for m in metrics):
+        raise AssertionError("[classifier] a step was skipped or its loss is not finite")
+    t0 = time.perf_counter()
+    m_err, p_err = _replay(torch, records, lambda: init(device="cpu"), step, "[classifier]")
+    log(f"[classifier] CPU replay of each step from the card's state before it "
+        f"({time.perf_counter() - t0:.1f} s): metrics max abs err {m_err:.3e} "
+        f"(rtol={METRIC_RTOL}, atol={METRIC_ATOL}), params {p_err:.3e} (rtol={PARAM_RTOL}, "
+        f"atol={PARAM_ATOL})")
+    return {"ms": ms}
+
+
+def phase_cnn(torch, FM):
+    """Phase 21: the BEV-grid CNN at CNNConfig() full width on the default
+    GridSpec (200 × 200 cells), batch 2, TF32 off: grid samples built on the
+    card (``data/grid.build_grid_sample``) against the CPU's, 2 SGD steps on
+    the card, the first replayed on the CPU from the card's state before it."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data import features as F
+    from graph_neural_network_for_radar_perception_torch.data import groundtruth as G
+    from graph_neural_network_for_radar_perception_torch.data import grid as GR
+    from graph_neural_network_for_radar_perception_torch.data.labels import INVALID_NUM
+    from graph_neural_network_for_radar_perception_torch.models import cnn as CNN
+
+    del FM
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[cnn] TF32 must be off for f32 results")
+    cfg, spec, ccfg = GNNConfig(), GR.GridSpec(), CNN.CNNConfig()
+    samples, worst = [], 0.0
+    for i, data in enumerate(deploy_frames(cfg, CNN_BATCH)):
+        gt = G.compute_ground_truth_node(data)
+        data, gt = F.select_within_roi(data, gt, cfg.min_x, cfg.max_x, cfg.min_y, cfg.max_y)
+        got = GR.build_grid_sample(spec, data, gt, CNN_MAX_MEAS, device="cuda")
+        want = GR.build_grid_sample(spec, data, gt, CNN_MAX_MEAS, device="cpu")
+        for k in ("vr", "rcs", "offset_grid", "label_grid"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"[cnn] frame {i}: grid {k} card vs CPU differ")
+        err = np.abs(got["image"] - want["image"])
+        worst = max(worst, float(err.max()))
+        if (err > DEPLOY_ATOL + DEPLOY_RTOL * np.abs(want["image"])).any():
+            raise AssertionError(f"[cnn] frame {i}: grid image card vs CPU beyond tolerance")
+        samples.append(got)
+    batch = tuple(np.stack([s[k] for s in samples]) for k in
+                  ("image", "vr", "rcs", "label_grid", "offset_grid"))
+    cells = [int((s["label_grid"] != INVALID_NUM).sum()) for s in samples]
+    log(f"[cnn] build_grid_sample on the card (200 x 200 cells, {CNN_MAX_MEAS} measurements): "
+        f"grids equal to the CPU's, image max abs err {worst:.3e}; occupied cells {cells}")
+    init, step, _ = CNN.make_grid_train_step(ccfg)
+    state = init(torch.Generator().manual_seed(0), device="cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    state, records, ms = _recorded_steps(torch, state, step, [batch] * CNN_STEPS)
+    metrics = [r[2] for r in records]
+    log(f"[cnn] GridDetector(CNNConfig()) ({n_params} parameters) batch {CNN_BATCH}, "
+        f"{CNN_STEPS} steps on the card, TF32 off: metrics {json.dumps(metrics)}; ms/step "
+        f"{[round(t, 3) for t in ms]} (the first with cuDNN's set-up)")
+    if any(m["skipped"] or not np.isfinite(m["loss_total"]) for m in metrics):
+        raise AssertionError("[cnn] a step was skipped or its loss is not finite")
+    t0 = time.perf_counter()
+    m_err, p_err = _replay(torch, records[:1], lambda: init(device="cpu"), step, "[cnn]")
+    log(f"[cnn] CPU replay of step 1 from the card's state before it "
+        f"({time.perf_counter() - t0:.1f} s): metrics max abs err {m_err:.3e} "
+        f"(rtol={METRIC_RTOL}, atol={METRIC_ATOL}), params {p_err:.3e} (rtol={PARAM_RTOL}, "
+        f"atol={PARAM_ATOL})")
+    return {"ms": ms}
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2176,7 +2729,12 @@ def main(argv) -> int:
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
               "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp"),
               "checkpoint": (phase_checkpoint, "fused_mp"),
-              "data-plane": (phase_data_plane, "fused_mp")}
+              "data-plane": (phase_data_plane, "fused_mp"),
+              "eval": (phase_eval, "fused_mp"),
+              "variants": (phase_variants, "fused_mp", "csr_mp"),
+              "finetune": (phase_finetune, "fused_mp"),
+              "classifier": (phase_classifier, "fused_mp"),
+              "cnn": (phase_cnn, "fused_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -2247,13 +2805,23 @@ def main(argv) -> int:
     phase_checkpoint(torch, FM)
     data_plane = phase_data_plane(torch, FM)
     phase_bench(torch)
-    fwd_row["launches"] = deploy_launches + train_fwd + data_plane["fwd"]
+    evaluation = phase_eval(torch, FM)
+    variants = phase_variants(torch, FM)
+    finetune = phase_finetune(torch, FM)
+    phase_classifier(torch, FM)
+    phase_cnn(torch, FM)
+    v1_fused = variants["v1"]["launches"]["fused_mp_forward"]
+    v1_csr = variants["v1-csr"]["launches"]["csr_mp_forward"]
+    fwd_row["launches"] = (deploy_launches + train_fwd + data_plane["fwd"] + evaluation["fwd"]
+                           + v1_fused + finetune["fwd"])
     fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd,
-                                   "data-plane": data_plane["fwd"]}
+                                   "data-plane": data_plane["fwd"], "eval": evaluation["fwd"],
+                                   "variants (v1)": v1_fused, "finetune": finetune["fwd"]}
     bwd_row["launches"] = train_bwd + data_plane["bwd"]
     bwd_row["launches_by_path"] = {"train": train_bwd, "data-plane": data_plane["bwd"]}
-    csr_row["launches"] = csr_deploy + csr_train_fwd
-    csr_row["launches_by_path"] = {"deploy-csr": csr_deploy, "train-csr": csr_train_fwd}
+    csr_row["launches"] = csr_deploy + csr_train_fwd + v1_csr
+    csr_row["launches_by_path"] = {"deploy-csr": csr_deploy, "train-csr": csr_train_fwd,
+                                   "variants (v1, csr)": v1_csr}
     csr_bwd_row["launches"] = csr_train_bwd
     csr_bwd_row["launches_by_path"] = {"train-csr": csr_train_bwd}
     bwd_row["launches"] += bf16_launches["fused"][1]

@@ -141,6 +141,44 @@ def preprocess_frame(
     )
 
 
+def preprocess_frame_hybrid(
+    data_dict: dict,
+    cfg: GNNConfig,
+    grid_spec=None,
+    max_meas: int = 1024,
+    *,
+    flip_along_x: bool = False,
+    device="cuda",
+):
+    """Hybrid sample: graph features for the GNN + grid tensors for the
+    CNN branch from one frame (reference datagen_hybrid.py:18-161).
+
+    Returns (FrameArrays | None, grid_sample dict).  The grid sample is
+    built from the ROI-filtered measurement set (all classes, including
+    STATIC: the CNN branch trains on the full taxonomy), on ``device`` (the
+    card unless ``device="cpu"``; ``data/grid.build_grid_sample``)."""
+    from .grid import GridSpec, build_grid_sample
+
+    if grid_spec is None:
+        grid_spec = GridSpec(
+            min_x=cfg.min_x, max_x=cfg.max_x,
+            min_y=cfg.min_y, max_y=cfg.max_y,
+            dx=cfg.dx, dy=cfg.dy,
+        )
+    data = dict(data_dict)
+    if flip_along_x:
+        data["meas_py"] = -data["meas_py"]
+        data["meas_vy"] = -data["meas_vy"]
+    gt = G.compute_ground_truth_node(data)
+    data_roi, gt_roi = F.select_within_roi(
+        data, gt, cfg.min_x, cfg.max_x, cfg.min_y, cfg.max_y
+    )
+    grid_sample = build_grid_sample(grid_spec, data_roi, gt_roi, max_meas,
+                                    device=device)
+    fr = preprocess_frame(data_dict, cfg, flip_along_x=flip_along_x)
+    return fr, grid_sample
+
+
 def _pad1(x, size, fill=0):
     out = np.full((size,) + x.shape[1:], fill, dtype=x.dtype)
     out[: x.shape[0]] = x[:size]

@@ -9,6 +9,7 @@ clusters at once on the device.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -53,3 +54,39 @@ def compute_proposals(xy, node_cls_idx, node2cluster, node_mask,
 
     return Proposals(mu=mu, sigma=sigma, size=counts, label=label,
                      valid=counts > 0)
+
+
+def rotation_invariant_cluster_features(xy, mask):
+    """Rotation/translation-invariant per-point cluster features
+    (modules/inference/feature.py:9-28, marked "not used" in the reference
+    but kept as a capability): shift points to the cluster mean, rotate into
+    the covariance eigenbasis, return [x', y', r, θ].
+
+    xy: [M, 2] one cluster's points; mask: [M].  The sign of each
+    eigenvector is whatever ``torch.linalg.eigh`` returns (LAPACK or
+    cuSOLVER), as the JAX function takes its backend's: x', y' and θ may
+    differ from another backend's by that sign, r does not."""
+    m = mask.to(xy.dtype)[:, None]
+    cnt = torch.clamp(m.sum(), min=1.0)
+    mu = (xy * m).sum(0) / cnt
+    err = (xy - mu) * m
+    sigma = (err.T @ err) / torch.clamp(cnt - 1.0, min=1.0)
+    _, evecs = torch.linalg.eigh(sigma)
+    pts = (xy - mu) @ evecs
+    r = torch.sqrt((pts ** 2).sum(-1))
+    th = torch.atan2(pts[:, 1], pts[:, 0])
+    feat = torch.stack([pts[:, 0], pts[:, 1], r, th], dim=-1)
+    return torch.where(mask[:, None], feat, torch.zeros_like(feat))
+
+
+def cov_ellipse(mu, sigma, n_points: int = 32, chi2_scale: float = 9.21):
+    """χ²-scaled covariance ellipse boundary points for visualisation
+    (modules/inference/ellipse.py:4-37).  Returns [n_points, 2]; an
+    eigenvector of the other sign traces the same ellipse from another
+    start."""
+    evals, evecs = torch.linalg.eigh(sigma)
+    t = torch.linspace(0.0, 2.0 * math.pi, n_points, dtype=sigma.dtype,
+                       device=sigma.device)
+    circle = torch.stack([torch.cos(t), torch.sin(t)], dim=-1)  # [P, 2]
+    radii = torch.sqrt(torch.clamp(evals, min=0.0) * chi2_scale)
+    return mu[None, :] + (circle * radii[None, :]) @ evecs.T

@@ -114,9 +114,11 @@ class ScalarNorm(nn.Module):
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter of ``module`` from ``generator``, in
-    module order."""
+    module order: each ``Linear`` and ``ScalarNorm``, and each module that
+    sets ``owns_parameters`` for the parameters it holds itself (the GATv2
+    attention vector and bias)."""
     for m in module.modules():
-        if isinstance(m, (Linear, ScalarNorm)):
+        if isinstance(m, (Linear, ScalarNorm)) or getattr(m, "owns_parameters", False):
             m.reset_parameters(generator)
 
 
@@ -184,7 +186,10 @@ class ResidualGraphConvBlock(nn.Module):
 
     def __init__(self, in_dim: int, edge_dim: int, msg_hidden: int,
                  out_dim: int, aggregation: str, activation: str,
-                 norm_layer: str, num_groups=None):
+                 norm_layer: str, num_groups=None, extra_dim: int = 0):
+        """``extra_dim``: the width of the per-node ``extra_features`` that
+        ``forward`` concatenates between x and the aggregate in the update
+        MLP's input (gnn_blocks.py:107); 0 for none."""
         super().__init__()
         if aggregation not in ("add", "max", "mean"):
             raise ValueError(f"unknown aggregation {aggregation!r}")
@@ -199,11 +204,12 @@ class ResidualGraphConvBlock(nn.Module):
         # (torch_geometric message(x_i, x_j, edge_attr), gnn_blocks.py:112)
         self.msg_mlp = MLPStack(2 * in_dim + edge_dim, [msg_hidden, out_dim],
                                 activation, norm_layer, num_groups)
-        self.upd_mlp = MLPStack(in_dim + out_dim, [out_dim], activation,
-                                norm_layer, num_groups)
+        self.upd_mlp = MLPStack(in_dim + extra_dim + out_dim, [out_dim],
+                                activation, norm_layer, num_groups)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                csr_layout=None, mp_bf16=False, fused_layout=None):
+                csr_layout=None, mp_bf16=False, fused_layout=None,
+                extra_features=None):
         """On the fused path, masked edges must carry the sentinel index N
         at both ends (``GraphConvolution`` maps them); ``fused_layout`` is
         the graph's ``ops.fused_mp.fused_layout``, shared by its rounds, or
@@ -246,7 +252,8 @@ class ResidualGraphConvBlock(nn.Module):
                 agg = S.masked_segment_max(m, receivers, n, edge_mask)
             else:
                 agg = S.masked_segment_mean(m, receivers, n, edge_mask)
-        upd = self.upd_mlp(torch.cat([x, agg], dim=-1), node_mask)
+        parts = [x, agg] if extra_features is None else [x, extra_features, agg]
+        upd = self.upd_mlp(torch.cat(parts, dim=-1), node_mask)
         return identity + upd
 
 
@@ -257,7 +264,7 @@ class GraphConvolution(nn.Module):
                  stem_channels: Sequence[int], msg_mlp_hidden_dim: int,
                  aggregation: str, activation: str, norm_layer: str,
                  num_groups=None, mp_impl: Optional[str] = None,
-                 csr_tiling=(512, 256, 0)):
+                 csr_tiling=(512, 256, 0), extra_dim: int = 0):
         super().__init__()
         self.fused = uses_fused_kernel(norm_layer, activation, aggregation)
         self.mp_impl = mp_impl
@@ -266,18 +273,19 @@ class GraphConvolution(nn.Module):
         for ch in stem_channels:
             blocks.append(ResidualGraphConvBlock(
                 in_dim, edge_dim, msg_mlp_hidden_dim, ch, aggregation,
-                activation, norm_layer, num_groups,
+                activation, norm_layer, num_groups, extra_dim,
             ))
             in_dim = ch
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                mp_impl=None, mp_bf16=False):
+                mp_impl=None, mp_bf16=False, extra_features=None):
         """``mp_impl`` overrides the one given at construction.  On "csr",
         ``edge_feat`` must encode the reversed edges' raw features.
         ``mp_bf16``: the fused rounds' bf16 operands (each block raises
         ``ValueError`` unless its round is fused, where the JAX fast path
-        asserts)."""
+        asserts).  ``extra_features`` [N, extra_dim] enter every block's
+        update MLP after the aggregate; the message rounds do not see them."""
         mp_impl = mp_impl or self.mp_impl
         if mp_impl == "csr" and not self.fused:
             raise ValueError("mp_impl='csr' needs channel normalisation, "
@@ -302,7 +310,7 @@ class GraphConvolution(nn.Module):
             fused = FM.fused_layout(senders, receivers, x.shape[0])
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
-                    layout, mp_bf16, fused)
+                    layout, mp_bf16, fused, extra_features)
         return x
 
     def _csr_guard(self, senders, receivers, n):

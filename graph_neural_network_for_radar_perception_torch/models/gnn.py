@@ -13,7 +13,14 @@ Both run the message rounds through ``cfg.mp_impl`` unless the call names
 another (``mp_impl=``): the fused round, or the CSR round (the JAX
 package's models/fast_path.py with ``mp_impl="csr"``).  ``forward`` takes
 ``mp_bf16`` (the rounds' bf16 operands, ``fast_forward(mp_bf16=True)``);
-``deploy`` does not, as the JAX package's deploy does not.
+``deploy`` does not, as the JAX package's deploy does not.  Both take
+per-node ``extra_features`` [N, extra_feature_dim] for the update MLPs.
+
+Variants override two hooks, as in the JAX package: ``_make_neck`` (the
+message-passing stack in the ``pass_messages`` slot; ``models/gat.py``'s
+RadarGNNv2 puts its GATv2 neck there) and ``_make_node_heads`` /
+``_node_heads`` (``RadarGNNv1``'s shared node stem), so that ``forward``
+and ``deploy`` serve every model family.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from .blocks import (
     GraphFeatureEncoding,
     LinkPredictions,
     NodeOffsetPredictions,
+    NodePredictions,
     NodeSegmentation,
     ObjectClassification,
     init_parameters,
@@ -70,10 +78,13 @@ class RadarGNN(nn.Module):
     """Four-task message-passing GNN (flagship model).
 
     Parameters are initialised from ``generator`` (default: a CPU generator
-    seeded with ``cfg.seed``); move the model with ``.to(device)``."""
+    seeded with ``cfg.seed``); move the model with ``.to(device)``.
+    ``extra_feature_dim``: the width of the ``extra_features`` the update
+    MLPs take (0: none)."""
 
     def __init__(self, cfg: GNNConfig, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 extra_feature_dim: int = 0):
         super().__init__()
         self.cfg = cfg
         args = (cfg.activation, cfg.norm_layer, cfg.num_groups)
@@ -84,26 +95,43 @@ class RadarGNN(nn.Module):
             cfg.input_node_feat_dim, cfg.node_feat_enc_stem_channels, *args)
         self.encode_edge_feat = GraphFeatureEncoding(
             cfg.input_edge_feat_dim, cfg.edge_feat_enc_stem_channels, *args)
-        self.pass_messages = GraphConvolution(
-            node_dim, edge_dim, cfg.graph_convolution_stem_channels,
-            cfg.msg_mlp_hidden_dim, cfg.aggregation, *args,
-            mp_impl=cfg.mp_impl,
-            csr_tiling=(cfg.csr_edge_tile, cfg.csr_window, cfg.csr_src_window))
+        self.pass_messages = self._make_neck(node_dim, edge_dim,
+                                             extra_feature_dim)
         self.predict_link = LinkPredictions(
             embed, cfg.num_blocks_to_compute_edge, cfg.link_pred_stem_channels,
             cfg.num_edge_classes, *args)
         self.predict_class = ObjectClassification(
             embed, cfg.node_pred_stem_channels, cfg.num_classes, *args)
-        self.predict_node = NodeSegmentation(
-            embed, cfg.node_pred_stem_channels, cfg.num_classes, *args)
-        self.predict_offset = NodeOffsetPredictions(
-            embed, cfg.node_pred_stem_channels, cfg.reg_offset_dim, *args)
+        self._make_node_heads(embed)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         init_parameters(self, generator)
 
+    def _make_neck(self, node_dim: int, edge_dim: int, extra_dim: int):
+        """The message-passing neck; v2 overrides it with the GAT neck."""
+        cfg = self.cfg
+        return GraphConvolution(
+            node_dim, edge_dim, cfg.graph_convolution_stem_channels,
+            cfg.msg_mlp_hidden_dim, cfg.aggregation, cfg.activation,
+            cfg.norm_layer, cfg.num_groups, mp_impl=cfg.mp_impl,
+            csr_tiling=(cfg.csr_edge_tile, cfg.csr_window, cfg.csr_src_window),
+            extra_dim=extra_dim)
+
+    def _make_node_heads(self, embed: int):
+        """The node class and offset heads; v1 overrides it."""
+        cfg = self.cfg
+        args = (cfg.activation, cfg.norm_layer, cfg.num_groups)
+        self.predict_node = NodeSegmentation(
+            embed, cfg.node_pred_stem_channels, cfg.num_classes, *args)
+        self.predict_offset = NodeOffsetPredictions(
+            embed, cfg.node_pred_stem_channels, cfg.reg_offset_dim, *args)
+
+    def _node_heads(self, x, nm):
+        """(node_cls, node_off); v1 routes both through one fused head."""
+        return self.predict_node(x, nm), self.predict_offset(x, nm)
+
     def trunk(self, graph: RadarGraph, mp_impl: Optional[str] = None,
-              mp_bf16: bool = False):
+              mp_bf16: bool = False, extra_features=None):
         """Encoders + message passing → final node embeddings
         (gnn_detector.py:151-156).  On "csr" (fast_path.py:125-156) the edge
         encoder reads the reversed edges' raw features, and
@@ -119,15 +147,14 @@ class RadarGNN(nn.Module):
             edge_feat = reverse_edge_features(edge_feat)
         e = self.encode_edge_feat(edge_feat, em)
         return self.pass_messages(x, e, graph.senders, graph.receivers, nm, em,
-                                  mp_impl, mp_bf16)
+                                  mp_impl, mp_bf16, extra_features)
 
     def forward(self, graph: RadarGraph, node2cluster, num_clusters: int,
                 cluster_mask, mp_impl: Optional[str] = None,
-                mp_bf16: bool = False) -> GNNOutputs:
+                mp_bf16: bool = False, extra_features=None) -> GNNOutputs:
         nm = graph.node_mask
-        x = self.trunk(graph, mp_impl, mp_bf16)
-        node_cls = self.predict_node(x, nm)
-        node_off = self.predict_offset(x, nm)
+        x = self.trunk(graph, mp_impl, mp_bf16, extra_features)
+        node_cls, node_off = self._node_heads(x, nm)
         edge_cls = self.predict_link(
             x, graph.und_senders, graph.und_receivers, nm, graph.und_mask)
         obj_cls = self.predict_class(
@@ -135,16 +162,15 @@ class RadarGNN(nn.Module):
         return GNNOutputs(node_cls, node_off, edge_cls, obj_cls, x)
 
     def deploy(self, graph: RadarGraph, eps: float = 1.4,
-               from_links: bool = False,
-               mp_impl: Optional[str] = None) -> DeployOutputs:
+               from_links: bool = False, mp_impl: Optional[str] = None,
+               extra_features=None) -> DeployOutputs:
         """Deployment forward with on-device DBSCAN proposals
         (gnn_detector.py:141-195, extract_proposals path; default eps=1.4
         per Model_Inference.__init__)."""
         nm = graph.node_mask
         n = graph.num_nodes
-        x = self.trunk(graph, mp_impl)
-        node_cls = self.predict_node(x, nm)
-        node_off = self.predict_offset(x, nm)
+        x = self.trunk(graph, mp_impl, extra_features=extra_features)
+        node_cls, node_off = self._node_heads(x, nm)
         edge_cls = self.predict_link(
             x, graph.und_senders, graph.und_receivers, nm, graph.und_mask)
         zero = torch.zeros((), dtype=node_off.dtype, device=node_off.device)
@@ -173,3 +199,24 @@ class RadarGNN(nn.Module):
             node2cluster=node2cluster,
             num_clusters=num_clusters,
         )
+
+
+class RadarGNNv1(RadarGNN):
+    """Model_Inference_v1 (gnn_detector.py:204-313): the flagship's trunk
+    and link/object heads, but node class + offset share one stem through
+    the fused ``NodePredictions`` head (gnn_blocks.py:392-439).
+
+    ``deploy`` (inherited) routes through the fused head via
+    ``_node_heads``, as the JAX package's does: the reference's
+    Model_Inference_v1 has no extract_proposals branch, so this is a
+    capability extension, not a port."""
+
+    def _make_node_heads(self, embed: int):
+        cfg = self.cfg
+        self.predict_node_fused = NodePredictions(
+            embed, cfg.node_pred_stem_channels, cfg.num_classes,
+            cfg.reg_offset_dim, cfg.activation, cfg.norm_layer,
+            cfg.num_groups)
+
+    def _node_heads(self, x, nm):
+        return self.predict_node_fused(x, nm)

@@ -83,3 +83,35 @@ def gather_nodes(node_feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Indices must lie in [0, N); the graphs ``pad_frame`` builds pad their
     edge lists with 0."""
     return node_feat.index_select(0, idx.long())
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Numerically-stable softmax within each segment (GAT attention).
+
+    logits: [E] or [E, H]; returns the same shape.  Each row's segment max
+    (0 for a segment no unmasked row reaches) is subtracted, masked rows get
+    weight 0, and the denominator is clamped at 1e-16.  A row's segment is
+    read at its id clamped into [0, num_segments), as the JAX gather clamps;
+    such rows are masked by every caller."""
+    seg_max = masked_segment_max(logits, segment_ids, num_segments, mask,
+                                 fill_value=0.0)
+    rows = segment_ids.long().clamp(0, num_segments - 1)
+    exp = torch.exp(logits - seg_max[rows])
+    if mask is not None:
+        bmask = mask if exp.ndim == 1 else mask[:, None]
+        exp = torch.where(bmask, exp, torch.zeros_like(exp))
+    denom = masked_segment_sum(exp, segment_ids, num_segments, mask)
+    return exp / torch.clamp(denom[rows], min=1e-16)
+
+
+def segment_count(segment_ids: torch.Tensor, num_segments: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 count of the unmasked rows in each segment."""
+    ones = torch.ones(segment_ids.shape, dtype=torch.float32,
+                      device=segment_ids.device)
+    return masked_segment_sum(ones, segment_ids, num_segments, mask)

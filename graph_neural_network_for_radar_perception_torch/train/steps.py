@@ -145,6 +145,26 @@ def _apply_update(state: TrainState, grads: List[torch.Tensor],
     state.updates += 1
 
 
+def finite_update(state: TrainState, loss: torch.Tensor, params) -> bool:
+    """After ``loss.backward()``: step ``state.optimizer`` over ``params`` (a
+    zero gradient where none reached one) if the loss and every gradient are
+    finite, else change nothing (the NaN skip; one device→host sync).  Then
+    clear the gradients and count the step.  Returns whether the update was
+    applied.  The finetuning, classifier and grid-CNN steps share it."""
+    params = list(params)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    ok = bool(torch.cat([loss.detach().reshape(1)]
+                        + [g.reshape(-1) for g in grads]).isfinite().all())
+    if ok:
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.optimizer.step()
+        state.updates += 1
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    return ok
+
+
 def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,
                     mp_bf16: bool = False) -> Callable:
     """(state, batch) → (state, metrics); single device.  The batch may hold

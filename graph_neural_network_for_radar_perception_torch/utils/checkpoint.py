@@ -140,3 +140,15 @@ def load_params(template, path: str):
         template.load_state_dict(params)
         return template
     return params
+
+
+def load_params_msgpack(path: str):
+    """Parameters the JAX package saved with ``save_params_msgpack`` (flax
+    ``serialization.to_bytes``), read without JAX: the nested dict of numpy
+    arrays that ``utils/convert.state_dict_from_flax`` (and its variants)
+    turn into a state_dict.  The JAX signature's template only gave flax the
+    tree's structure; the file holds it."""
+    from .flax_msgpack import msgpack_restore
+
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())

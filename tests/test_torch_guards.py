@@ -29,7 +29,7 @@ from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "graph_neural_network_for_radar_perception_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
              "graph_neural_network_for_radar_perception_tpu")
 
 
@@ -89,6 +89,15 @@ def test_import_scan_covers_the_data_plane_slice():
             "data/mp_loader.py", "ops/graph_build.py", "utils/export.py",
             "utils/torch_import.py"} <= names
     assert (PORT / "csrc" / "graph_builder.cpp").exists()
+
+
+def test_import_scan_covers_the_eval_and_variant_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"utils/flax_msgpack.py", "utils/checkpoint.py", "eval/metrics.py",
+            "eval/drivers.py", "infer/proposals.py", "ops/segment.py",
+            "models/gnn.py", "models/gat.py", "utils/convert.py",
+            "train/finetune.py", "models/classifier.py", "data/grid.py",
+            "data/pipeline.py", "models/cnn.py"} <= names
 
 
 def test_port_loads_no_library_of_the_jax_package():

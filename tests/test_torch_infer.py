@@ -21,6 +21,9 @@ from graph_neural_network_for_radar_perception_torch.infer import pipeline as TP
 from graph_neural_network_for_radar_perception_torch.infer.proposals import (
     compute_proposals,
 )
+from graph_neural_network_for_radar_perception_torch.utils.checkpoint import (
+    load_params_msgpack as t_load_params_msgpack,
+)
 from graph_neural_network_for_radar_perception_torch.utils.convert import (
     state_dict_from_flax,
 )
@@ -127,11 +130,12 @@ def test_frame_detector_full_width_decisions_match_jax(tmp_path):
                 max_clusters=int(saved["max_clusters"]),
                 temporal_window_size=int(saved["temporal_window_size"]))
     jcfg, cfg = JC.GNNConfig(**caps), GNNConfig(**caps)
-    params = load_params_msgpack(init_params(jcfg, jax.random.key(0)),
-                                 os.path.join(ARTIFACT, "weights.msgpack"))
+    weights = os.path.join(ARTIFACT, "weights.msgpack")
+    params = load_params_msgpack(init_params(jcfg, jax.random.key(0)), weights)
     jdet = JPI.FrameDetector(jcfg, params, eps=1.4, use_object_head=True)
+    # The port reads the same file with its own reader, without JAX.
     tdet = TPI.FrameDetector(
-        cfg, state_dict_from_flax(jax.tree.map(np.asarray, params)),
+        cfg, state_dict_from_flax(t_load_params_msgpack(weights)),
         eps=1.4, use_object_head=True, device="cpu")
 
     make_mini_radarscenes(str(tmp_path), seed=777, n_scenes=N_FRAMES + 6,
