@@ -112,7 +112,19 @@ Phases, each reported on its own line:
     ``GridSpec`` (200 × 200 cells), batch 2, TF32 off: grid samples built
     on the card against the CPU's, 2 SGD steps (ms per step), the first
     replayed on the CPU;
-22. print the kernel table as JSON and the card's name and power limit.
+22. [parallel] ``parallel/`` at ``GNNConfig()`` full width, batch 8, 2
+    steps a mode from seeded weights: first each round kernel, forward and
+    backward, on the inputs of an edge shard (E/2 edges) against its plain
+    version; then 4 ranks of the port's worker, started once on the card
+    under gloo (CUDA tensors), run data parallelism 4 x 1, the edge-sharded
+    step 2 x 2 with the fused and with the CSR round (the message kernels
+    on each rank's edge shard) and the halo step 2 x 2 on spatially sorted
+    frames (plain rounds: no kernel); then one rank under NCCL runs data
+    parallelism 1 x 1.  Each mode held to the single-process train step on
+    the card from the same weights and batch, its first step to the plain
+    rounds on the CPU, every rank's params bitwise equal, the launches per
+    rank exact, ms per step per rank;
+23. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -127,10 +139,11 @@ nothing of JAX.
     python3 chip_smoke.py --phase data-plane
     python3 chip_smoke.py --phase eval        # also variants, finetune,
     python3 chip_smoke.py --phase cnn         # classifier
+    python3 chip_smoke.py --phase parallel
 
 build the libraries a phase needs and run phase 3 (the fused backward),
 phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
-plane) or one of phases 17-21 alone, or only a
+plane) or one of phases 17-22 alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -231,6 +244,22 @@ ACC_ATOL = 0.05
 # fails it.
 BF16_REPLAY_ATOL = 1e-5
 BF16_REPLAY_SEPARATION = 2.0
+# [parallel]: the modes, each (name, kind, n_data, n_graph, mp_impl); those
+# of 4 ranks run in one grid of 4 worker processes on the card under gloo,
+# the 1 x 1 one in one worker process under NCCL.
+PARALLEL_MODES = (
+    ("dp-4x1", "dp", 4, 1, None),
+    ("edge-2x2", "edge", 2, 2, None),
+    ("edge-2x2-csr", "edge", 2, 2, "csr"),
+    ("halo-2x2", "halo", 2, 2, None),
+    ("dp-1x1-nccl", "dp", 1, 1, None),
+)
+PARALLEL_BATCH = 8
+PARALLEL_STEPS = 2
+PARALLEL_JOIN_S = 420         # a grid's limit, from start to the last rank's exit
+# A grid against the single-process step on the card: tests/test_torch_train.py's
+# STEP_TOL (the same kernels, the partial sums added in another order).
+PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-6
 
 
 def log(msg: str) -> None:
@@ -238,17 +267,23 @@ def log(msg: str) -> None:
 
 
 def kernel_problem(torch, rng, e_valid: int, e_total: int, n: int = N,
-                   de: int = DE, h: int = H, d2: int = D2):
+                   de: int = DE, h: int = H, d2: int = D2, edges=None):
     """Random message round, at the deploy shapes unless told otherwise;
     the edge tail past ``e_valid`` is padding (sentinel n at both ends,
-    zero features), as ``pad_frame`` + the model lay out a frame."""
+    zero features), as ``pad_frame`` + the model lay out a frame.  Or the
+    given ``edges`` (senders, receivers; sentinel n where masked, zero
+    features there)."""
     x = rng.normal(size=(n, D)).astype(np.float32)
     ef = rng.normal(size=(e_total, de)).astype(np.float32)
-    s = rng.integers(0, n, size=e_total).astype(np.int32)
-    r = rng.integers(0, n, size=e_total).astype(np.int32)
-    s[e_valid:] = n
-    r[e_valid:] = n
-    ef[e_valid:] = 0.0
+    if edges is None:
+        s = rng.integers(0, n, size=e_total).astype(np.int32)
+        r = rng.integers(0, n, size=e_total).astype(np.int32)
+        s[e_valid:] = n
+        r[e_valid:] = n
+        ef[e_valid:] = 0.0
+    else:
+        s, r = edges
+        ef[s == n] = 0.0
     w1 = (rng.normal(size=(2 * D + de, h)) / np.sqrt(2 * D + de)).astype(np.float32)
     b1 = (0.1 * rng.normal(size=h)).astype(np.float32)
     w2 = (rng.normal(size=(h, d2)) / np.sqrt(h)).astype(np.float32)
@@ -2705,6 +2740,235 @@ def phase_cnn(torch, FM):
     return {"ms": ms}
 
 
+def _counts(FM, C) -> dict:
+    return {"fused_mp_forward": FM.fused_message_pass.launches,
+            "fused_mp_backward": FM.fused_message_pass_backward.launches,
+            "csr_mp_forward": C.fused_message_pass_csr.launches,
+            "csr_mp_backward": C.fused_message_pass_csr_backward.launches}
+
+
+def _restore_counts(FM, C, saved: dict) -> None:
+    FM.fused_message_pass.launches = saved["fused_mp_forward"]
+    FM.fused_message_pass_backward.launches = saved["fused_mp_backward"]
+    C.fused_message_pass_csr.launches = saved["csr_mp_forward"]
+    C.fused_message_pass_csr_backward.launches = saved["csr_mp_backward"]
+
+
+def _within(name: str, got, want, rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` (card) against ``want``; raises beyond the
+    tolerance or on a value that is not finite."""
+    err = (got.cpu() - want.cpu()).abs()
+    bad = int((err > atol + rtol * want.cpu().abs()).sum())
+    if bad or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: disagrees with its plain version at {bad} elements")
+    return float(err.max())
+
+
+def phase_shard_rounds(torch, FM, C, batch) -> dict:
+    """The message kernels at the shapes the edge-sharded modes give them:
+    rank (0, g)'s edge shard of graph 0 on a 2 x 2 grid (E/2 edges, the
+    real shard's senders and receivers, sentinel N where masked), a random
+    round at the main path's widths on those edges.  Forward: the wrapper on
+    the card against the same call on CPU tensors (the plain version),
+    RTOL/ATOL; backward: the backward wrapper against its plain version,
+    GRAD_*, kink edges dropped as in [kernel-bwd].  Launches made here do
+    not count."""
+    from graph_neural_network_for_radar_perception_torch.parallel.mesh import (
+        batch_rows, edge_shard)
+
+    saved = _counts(FM, C)
+    rng = np.random.default_rng(31)
+    rows, worst = batch_rows(batch, 2, 0), {}
+    for g in range(2):
+        sh = edge_shard(rows, 2, g).graph
+        live = sh.edge_mask[0]
+        s = np.where(live, sh.senders[0], N).astype(np.int32)
+        r = np.where(live, sh.receivers[0], N).astype(np.int32)
+        e = s.shape[0]
+        cot = torch.from_numpy((G_SCALE * rng.normal(size=(N, D2))).astype(np.float32)).cuda()
+
+        args = kernel_problem(torch, rng, e, e, edges=(s, r))
+        fwd = _within(f"[parallel] fused_message_pass on shard {g}", FM.fused_message_pass(*args),
+                      FM.fused_message_pass(*[a.cpu() for a in args]), RTOL, ATOL)
+        args, kinks = drop_kink_edges(torch, args)
+        bwd = max(_within(f"[parallel] fused_message_pass_backward {out} on shard {g}", a, b,
+                          GRAD_RTOL, GRAD_ATOL)
+                  for out, a, b in zip(FUSED_BWD_NAMES,
+                                       FM.fused_message_pass_backward(*args, cot),
+                                       FM.fused_message_pass_backward_reference(*args, cot)))
+        worst[f"fused shard {g}"] = {"live": int(live.sum()), "fwd": fwd, "bwd": bwd,
+                                     "kink edges dropped": kinks}
+
+        # The CSR round walks the edges reversed: dst = senders (sorted).
+        # A shard holds half of each reversed pair, so the model's guards
+        # apply (``GraphConvolution._csr_guard``), not ``csr_contract_ok``.
+        args = csr_problem(torch, rng, (s[live], r[live]), e)
+        if int(C.order_violations(args[3], N)) or int(C.window_span_violations(
+                args[3], N, CSR_TILE, CSR_WINDOW)):
+            raise AssertionError(f"[parallel] shard {g} breaks the CSR round's contract")
+        tiling = (0.01, CSR_TILE, CSR_WINDOW)
+        fwd = _within(f"[parallel] fused_message_pass_csr on shard {g}",
+                      C.fused_message_pass_csr(*args, *tiling),
+                      C.fused_message_pass_csr(*[a.cpu() for a in args], *tiling), RTOL, ATOL)
+        args, kinks = drop_kink_edges_csr(torch, args)
+        bwd = max(_within(f"[parallel] fused_message_pass_csr_backward {out} on shard {g}",
+                          a, b, GRAD_RTOL, GRAD_ATOL)
+                  for out, a, b in zip(CSR_BWD_NAMES,
+                                       C.fused_message_pass_csr_backward(*args, cot, *tiling, 0),
+                                       C.fused_message_pass_csr_backward_reference(
+                                           *args, cot, *tiling, 0)))
+        worst[f"csr shard {g}"] = {"live": int(live.sum()), "fwd": fwd, "bwd": bwd,
+                                   "kink edges dropped": kinks}
+    _restore_counts(FM, C, saved)
+    log(f"[parallel] each round kernel on rank (0, g)'s edge shard of graph 0 ({E // 2} edges, "
+        f"N={N}, De={DE}, H={H}, D2={D2}) against its plain version: forward within "
+        f"rtol={RTOL} atol={ATOL}, backward within rtol={GRAD_RTOL} atol={GRAD_ATOL}; max abs "
+        f"err {json.dumps(worst)}")
+    return worst
+
+
+def phase_parallel(torch, FM):
+    """Phase 22: ``parallel/`` on the card.  At GNNConfig() full width, batch
+    8, from seeded weights, the port's worker (``parallel/worker.launch_spec``):
+    4 ranks started once, all on this card under gloo (CUDA tensors; a
+    FileStore rendezvous), run data parallelism 4 × 1, the edge-sharded step
+    2 × 2 with the fused round and with the CSR round (each rank's message
+    kernels on its edge shard) and the halo step 2 × 2 on spatially sorted
+    frames (plain rounds, no kernel); then one rank under NCCL runs data
+    parallelism 1 × 1.  Each mode against the single-process
+    ``make_train_step`` on the card from the same weights and batch
+    (PARALLEL_*), its first step replayed on the CPU with the plain rounds
+    from the same weights and batch (METRIC_*/PARAM_*), every rank's params
+    bitwise equal, launches per rank and ms per step; and the round kernels
+    on the edge shards' own inputs against their plain versions
+    (``phase_shard_rounds``)."""
+    import dataclasses
+
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
+    from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+    from graph_neural_network_for_radar_perception_torch.parallel import worker as PW
+    from graph_neural_network_for_radar_perception_torch.parallel.halo import halo_width
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+
+    base = GNNConfig(batch_size=PARALLEL_BATCH)
+    rounds = len(base.graph_convolution_stem_channels)
+    batch = next(SyntheticRadarDataset(base, seed=29, num_objects=(6, 10)).batches(PARALLEL_BATCH))
+    sorted_batch = next(SyntheticRadarDataset(dataclasses.replace(base, spatial_sort=True),
+                                              seed=29, num_objects=(6, 10)).batches(PARALLEL_BATCH))
+    weights = RadarGNN(base, generator=torch.Generator().manual_seed(5)).state_dict()
+    log(f"[parallel] GNNConfig() batch {PARALLEL_BATCH}, {PARALLEL_STEPS} steps a mode; live "
+        f"edges per graph {[int(m.sum()) for m in batch.graph.edge_mask]} of {base.max_edges} "
+        f"(G = 2: {base.max_edges // 2} an edge shard); halo {halo_width(sorted_batch, 2)} rows "
+        f"of {base.max_nodes // 2} a member on the sorted frames")
+    shard_err = phase_shard_rounds(torch, FM, C, batch)
+
+    def mode_of(name, kind, n_graph, mp_impl):
+        return {"name": name, "n_graph": n_graph, "partition": kind, "steps": PARALLEL_STEPS,
+                "cfg": dataclasses.replace(base, mp_impl=mp_impl) if mp_impl else base,
+                "weights": weights, "batch": sorted_batch if kind == "halo" else batch,
+                "profile": True}
+
+    # The single-process step on the card from the same weights: the
+    # reference of every mode (its launches are not the grid's).
+    refs, ref_ms = {}, {}
+    saved = _counts(FM, C)
+    for name, kind, _, n_graph, mp_impl in PARALLEL_MODES:
+        mode = mode_of(name, kind, n_graph, mp_impl)
+        st = S.create_train_state(mode["cfg"], device="cuda")
+        st.model.load_state_dict(weights)
+        st, recs, ms = _recorded_steps(torch, st, S.make_train_step(mode["cfg"]),
+                                       [(mode["batch"],)] * PARALLEL_STEPS)
+        refs[name], ref_ms[name] = [(r[2], r[3]) for r in recs], ms
+    _restore_counts(FM, C, saved)
+
+    totals = {"fused_mp_forward": 0, "fused_mp_backward": 0, "csr_mp_forward": 0,
+              "csr_mp_backward": 0}
+    replays = {}  # step 1 on the CPU, plain rounds, per (batch, round)
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: the bootstrap binds the loopback
+    for world, backend in ((4, "gloo"), (1, "nccl")):
+        grid = [m for m in PARALLEL_MODES if m[2] * m[3] == world]
+        t0 = time.perf_counter()
+        ranks = PW.launch_spec({"modes": [mode_of(name, kind, n_graph, mp_impl)
+                                          for name, kind, _, n_graph, mp_impl in grid]},
+                               world, device="cuda", backend=backend, timeout=PARALLEL_JOIN_S,
+                               env=env)
+        log(f"[parallel] {world} rank(s) of the worker on {card()} under {backend}: "
+            f"{time.perf_counter() - t0:.1f} s from start to the last rank's exit")
+        for name, kind, n_data, n_graph, mp_impl in grid:
+            res = [r[name] for r in ranks]
+            # every rank runs each round once per graph of its rows
+            want = 0 if kind == "halo" else rounds * PARALLEL_BATCH // n_data * PARALLEL_STEPS
+            kernels = ("csr_mp_forward", "csr_mp_backward") if mp_impl == "csr" else (
+                "fused_mp_forward", "fused_mp_backward")
+            for r, x in enumerate(res):
+                got = x["launches"]
+                if any(got[k] != (want if k in kernels else 0) for k in got):
+                    raise AssertionError(f"[parallel] {name} rank {r}: launches {got}, "
+                                         f"expected {want} of {kernels} and no other")
+                for k in totals:
+                    totals[k] += got[k]
+                for i, rec in enumerate(x["records"]):
+                    first = res[0]["records"][i]
+                    if rec["metrics"] != first["metrics"] or any(
+                            not torch.equal(v, first["params"][k])
+                            for k, v in rec["params"].items()):
+                        raise AssertionError(f"[parallel] {name} step {i}: rank {r}'s "
+                                             f"params or metrics differ from rank 0's")
+            records = res[0]["records"]
+            if any(rec["metrics"]["skipped"] for rec in records):
+                raise AssertionError(f"[parallel] {name}: a step was skipped")
+            m_err, p_err = 0.0, 0.0
+            for i, (want_m, want_p) in enumerate(refs[name]):
+                got_m, got_p = records[i]["metrics"], records[i]["params"]
+                for k, v in want_m.items():
+                    m_err = max(m_err, abs(got_m[k] - v))
+                    if abs(got_m[k] - v) > PARALLEL_ATOL + PARALLEL_RTOL * abs(v):
+                        raise AssertionError(f"[parallel] {name} step {i}: {k} grid "
+                                             f"{got_m[k]} single {v}")
+                for k, v in want_p.items():
+                    err = (got_p[k] - v).abs()
+                    p_err = max(p_err, float(err.max()))
+                    if (err > PARALLEL_ATOL + PARALLEL_RTOL * v.abs()).any():
+                        raise AssertionError(f"[parallel] {name} step {i}: params {k} "
+                                             f"grid vs single beyond tolerance")
+            # Step 1 against the plain rounds on the CPU (the same weights
+            # and batch), replayed once per batch and round.
+            key = ("halo" if kind == "halo" else "batch", mp_impl)
+            if key not in replays:
+                mode = mode_of(name, kind, n_graph, mp_impl)
+                t1 = time.perf_counter()
+                cpu = S.create_train_state(mode["cfg"], device="cpu")
+                cpu.model.load_state_dict(weights)
+                cpu, m = S.make_train_step(mode["cfg"])(cpu, mode["batch"])
+                replays[key] = ({k: float(v) for k, v in m.items()},
+                                {k: v.detach().clone() for k, v in cpu.model.state_dict().items()},
+                                time.perf_counter() - t1)
+            cpu_m, cpu_p, cpu_s = replays[key]
+            r_m = _metrics_close([records[0]["metrics"]], [cpu_m], f"[parallel] {name} step 0")
+            r_p = _params_close(records[0]["params"], cpu_p, f"[parallel] {name} step 0")
+            ms = [[round(rec["ms"], 3) for rec in x["records"]] for x in res]
+            blocked = [[(rec["all_reduces"], round(rec["all_reduce_ms"], 3))
+                        for rec in x["records"]] for x in res]
+            log(f"[parallel] {name} ({n_data} x {n_graph}, {backend}"
+                f"{', ' + mp_impl if mp_impl else ''}): launches per rank "
+                f"{json.dumps([x['launches'] for x in res])}; ranks' params bitwise equal "
+                f"after every step; vs the single-process step (ms/step "
+                f"{[round(t, 3) for t in ref_ms[name]]}): metrics max abs err {m_err:.3e}, "
+                f"params {p_err:.3e} (rtol={PARALLEL_RTOL}, atol={PARALLEL_ATOL}); step 1 vs "
+                f"the plain rounds on the CPU ({cpu_s:.1f} s): metrics {r_m:.3e} "
+                f"(rtol={METRIC_RTOL}, atol={METRIC_ATOL}), params {r_p:.3e} "
+                f"(rtol={PARAM_RTOL}, atol={PARAM_ATOL}); loss "
+                f"{records[0]['metrics']['loss_total']:.4f} -> "
+                f"{records[-1]['metrics']['loss_total']:.4f}; ms/step per rank "
+                f"(the first with set-up) {ms}; (all_reduce calls, host ms in them) per rank "
+                f"and step {blocked}; rank 0's step {PARALLEL_STEPS + 2} "
+                f"profiled: {json.dumps(res[0]['profile'])}")
+    return dict(totals, shard_err=shard_err)
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2734,7 +2998,8 @@ def main(argv) -> int:
               "variants": (phase_variants, "fused_mp", "csr_mp"),
               "finetune": (phase_finetune, "fused_mp"),
               "classifier": (phase_classifier, "fused_mp"),
-              "cnn": (phase_cnn, "fused_mp")}
+              "cnn": (phase_cnn, "fused_mp"),
+              "parallel": (phase_parallel, "fused_mp", "csr_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -2810,6 +3075,7 @@ def main(argv) -> int:
     finetune = phase_finetune(torch, FM)
     phase_classifier(torch, FM)
     phase_cnn(torch, FM)
+    par = phase_parallel(torch, FM)
     v1_fused = variants["v1"]["launches"]["fused_mp_forward"]
     v1_csr = variants["v1-csr"]["launches"]["csr_mp_forward"]
     fwd_row["launches"] = (deploy_launches + train_fwd + data_plane["fwd"] + evaluation["fwd"]
@@ -2832,6 +3098,10 @@ def main(argv) -> int:
     bf16_row["launches_by_path"] = {"train-bf16": bf16_launches["fused"][0]}
     csr_bf16_row["launches"] = bf16_launches["csr"][0]
     csr_bf16_row["launches_by_path"] = {"train-bf16 (csr)": bf16_launches["csr"][0]}
+    for row, key in ((fwd_row, "fused_mp_forward"), (bwd_row, "fused_mp_backward"),
+                     (csr_row, "csr_mp_forward"), (csr_bwd_row, "csr_mp_backward")):
+        row["launches"] += par[key]
+        row["launches_by_path"]["parallel"] = par[key]
     for row in (gather_row, scatter_row):
         row["launches_by_path"] = {"microbenchmark": row["launches"]}
     log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,

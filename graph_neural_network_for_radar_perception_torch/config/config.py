@@ -159,10 +159,12 @@ class GNNConfig:
     spatial_sort: bool = False
 
     # --- parallelism -------------------------------------------------------
+    # The JAX package's mesh axes and its edge-partitioning axis.  The port
+    # keeps the fields so that a configuration means the same in both, but
+    # reads neither: its grid (parallel/mesh.py) has the same two axes as
+    # process groups, and the edge-sharded step hands the model the graph
+    # group at run time (RadarGNN.forward(graph_group=)).
     mesh_axes: Tuple[str, ...] = ("data", "graph")
-    # Set to the mesh axis name (e.g. "graph") when running the model inside
-    # shard_map with edge arrays sharded along E; message aggregation then
-    # psums partial segment sums across the axis (edge partitioning).
     graph_axis: Optional[str] = None
 
     def __post_init__(self):

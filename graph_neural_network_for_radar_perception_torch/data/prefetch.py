@@ -8,8 +8,9 @@ padded batches ahead of the training loop (``threaded_batches``), and
 ``device_prefetch`` keeps ``buffer_size`` batches already on the card: each
 batch's host arrays are copied into pinned memory and sent with
 non-blocking copies on a copy stream of its own, so the next step's inputs
-travel while the current step runs.  The JAX package's ``sharding=``
-placement belongs with the port of ``parallel/`` (ROADMAP.md A6).
+travel while the current step runs.  ``sharding=`` (the JAX package's
+placement on a mesh) cuts each batch to this rank's share on the host
+first, so only that share is copied.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import collections
 import dataclasses
 import queue
 import threading
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -102,6 +103,7 @@ def device_prefetch(
     *,
     buffer_size: int = 2,
     device="cuda",
+    sharding: Optional[Callable] = None,
 ) -> Iterator:
     """Keep `buffer_size` batches already on ``device`` ahead of the
     consumer, in order; every numpy array of a batch (in tuples, dicts and
@@ -117,12 +119,19 @@ def device_prefetch(
     flight.  The pinned tensors are held until the batch is handed out
     (PyTorch's pinned allocator also keeps a block from reuse until the
     copy from it has retired).  On the CPU (``device="cpu"``) arrays become
-    tensors without copies, pinning or streams."""
+    tensors without copies, pinning or streams.
+
+    ``sharding``: a callable that cuts a batch to this rank's share on the
+    host before the copy, such as a grid step's ``step.sharding``
+    (``parallel/mesh.BatchSharding``: this rank's rows of the data axis and,
+    edge-sharded, its edge slice); pass the rank's device as ``device``."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_card else None
 
     def put(batch):
+        if sharding is not None:
+            batch = sharding(batch)
         if not on_card:
             return _tree_map(_as_tensor, batch), None, None
         with torch.cuda.stream(copy_stream):

@@ -21,6 +21,15 @@ enumeration; ``RadarGNN.trunk`` reverses the raw edge features).  Other
 configurations run the plain gather → MLP → segment path.  ``mp_bf16``
 runs the fused rounds with the TPU kernels' bf16 operands (the JAX
 package's ``fast_forward(mp_bf16=True)``); it needs a fused round.
+
+With a ``graph_group`` (the JAX package's ``graph_axis``: a process group
+of ``parallel/mesh.py``) the edge arrays are this rank's shard along E.
+Each round then computes the partial aggregate over the local edges, on
+the same route (kernel or plain) as without, and combines the partials
+across the group: a sum all-reduce for "add", for "mean" that of the sums
+and of the edge counts, then the division, and for "max" a max all-reduce
+(forward only, as ``jax.lax.pmax``).  Everything on the nodes stays
+replicated across the group.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..ops import fused_mp as FM
 from ..ops import norms as N
 from ..ops import segment as S
 from ..ops.fused_mp import fused_message_pass
+from ..parallel import collectives as P
 
 LEAKY_SLOPE = 0.01  # constants.py:10
 HEAD_STD = 0.01  # constants.py:16
@@ -209,7 +219,7 @@ class ResidualGraphConvBlock(nn.Module):
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
                 csr_layout=None, mp_bf16=False, fused_layout=None,
-                extra_features=None):
+                extra_features=None, graph_group=None):
         """On the fused path, masked edges must carry the sentinel index N
         at both ends (``GraphConvolution`` maps them); ``fused_layout`` is
         the graph's ``ops.fused_mp.fused_layout``, shared by its rounds, or
@@ -219,7 +229,9 @@ class ResidualGraphConvBlock(nn.Module):
         (receivers[p] → senders[p]), so dst = senders (sorted), src =
         receivers, and w1's row order [x_recv ‖ x_send ‖ e] is unchanged
         (the JAX package's models/fast_path.py).  ``mp_bf16``: the fused
-        round's bf16 operands; a ``ValueError`` if this round is not fused."""
+        round's bf16 operands; a ``ValueError`` if this round is not fused.
+        ``graph_group``: the edges are this rank's shard; the partial
+        aggregates are combined across the group (module docstring)."""
         if mp_bf16 and not self.fused:
             raise ValueError("mp_bf16 needs the fused round: channel "
                              "normalisation, leaky ReLU and sum aggregation")
@@ -246,12 +258,20 @@ class ResidualGraphConvBlock(nn.Module):
             m = torch.cat([S.gather_nodes(x, receivers),
                            S.gather_nodes(x, senders), edge_feat], dim=-1)
             m = self.msg_mlp(m, edge_mask)
-            if self.aggregation == "add":
-                agg = S.masked_segment_sum(m, receivers, n, edge_mask)
-            elif self.aggregation == "max":
+            if self.aggregation == "max":
                 agg = S.masked_segment_max(m, receivers, n, edge_mask)
-            else:
+            elif self.aggregation == "mean" and graph_group is None:
                 agg = S.masked_segment_mean(m, receivers, n, edge_mask)
+            else:
+                agg = S.masked_segment_sum(m, receivers, n, edge_mask)
+        if graph_group is not None:  # combine the edge shards' partials
+            if self.aggregation == "max":
+                agg = P.pmax(agg, graph_group)
+            else:
+                agg = P.psum(agg, graph_group)
+            if self.aggregation == "mean":
+                cnt = P.psum(S.segment_count(receivers, n, edge_mask), graph_group)
+                agg = agg / torch.clamp(cnt[:, None], min=1.0)
         parts = [x, agg] if extra_features is None else [x, extra_features, agg]
         upd = self.upd_mlp(torch.cat(parts, dim=-1), node_mask)
         return identity + upd
@@ -279,13 +299,17 @@ class GraphConvolution(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                mp_impl=None, mp_bf16=False, extra_features=None):
+                mp_impl=None, mp_bf16=False, extra_features=None,
+                graph_group=None):
         """``mp_impl`` overrides the one given at construction.  On "csr",
         ``edge_feat`` must encode the reversed edges' raw features.
         ``mp_bf16``: the fused rounds' bf16 operands (each block raises
         ``ValueError`` unless its round is fused, where the JAX fast path
         asserts).  ``extra_features`` [N, extra_dim] enter every block's
-        update MLP after the aggregate; the message rounds do not see them."""
+        update MLP after the aggregate; the message rounds do not see them.
+        ``graph_group``: the edges are this rank's shard along E (the index
+        preparation and the CSR guard then run on the shard: a contiguous
+        slice of destination-sorted edges stays sorted)."""
         mp_impl = mp_impl or self.mp_impl
         if mp_impl == "csr" and not self.fused:
             raise ValueError("mp_impl='csr' needs channel normalisation, "
@@ -310,7 +334,7 @@ class GraphConvolution(nn.Module):
             fused = FM.fused_layout(senders, receivers, x.shape[0])
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
-                    layout, mp_bf16, fused, extra_features)
+                    layout, mp_bf16, fused, extra_features, graph_group)
         return x
 
     def _csr_guard(self, senders, receivers, n):

@@ -124,13 +124,17 @@ class GraphAttention(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                mp_impl=None, mp_bf16=False, extra_features=None):
+                mp_impl=None, mp_bf16=False, extra_features=None,
+                graph_group=None):
         """The message-passing neck's call (``RadarGNN.trunk``).  The GAT
         neck has no fused round: ``mp_impl="csr"`` and ``mp_bf16`` raise
-        ``ValueError``."""
+        ``ValueError``; nor a graph axis (as in the JAX package):
+        ``graph_group`` raises too."""
         if mp_impl == "csr" or mp_bf16:
             raise ValueError("the GAT neck has no fused message round: "
                              "mp_impl='csr' and mp_bf16 do not apply")
+        if graph_group is not None:
+            raise ValueError("the GAT neck has no graph axis")
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
                     extra_features)

@@ -131,14 +131,15 @@ class RadarGNN(nn.Module):
         return self.predict_node(x, nm), self.predict_offset(x, nm)
 
     def trunk(self, graph: RadarGraph, mp_impl: Optional[str] = None,
-              mp_bf16: bool = False, extra_features=None):
+              mp_bf16: bool = False, extra_features=None, graph_group=None):
         """Encoders + message passing → final node embeddings
         (gnn_detector.py:151-156).  On "csr" (fast_path.py:125-156) the edge
         encoder reads the reversed edges' raw features, and
         ``GraphConvolution`` zeroes masked edge rows and adds the NaN guard
         of window violations; each directed edge is still encoded once,
         just enumerated differently.  ``mp_bf16``: the message rounds' bf16
-        operands."""
+        operands.  ``graph_group``: the graph's edges are this rank's shard
+        (``parallel/``; the JAX package's ``cfg.graph_axis``)."""
         mp_impl = mp_impl or self.cfg.mp_impl
         nm, em = graph.node_mask, graph.edge_mask
         x = self.encode_node_feat(graph.node_feat, nm)
@@ -147,13 +148,16 @@ class RadarGNN(nn.Module):
             edge_feat = reverse_edge_features(edge_feat)
         e = self.encode_edge_feat(edge_feat, em)
         return self.pass_messages(x, e, graph.senders, graph.receivers, nm, em,
-                                  mp_impl, mp_bf16, extra_features)
+                                  mp_impl, mp_bf16, extra_features, graph_group)
 
     def forward(self, graph: RadarGraph, node2cluster, num_clusters: int,
                 cluster_mask, mp_impl: Optional[str] = None,
-                mp_bf16: bool = False, extra_features=None) -> GNNOutputs:
+                mp_bf16: bool = False, extra_features=None,
+                graph_group=None) -> GNNOutputs:
+        """With a ``graph_group`` the edge fields of ``graph`` (and so
+        ``edge_cls``) are this rank's shard along E."""
         nm = graph.node_mask
-        x = self.trunk(graph, mp_impl, mp_bf16, extra_features)
+        x = self.trunk(graph, mp_impl, mp_bf16, extra_features, graph_group)
         node_cls, node_off = self._node_heads(x, nm)
         edge_cls = self.predict_link(
             x, graph.und_senders, graph.und_receivers, nm, graph.und_mask)

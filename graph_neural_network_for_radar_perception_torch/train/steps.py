@@ -25,7 +25,7 @@ from torch.profiler import record_function
 from ..config.config import GNNConfig
 from ..core.graph import GraphBatch, resolve_device
 from ..models.gnn import RadarGNN
-from .loss import graph_loss_sums, reduce_loss_sums, tree_sum
+from .loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 
 
 @dataclasses.dataclass
@@ -108,15 +108,24 @@ def make_loss_fn(cfg: GNNConfig, mp_impl: Optional[str] = None,
     backward), as the JAX package's fast path does."""
 
     def loss_fn(model: RadarGNN, batch: GraphBatch):
-        sums = []
-        for b in range(batch.batch_size):
-            graph, labels = batch.graph.at(b), batch.labels.at(b)
-            out = model(graph, labels.node2cluster, cfg.max_clusters,
-                        labels.cluster_mask, mp_impl=mp_impl, mp_bf16=mp_bf16)
-            sums.append(graph_loss_sums(out, graph, labels, cfg))
+        sums = per_graph_loss_sums(model, batch, cfg, mp_impl=mp_impl,
+                                   mp_bf16=mp_bf16)
         return reduce_loss_sums(tree_sum(sums), cfg)
 
     return loss_fn
+
+
+def per_graph_loss_sums(model: RadarGNN, batch: GraphBatch, cfg: GNNConfig,
+                        **model_kwargs) -> List[LossSums]:
+    """One model call per graph of the batch (``model_kwargs`` passed on)
+    and its ``graph_loss_sums``, in batch order."""
+    sums = []
+    for b in range(batch.batch_size):
+        graph, labels = batch.graph.at(b), batch.labels.at(b)
+        out = model(graph, labels.node2cluster, cfg.max_clusters,
+                    labels.cluster_mask, **model_kwargs)
+        sums.append(graph_loss_sums(out, graph, labels, cfg))
+    return sums
 
 
 def _apply_update(state: TrainState, grads: List[torch.Tensor],

@@ -100,6 +100,45 @@ def test_import_scan_covers_the_eval_and_variant_slice():
             "data/pipeline.py", "models/cnn.py"} <= names
 
 
+def test_import_scan_covers_the_parallel_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"parallel/collectives.py", "parallel/mesh.py", "parallel/sharded.py",
+            "parallel/halo.py", "parallel/distributed.py", "parallel/worker.py",
+            "parallel/scaling.py"} <= names
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_uses_no_torch_distributed_nn(path):
+    """The collectives are the port's own autograd Functions: the deprecated
+    ``torch.distributed.nn`` (whose all-gather backward needs ``all_to_all``,
+    which gloo lacks) is not imported."""
+    for name in _imported_modules(path):
+        assert not name.startswith("torch.distributed.nn"), f"{path.name} imports {name}"
+    assert "distributed.nn" not in path.read_text(), path.name
+
+
+def test_parallel_entry_points_refuse_cuda_without_a_card(monkeypatch):
+    """The worker, the process group and the grid default to the card and
+    raise without one; the CPU runs only when asked for."""
+    from graph_neural_network_for_radar_perception_torch.parallel import (
+        distributed as PD,
+    )
+    from graph_neural_network_for_radar_perception_torch.parallel import mesh as PM
+    from graph_neural_network_for_radar_perception_torch.parallel import worker as PW
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PW.main(["--num-processes", "1", "--process-id", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PD.init_distributed(num_processes=1, process_id=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PM.rank_device()
+    assert PM.rank_device("cpu", 0) == torch.device("cpu")
+    with pytest.raises(ValueError, match="gloo"):
+        PD.init_distributed(num_processes=1, process_id=0, device="cpu", backend="nccl")
+
+
 def test_port_loads_no_library_of_the_jax_package():
     """The native builder is the port's own build of its own source."""
     text = (PORT / "data" / "native.py").read_text()

@@ -1,5 +1,9 @@
 """Fixtures shared by the port's CPU tests (tests/test_torch_*.py)."""
 
+import concurrent.futures
+import dataclasses
+import os
+
 import pytest
 import torch
 
@@ -32,3 +36,39 @@ def jax_native():
         JNAT = importlib.reload(JNAT)
     assert JNAT.available(), "the JAX package's native library did not load"
     return JNAT
+
+
+def port_batch(batch):
+    """A numpy GraphBatch of the JAX package in the port's containers (the
+    same arrays)."""
+    from graph_neural_network_for_radar_perception_torch.core.graph import (
+        GraphBatch,
+        GraphLabels,
+        RadarGraph,
+    )
+
+    def cast(cls, obj):
+        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+    return GraphBatch(graph=cast(RadarGraph, batch.graph), labels=cast(GraphLabels, batch.labels))
+
+
+def in_background(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a thread: a future of its result."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(fn, *args, **kwargs)
+    pool.shutdown(wait=False)
+    return future
+
+
+def start_grid(modes, world, timeout=300.0):
+    """The port's worker (``parallel/worker.launch_spec``) as ``world`` gloo
+    ranks on the CPU (one thread each) over ``modes``, in the background:
+    the returned future gives each rank's results, or raises with every
+    rank's log."""
+    from graph_neural_network_for_radar_perception_torch.parallel.worker import (
+        launch_spec,
+    )
+
+    return in_background(launch_spec, {"modes": modes}, world, device="cpu", timeout=timeout,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
