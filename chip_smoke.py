@@ -124,7 +124,15 @@ Phases, each reported on its own line:
     the card from the same weights and batch, its first step to the plain
     rounds on the CPU, every rank's params bitwise equal, the launches per
     rank exact, ms per step per rank;
-23. print the kernel table as JSON and the card's name and power limit.
+23. [examples] the user entry points, each through its ``main`` on the
+    card at its shipped widths for 2 steps or frames, into a temporary
+    directory: the 11 ``examples/`` (``visualize`` its detection half: this
+    script needs no matplotlib), ``scripts/check_decision_equivalence``
+    (card against CPU) and ``scripts/train_fixture_artifact``; each one's
+    fused-kernel launches, ``overfit_gnn``'s step 1 replayed on the CPU,
+    ``evaluate``'s confusion on the card equal to the CPU's, every file
+    written parsed, the wall time of each;
+24. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -140,10 +148,11 @@ nothing of JAX.
     python3 chip_smoke.py --phase eval        # also variants, finetune,
     python3 chip_smoke.py --phase cnn         # classifier
     python3 chip_smoke.py --phase parallel
+    python3 chip_smoke.py --phase examples
 
 build the libraries a phase needs and run phase 3 (the fused backward),
 phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
-plane) or one of phases 17-22 alone, or only a
+plane) or one of phases 17-23 alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -200,6 +209,8 @@ CLASSIFIER_BATCH = 8
 CNN_STEPS = 2          # [cnn]: steps; the first replayed on the CPU
 CNN_BATCH = 2
 CNN_MAX_MEAS = 1024    # preprocess_frame_hybrid's default capacity
+EXAMPLE_STEPS = 2      # [examples]: train steps of each entry point that trains
+EXAMPLE_FRAMES = 2     # [examples]: frames of each evaluation
 # [eval]: eigenvectors are compared one by one only where the eigenvalues
 # are apart by more than this share of the larger: closer, f32 rounding may
 # turn them by more than the deploy tolerance.
@@ -2969,6 +2980,208 @@ def phase_parallel(torch, FM):
     return dict(totals, shard_err=shard_err)
 
 
+def _parsed(path: str) -> int:
+    """Read a file an entry point wrote: a JSON file, the JSON lines of a
+    .jsonl, a ``torch.save``d .pt; its count of records (1 for a file)."""
+    import torch
+
+    if path.endswith(".jsonl"):
+        with open(path) as f:
+            return len([json.loads(line) for line in f])
+    if path.endswith(".json"):
+        with open(path) as f:
+            json.load(f)
+    elif path.endswith(".pt"):
+        torch.load(path, map_location="cpu", weights_only=True)
+    elif os.path.getsize(path) == 0:
+        raise AssertionError(f"{path} is empty")
+    return 1
+
+
+def phase_examples(torch, FM):
+    """Phase 23: the user entry points (``examples/``, ``scripts/
+    check_decision_equivalence``, ``scripts/train_fixture_artifact``), each
+    through its ``main`` on the card at the widths it ships with, for a few
+    iterations or frames, into a temporary directory; visualize runs its
+    detection half (this script needs no matplotlib).  Checks: each one's
+    fused-kernel launches (exact where the run fixes them, whole rounds
+    otherwise; no CSR or bf16 launch), step 1 of overfit_gnn replayed on
+    the CPU (the plain rounds) within [train]'s tolerance, evaluate's
+    confusion JSON and detection matrix on the card equal to the CPU's,
+    check_decision_equivalence finding no decision of the card that differs
+    from the CPU's, every file written present and parseable; the wall time
+    of each."""
+    import contextlib
+    import importlib
+    import tempfile
+
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+
+    def entry(name):
+        return importlib.import_module(f"graph_neural_network_for_radar_perception_torch.{name}")
+
+    rounds = len(GNNConfig().graph_convolution_stem_channels)
+    results = {}
+
+    def run(label, call, fwd, bwd):
+        """``call()`` on the card with stdout to stderr; ``fwd``/``bwd``:
+        the launches expected (an int) or a predicate of the count."""
+        _restore_counts(FM, C, dict.fromkeys(_counts(FM, C), 0))
+        FM.fused_message_pass.launches_bf16 = C.fused_message_pass_csr.launches_bf16 = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts(FM, C)
+        other = (got["csr_mp_forward"] + got["csr_mp_backward"]
+                 + FM.fused_message_pass.launches_bf16 + C.fused_message_pass_csr.launches_bf16)
+        for key, want in (("fused_mp_forward", fwd), ("fused_mp_backward", bwd)):
+            n = got[key]
+            ok = want(n) if callable(want) else n == want
+            if not ok or other:
+                raise AssertionError(f"[examples] {label}: {key} launches {n} "
+                                     f"(other kernels {other})")
+        results[label] = {"s": round(wall, 3), "fwd": got["fused_mp_forward"],
+                          "bwd": got["fused_mp_backward"]}
+        log(f"[examples] {label}: {wall:.2f} s on the card; fused_mp_forward "
+            f"{got['fused_mp_forward']}, fused_mp_backward {got['fused_mp_backward']}")
+        return out
+
+    def rounds_of(lo):
+        return lambda n: n >= lo and n % rounds == 0
+
+    cuda = ["--device", "cuda"]
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        def out(name):
+            return os.path.join(tmp, name)
+
+        ev = entry("examples.evaluate")
+        ev_argv = ["--frames", str(EXAMPLE_FRAMES)]
+        card_ev = run("evaluate", lambda: ev.main(ev_argv + ["--out", out("eval")] + cuda),
+                      rounds_of(rounds * EXAMPLE_FRAMES), 0)
+        with contextlib.redirect_stdout(sys.stderr):
+            cpu_ev = ev.main(ev_argv + ["--out", out("eval_cpu"), "--device", "cpu"])
+        with open(card_ev["json"]) as f, open(cpu_ev["json"]) as g:
+            seg_equal = json.load(f) == json.load(g)
+        det_equal = bool((card_ev["detection"].cm == cpu_ev["detection"].cm).all())
+        log(f"[examples] evaluate card vs CPU: segmentation JSON equal {seg_equal}, detection "
+            f"confusion equal {det_equal} ({int(card_ev['segmentation'].cm.sum())} nodes, "
+            f"{int(card_ev['detection'].cm.sum())} objects)")
+        if not (seg_equal and det_equal):
+            raise AssertionError("[examples] evaluate: the card's confusion differs from the CPU's")
+
+        viz = entry("examples.visualize")
+        run("visualize (detect)", lambda: viz.detect(viz.parse_args(
+            ["--frames", str(EXAMPLE_FRAMES)] + cuda)), rounds * EXAMPLE_FRAMES, 0)
+
+        over = entry("examples.overfit_gnn")
+        steps = run("overfit_gnn", lambda: over.main(["--steps", str(EXAMPLE_STEPS)] + cuda),
+                    rounds * EXAMPLE_STEPS, rounds * EXAMPLE_STEPS)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            cpu_step = over.main(["--steps", "1", "--device", "cpu"])
+        err = _metrics_close(steps[:1], cpu_step, "[examples] overfit_gnn step 1")
+        log(f"[examples] overfit_gnn step 1 vs the CPU's plain rounds ({time.perf_counter() - t0:.1f}"
+            f" s): metrics max abs err {err:.3e} (rtol={METRIC_RTOL}, atol={METRIC_ATOL}; "
+            f"loss_total {steps[0]['loss_total']!r} on the card, {cpu_step[0]['loss_total']!r} "
+            f"on the CPU); loss {steps[0]['loss_total']:.4f} -> {steps[-1]['loss_total']:.4f}")
+
+        batch = GNNConfig().batch_size
+        tg = entry("examples.train_gnn")
+        tg_argv = ["--out", out("gnn")] + cuda
+        per_step = rounds * batch
+        run("train_gnn", lambda: tg.main(["--iters", str(EXAMPLE_STEPS)] + tg_argv),
+            per_step * EXAMPLE_STEPS, per_step * EXAMPLE_STEPS)
+        state = run("train_gnn --resume", lambda: tg.main(
+            ["--iters", str(EXAMPLE_STEPS + 1), "--resume"] + tg_argv), per_step, per_step)
+        if state.step != EXAMPLE_STEPS + 1:
+            raise AssertionError(f"[examples] train_gnn resumed to step {state.step}")
+
+        demo = entry("examples.demo_training_run")
+        run("demo_training_run", lambda: demo.main(
+            ["--iters", str(EXAMPLE_STEPS), "--eval-frames", str(EXAMPLE_FRAMES),
+             "--out", out("demo")] + cuda),
+            rounds_of(per_step * EXAMPLE_STEPS + 2 * rounds * EXAMPLE_FRAMES),
+            per_step * EXAMPLE_STEPS)
+
+        lr = entry("examples.long_training_run")
+        lr_argv = ["--max-iters", str(EXAMPLE_STEPS + 1), "--pool-batches", "2",
+                   "--eval-frames", str(EXAMPLE_FRAMES), "--run-dir", out("long_run")] + cuda
+        run("long_training_run --stop-at", lambda: lr.main(
+            lr_argv + ["--stop-at", str(EXAMPLE_STEPS)]), rounds_of(1), rounds_of(1))
+        state = run("long_training_run (resume, eval trend)", lambda: lr.main(lr_argv),
+                    rounds_of(1), rounds_of(1))
+        if state.step != EXAMPLE_STEPS + 1:
+            raise AssertionError(f"[examples] long_training_run resumed to step {state.step}")
+
+        ft = entry("examples.finetune_obj_classifier")
+        run("finetune_obj_classifier", lambda: ft.main(
+            ["--iters", str(EXAMPLE_STEPS), "--batch-size", "4"] + cuda),
+            rounds * 4 * EXAMPLE_STEPS, 0)
+
+        tc = entry("examples.train_classifier")
+        run("train_classifier --use-detector-proposals", lambda: tc.main(
+            ["--iters", str(EXAMPLE_STEPS), "--batch-size", "4", "--use-detector-proposals"]
+            + cuda), rounds_of(rounds * (1 + 4 * EXAMPLE_STEPS)), 0)
+
+        ch = entry("examples.classifier_chain")
+        run("classifier_chain", lambda: ch.main(
+            ["--stage1-iters", str(EXAMPLE_STEPS), "--stage2-iters", str(EXAMPLE_STEPS),
+             "--pool-batches", "2", "--n-train-frames", "4", "--n-eval-frames", "4",
+             "--out", out("classifier_chain")] + cuda),
+            rounds_of(per_step * EXAMPLE_STEPS + rounds * 8), per_step * EXAMPLE_STEPS)
+
+        cnn = entry("examples.train_cnn")
+        run("train_cnn", lambda: cnn.main(["--iters", str(EXAMPLE_STEPS)] + cuda), 0, 0)
+
+        pw = entry("examples.pointwise_baseline")
+        run("pointwise_baseline", lambda: pw.main(
+            ["--frames", "8", "--iters", str(EXAMPLE_STEPS), "--out", out("pointwise")] + cuda),
+            0, 0)
+
+        dec = entry("scripts.check_decision_equivalence")
+        n_cmp = run("check_decision_equivalence (card, then CPU)", lambda: dec.main(cuda),
+                    lambda n: n > 0 and n % rounds == 0, 0)
+        log(f"[examples] check_decision_equivalence: {n_cmp} frames, every decision of the "
+            f"card equal to the CPU's")
+        if results["check_decision_equivalence (card, then CPU)"]["fwd"] != rounds * n_cmp:
+            raise AssertionError("[examples] check_decision_equivalence: launches != 7 a frame")
+
+        fix = entry("scripts.train_fixture_artifact")
+        run("train_fixture_artifact", lambda: fix.main(
+            ["--iters", str(EXAMPLE_STEPS), "--out", out("fixture_artifact")] + cuda),
+            rounds_of(rounds * 4 * EXAMPLE_STEPS), rounds * 4 * EXAMPLE_STEPS)
+
+        written = {}
+        for root, _, names in os.walk(tmp):
+            for name in names:
+                if name.startswith("events.out.tfevents"):  # TensorBoard's own format
+                    continue
+                path = os.path.join(root, name)
+                written[os.path.relpath(path, tmp)] = _parsed(path)
+        want = {"eval/sequence_synthetic.json", "gnn/ckpt/2.pt", "gnn/ckpt/3.pt",
+                "gnn/logs/metrics.jsonl", "demo/eval_before.json", "demo/eval_after.json",
+                "demo/metrics.jsonl", "demo/params.pt", "long_run/eval_trend.jsonl",
+                "long_run/ckpt/2.pt", "long_run/ckpt/3.pt", "classifier_chain/summary.json",
+                "pointwise/predictions_semseg.json", "pointwise/predictions_instseg.json",
+                "fixture_artifact/weights.pt", "fixture_artifact/config.json",
+                "fixture_artifact/README.md"}
+        want |= {f"fixture_artifact/eval/{kind}/sequence_{i}.json" for i in range(1, 7)
+                 for kind in ("semantic_segmentation", "object_classification")}
+        missing = want - set(written)
+        if missing or written["long_run/eval_trend.jsonl"] != 3:
+            raise AssertionError(f"[examples] files missing {sorted(missing)} or an eval trend "
+                                 f"of {written.get('long_run/eval_trend.jsonl')} lines")
+        log(f"[examples] {len(written)} files written and parsed (JSON, JSON lines, torch.save); "
+            f"eval_trend.jsonl has steps 0, {EXAMPLE_STEPS}, {EXAMPLE_STEPS + 1}")
+    total = {key: sum(r[key] for r in results.values()) for key in ("fwd", "bwd")}
+    log(f"[examples] wall s per entry point on {card()}: "
+        f"{json.dumps({k: r['s'] for k, r in results.items()})}")
+    return dict(total, entries=results)
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2999,7 +3212,8 @@ def main(argv) -> int:
               "finetune": (phase_finetune, "fused_mp"),
               "classifier": (phase_classifier, "fused_mp"),
               "cnn": (phase_cnn, "fused_mp"),
-              "parallel": (phase_parallel, "fused_mp", "csr_mp")}
+              "parallel": (phase_parallel, "fused_mp", "csr_mp"),
+              "examples": (phase_examples, "fused_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -3076,6 +3290,7 @@ def main(argv) -> int:
     phase_classifier(torch, FM)
     phase_cnn(torch, FM)
     par = phase_parallel(torch, FM)
+    examples = phase_examples(torch, FM)
     v1_fused = variants["v1"]["launches"]["fused_mp_forward"]
     v1_csr = variants["v1-csr"]["launches"]["csr_mp_forward"]
     fwd_row["launches"] = (deploy_launches + train_fwd + data_plane["fwd"] + evaluation["fwd"]
@@ -3102,6 +3317,9 @@ def main(argv) -> int:
                      (csr_row, "csr_mp_forward"), (csr_bwd_row, "csr_mp_backward")):
         row["launches"] += par[key]
         row["launches_by_path"]["parallel"] = par[key]
+    for row, key in ((fwd_row, "fwd"), (bwd_row, "bwd")):
+        row["launches"] += examples[key]
+        row["launches_by_path"]["examples"] = examples[key]
     for row in (gather_row, scatter_row):
         row["launches_by_path"] = {"microbenchmark": row["launches"]}
     log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,

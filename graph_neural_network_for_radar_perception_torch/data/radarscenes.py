@@ -210,11 +210,16 @@ class RadarScenesDataset:
 
     def __init__(self, cfg, root: str, metadata: List[dict],
                  augment: bool = False, seed: int = 0,
-                 dataset_path: Optional[str] = None):
+                 dataset_path: Optional[str] = None,
+                 cache: Optional[SequenceCache] = None):
+        """``cache``: the sequences to read (``root`` and ``dataset_path``
+        are then unused), such as ``data/mini_radarscenes``' in memory."""
         from .pipeline import pad_frame, preprocess_frame
 
         self.cfg = cfg
-        self.cache = SequenceCache(root, dataset_path or cfg.dataset_dir)
+        if cache is None:
+            cache = SequenceCache(root, dataset_path or cfg.dataset_dir)
+        self.cache = cache
         self.metadata = metadata
         self.augment = augment
         self.rng = np.random.default_rng(seed)

@@ -107,6 +107,50 @@ def test_import_scan_covers_the_parallel_slice():
             "parallel/scaling.py"} <= names
 
 
+def test_import_scan_covers_the_examples_slice():
+    """The user entry points: every root example has its port, and the
+    viz modules and the two ported root scripts are scanned."""
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    examples = {f"examples/{p.name}" for p in (REPO / "examples").glob("*.py")}
+    assert len(examples) == 11
+    assert examples | {"viz/plots.py", "viz/viewer.py", "data/mini_radarscenes.py",
+                       "scripts/check_decision_equivalence.py",
+                       "scripts/train_fixture_artifact.py"} <= names
+
+
+# Each entry point with the least arguments that keep its outputs in a
+# temporary directory ("{tmp}"): without --device it asks for the card.
+ENTRY_POINTS = {
+    "examples.evaluate": ["--frames", "1", "--out", "{tmp}"],
+    "examples.visualize": ["--frames", "1", "--out", "{tmp}"],
+    "examples.overfit_gnn": ["--steps", "1"],
+    "examples.train_gnn": ["--iters", "1", "--out", "{tmp}"],
+    "examples.demo_training_run": ["--iters", "1", "--out", "{tmp}"],
+    "examples.long_training_run": ["--max-iters", "1", "--run-dir", "{tmp}"],
+    "examples.finetune_obj_classifier": ["--iters", "1"],
+    "examples.train_classifier": ["--iters", "1", "--use-detector-proposals"],
+    "examples.classifier_chain": ["--stage1-iters", "1", "--pool-batches", "1",
+                                  "--out", "{tmp}"],
+    "examples.train_cnn": ["--iters", "1"],
+    "examples.pointwise_baseline": ["--iters", "1", "--frames", "1", "--out", "{tmp}"],
+    "scripts.check_decision_equivalence": [],
+    "scripts.train_fixture_artifact": ["--iters", "1", "--out", "{tmp}"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_asks_for_the_card_by_default(name, tmp_path, monkeypatch):
+    """``--device`` defaults to ``cuda``: without a card the entry point
+    raises before any step; it never falls back to the CPU."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = importlib.import_module(f"graph_neural_network_for_radar_perception_torch.{name}")
+    argv = [a.format(tmp=tmp_path) for a in ENTRY_POINTS[name]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(argv)
+
+
 @pytest.mark.parametrize(
     "path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_uses_no_torch_distributed_nn(path):
