@@ -36,11 +36,19 @@ Phases, each reported on its own line:
    kernel's launches and every kernel of one deploy forward, and compare
    logits and decisions with the same detector on the CPU (which runs the
    plain version);
+6b. [batched] the four round kernels and the bf16 forwards over 8
+   graphs in one C call (the training batch, the main path's shapes)
+   against one call a graph: per-graph outputs bitwise equal, the weight
+   gradients within 1e-6 of the graphs' sum; the batch's layouts against
+   each graph's; the batched call's time beside its bound;
 7. [train] drive the training path — ``trainer.train`` with
-   ``GNNConfig()`` at batch 8 on synthetic batches — count both kernels'
-   launches, replay the same steps on the CPU and compare metrics and
-   params, check the NaN skip on a poisoned batch, time a step and profile
-   one;
+   ``GNNConfig()`` at batch 8 on synthetic batches, each step a replay of
+   one captured CUDA graph — count both kernels' launches (one a round a
+   step for the batch), replay the same steps on the CPU and run them
+   eagerly on the card (the batched and the per-graph step) and compare
+   metrics and params, check the NaN skip on a poisoned batch (params and
+   optimiser state bitwise), time a step and profile one (kernels, host
+   launches, busy share);
 8. [train-csr] the same with ``GNNConfig(mp_impl="csr")``, also against the
    default message pass on the card, and a window violation that the NaN
    guard turns into a skipped step;
@@ -149,6 +157,7 @@ nothing of JAX.
     python3 chip_smoke.py --phase cnn         # classifier
     python3 chip_smoke.py --phase parallel
     python3 chip_smoke.py --phase examples
+    python3 chip_smoke.py --phase train       # [batched] and the train phases
 
 build the libraries a phase needs and run phase 3 (the fused backward),
 phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
@@ -337,7 +346,7 @@ def fused_fwd_raw(torch, FM, args, agg):
            r.data_ptr(), layout.recv_order.data_ptr(), layout.recv_off.data_ptr(),
            w1e.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
            scal.data_ptr(), 0.01, msgs.data_ptr(), agg.data_ptr(), N, E, DE, H,
-           D2, torch.cuda.current_stream().cuda_stream)
+           D2, 1, torch.cuda.current_stream().cuda_stream)
     return raw, (xa, xb, scal, msgs, agg, layout)
 
 
@@ -778,7 +787,7 @@ def csr_fwd_raw(torch, C, args, layout):
            layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
            xab.data_ptr(), 0.01, msgs.data_ptr(), agg.data_ptr(),
-           n, e, d, de, h, d2,
+           n, e, d, de, h, d2, 1,
            torch.cuda.current_stream().cuda_stream)
     return raw, (scal, xab, msgs, agg, layout)
 
@@ -1010,6 +1019,176 @@ def time_csr_bwd(torch, C):
     }
 
 
+BATCH = 8          # graphs a launch: [batched] and the train phases' GNNConfig().batch_size
+DW_RTOL = 1e-6     # a batched launch's weight gradients against the graphs' sum
+
+
+def graph_slice(layout, g: int):
+    """Graph g's layout of a batch's (a graph axis of one kept)."""
+    return type(layout)(*(t[g:g + 1] if hasattr(t, "shape") else t for t in layout))
+
+
+def batched_round(torch, problems):
+    """BATCH rounds as one batch: x, ef and both index arrays stacked on a
+    leading graph axis, the first round's weights and scalars for all."""
+    return [torch.stack([p[i] for p in problems]) for i in range(4)] + list(problems[0][4:])
+
+
+def _graph_sum(parts):
+    """The graphs' weight gradients added in graph order."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _check_batched(torch, tag: str, launch, names, stacked: int) -> dict:
+    """One C call over the BATCH graphs (``launch(None)``) against one call
+    a graph (``launch(g)``): the first ``stacked`` outputs bitwise equal
+    graph by graph, the rest (weight gradients) within DW_RTOL of the
+    graphs' sum, relative to the largest element of the graphs' summed
+    magnitudes (sum over g of |dw_g|: the scale of a reassociated sum's
+    rounding; the sum itself may cancel, as the norm scalars' do); then
+    both timed.
+    ``launch(g)`` → (call, results): the C call and a function of its
+    outputs."""
+    call, results = launch(None)
+    if call() != 0:
+        raise RuntimeError(f"[batched] {tag}: the batched call failed")
+    calls = [launch(g) for g in range(BATCH)]
+    for c, _ in calls:
+        if c() != 0:
+            raise RuntimeError(f"[batched] {tag}: a one-graph call failed")
+    torch.cuda.synchronize()
+    got, each = results(), [r() for _, r in calls]
+    same = {n: all(torch.equal(got[i][g], each[g][i][0]) for g in range(BATCH))
+            for i, n in enumerate(names[:stacked])}
+    rel = {}
+    for i, n in enumerate(names[stacked:], stacked):
+        want = _graph_sum([e[i] for e in each])
+        scale = float(_graph_sum([e[i].abs() for e in each]).max())
+        rel[n] = float((got[i] - want).abs().max()) / max(scale, 1e-30)
+    b8_ms = event_ms(call, reps=20, inner=5)
+    x8_ms = event_ms(lambda: [c() for c, _ in calls], reps=20, inner=5)
+    log(f"[batched] {tag}: one call for {BATCH} graphs vs {BATCH} one-graph calls: "
+        f"bitwise equal {json.dumps(same)}; weight gradients max rel err "
+        f"{json.dumps({k: f'{v:.2e}' for k, v in rel.items()})} (<= {DW_RTOL}); "
+        f"C call {b8_ms * 1e3:.2f} us vs {BATCH} calls {x8_ms * 1e3:.2f} us")
+    if not all(same.values()) or any(v > DW_RTOL for v in rel.values()):
+        raise AssertionError(f"[batched] {tag}: a batched launch differs from its graphs' launches")
+    return {"b8_ms": b8_ms, "b1x8_ms": x8_ms}
+
+
+def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
+    """The least time at B = 8: operations over ``peak`` (their type's),
+    bytes over the memory rate, the larger."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return {"b8_bound_ms": max(t_ops, t_bytes) * 1e3,
+            "b8_bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_batched(torch, FM, C) -> dict:
+    """The graph axis of the four message-round kernels and the bf16
+    forwards: at the main path's shapes, BATCH graphs (other edges and
+    features, shared weights) in one C call against one call a graph on
+    the same inputs (forwards: agg and the messages of the edges that land
+    bitwise, msgs being a scratch whose other rows no kernel writes;
+    backwards: gef, dxa,
+    dxb / dx bitwise, the weight gradients within DW_RTOL of the graphs'
+    sum), the batch's layouts against each graph's own, and the batched
+    call's time beside its bound.  Returns {row name: B = 8 numbers}."""
+    rng = np.random.default_rng(21)
+    out = {}
+    fused = batched_round(torch, [kernel_problem(torch, rng, 9216 - 512 * g, E)
+                                  for g in range(BATCH)])
+    x, ef, s, r, w1, b1, w2, b2 = fused[:8]
+    scal = torch.cat(fused[8:])
+    layout = FM.fused_layout(s, r, N)
+    for g in range(BATCH):
+        if not all(torch.equal(a[g], b) for a, b in zip(layout, FM.fused_layout(s[g], r[g], N))):
+            raise AssertionError("[batched] the batch's fused layout is not each graph's")
+    xa, xb = x @ w1[:D], x @ w1[D:2 * D]  # one set of node products for both
+    gout = torch.from_numpy((G_SCALE * rng.normal(size=(BATCH, N, D2))).astype(np.float32)).cuda()
+    e_live = [int(((r[g] >= 0) & (r[g] < N)).sum()) for g in range(BATCH)]
+    weights = DE * H + H + H * D2 + D2 + 4
+
+    def fused_fwd(bf16):
+        def launch(g):
+            sl = slice(None) if g is None else slice(g, g + 1)
+            raw, outs = FM._forward_launch(
+                x[sl], ef[sl], s[sl], r[sl], w1, b1, w2, b2, scal, 0.01,
+                layout if g is None else graph_slice(layout, g), (xa[sl], xb[sl]))
+            fn = FM._kernel(bf16)
+            lands = ((r[sl] >= 0) & (r[sl] < N))[..., None]
+            return (lambda: fn(*raw)), (lambda: (outs[1], torch.where(lands, outs[0], 0.0)))
+        return launch
+
+    fwd_bytes = 4 * sum(2 * N * H + E + e * (DE + 1) + N * D2 for e in e_live) + 4 * weights
+    fwd_flops = 2 * sum(e_live) * (DE * H + H * D2)
+    for bf16, name in ((False, "fused_message_pass"), (True, "fused_message_pass_bf16")):
+        row = _check_batched(torch, f"{name} forward", fused_fwd(bf16), ["agg", "msgs"], 2)
+        out[name] = dict(row, **_bound(fwd_flops, fwd_bytes,
+                                       PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))
+
+    def fused_bwd(g):
+        sl = slice(None) if g is None else slice(g, g + 1)
+        raw, results = FM._backward_launch(
+            x[sl], ef[sl], s[sl], r[sl], layout if g is None else graph_slice(layout, g),
+            w1, b1, w2, b2, scal, gout[sl].contiguous(), 0.01, (xa[sl], xb[sl]))
+        fn = FM._bwd_kernel()
+        return (lambda: fn(*raw)), results
+
+    row = _check_batched(torch, "fused_message_pass_backward", fused_bwd, FUSED_BWD_NAMES, 3)
+    n_io = sum(2 * N * H + E * DE + 2 * E + N * D2 + E * DE + 2 * N * H for _ in e_live)
+    out["fused_message_pass_backward"] = dict(row, **_bound(
+        3 * fwd_flops, 4 * (n_io + 2 * weights)))
+
+    csr = batched_round(torch, [csr_problem(torch, rng, knn_edges(rng, N, 10), E)
+                                for _ in range(BATCH)])
+    x, ef, src, dst, w1, b1, w2, b2 = csr[:8]
+    scal = torch.cat(csr[8:])
+    layout = C.csr_layout(src, dst, N, CSR_TILE, CSR_WINDOW, 0)
+    for g in range(BATCH):
+        one = C.csr_layout(src[g], dst[g], N, CSR_TILE, CSR_WINDOW, 0)
+        if not all(torch.equal(a[g], b) for a, b in zip(layout, one) if hasattr(b, "shape")):
+            raise AssertionError("[batched] the batch's CSR layout is not each graph's")
+    gout = torch.from_numpy((G_SCALE * rng.normal(size=(BATCH, N, D2))).astype(np.float32)).cuda()
+    e_live = [int((layout.dst[g] < N).sum()) for g in range(BATCH)]
+    weights = (2 * D + DE) * H + H + H * D2 + D2 + 4
+
+    def csr_fwd(bf16):
+        def launch(g):
+            sl = slice(None) if g is None else slice(g, g + 1)
+            raw, outs = C._forward_launch(x[sl], ef[sl], layout if g is None
+                                          else graph_slice(layout, g), w1, b1, w2, b2,
+                                          scal, 0.01)
+            fn = C._kernel(bf16)
+            lands = ((layout.dst < N) if g is None else (layout.dst[g:g + 1] < N))[..., None]
+            return (lambda: fn(*raw)), (lambda: (outs[1], torch.where(lands, outs[0], 0.0)))
+        return launch
+
+    fwd_flops = sum(2 * 2 * N * D * H + 2 * e * (DE * H + H * D2) for e in e_live)
+    fwd_bytes = 4 * sum(N * D + e * (DE + 2) + N + 1 + N * D2 for e in e_live) + 4 * weights
+    for bf16, name in ((False, "fused_message_pass_csr"), (True, "fused_message_pass_csr_bf16")):
+        row = _check_batched(torch, f"{name} forward", csr_fwd(bf16), ["agg", "msgs"], 2)
+        out[name] = dict(row, **_bound(fwd_flops, fwd_bytes,
+                                       PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))
+
+    def csr_bwd(g):
+        sl = slice(None) if g is None else slice(g, g + 1)
+        raw, results = C._backward_launch(
+            x[sl], ef[sl], layout if g is None else graph_slice(layout, g), w1, b1, w2, b2,
+            scal, gout[sl].contiguous(), 0.01)
+        fn = C._bwd_kernel()
+        return (lambda: fn(*raw)), results
+
+    row = _check_batched(torch, "fused_message_pass_csr_backward", csr_bwd, CSR_BWD_NAMES, 2)
+    flops = sum(2 * 6 * N * D * H + 2 * 3 * e * (DE * H + H * D2) for e in e_live)
+    n_io = BATCH * (N * D + E * DE + 2 * E + N * D2 + N * D + E * DE)
+    out["fused_message_pass_csr_backward"] = dict(row, **_bound(flops, 4 * (n_io + 2 * weights)))
+    return out
+
+
 def _components(adj: np.ndarray) -> np.ndarray:
     """Component label (minimum member index) per node of a boolean graph."""
     n = adj.shape[0]
@@ -1177,6 +1356,23 @@ def phase_deploy(torch, FM):
     return launches
 
 
+def check_nan_skip(torch, state, step, batch, tag: str) -> None:
+    """A NaN-poisoned batch through ``step`` (a replay of the captured
+    step): skipped = 1, and the parameters, every moment of the optimiser
+    and the update count bitwise unchanged; the step count advances."""
+    before = [t.clone() for t in (state.optimizer.flat, *state.optimizer.moments.values())]
+    step_no, updates = state.step, state.updates
+    state, m = step(state, _poisoned(batch))
+    same = all(torch.equal(a, b) for a, b in zip(
+        before, (state.optimizer.flat, *state.optimizer.moments.values())))
+    log(f"[{tag}] NaN-poisoned batch: skipped={float(m['skipped'])}, params and "
+        f"optimiser state ({', '.join(state.optimizer.moments)}) bit-identical={same}, "
+        f"updates {updates} -> {state.updates}, steps {step_no} -> {state.step}")
+    if (float(m["skipped"]) != 1.0 or not same or state.updates != updates
+            or state.step != step_no + 1):
+        raise AssertionError("the NaN skip changed the state")
+
+
 def _poisoned(batch):
     import dataclasses
 
@@ -1184,6 +1380,51 @@ def _poisoned(batch):
     node_feat[0, 0, 0] = np.nan
     return dataclasses.replace(
         batch, graph=dataclasses.replace(batch.graph, node_feat=node_feat))
+
+
+def step_runs(step) -> int:
+    """How often a train step's body ran on the card: each replay of its
+    CUDA graphs and each warm-up run of a capture (``CapturedStep``).  Every
+    run launches each message kernel once a round, for the whole batch."""
+    c = step.captured
+    return c.replays + c.warmups
+
+
+def per_replay(step) -> dict:
+    """The launches a replay of each of the step's CUDA graphs adds, by
+    counter (what the capture recorded)."""
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+
+    names = [f"{f.__name__}.{a}" for f, a in S.launch_counters()]
+    return [{n: d for n, d in zip(names, e.launches) if d}
+            for e in step.captured.graphs.values()]
+
+
+def check_captured(torch, cfg, batches, state, metrics, tag: str, close,
+                   mp_impl=None, mp_bf16=False) -> None:
+    """The captured steps (``state`` after them and their ``metrics``)
+    against the same steps run eagerly on the card from the same seed: the
+    batched step (``make_loss_fn``: one model call a batch) and the
+    per-graph step (``per_graph_loss_sums``: one model call a graph), each
+    within ``close`` (metrics) and PARAM_* (params)."""
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train.loss import reduce_loss_sums, tree_sum
+
+    def per_graph(model, batch):
+        sums = S.per_graph_loss_sums(model, batch, cfg, mp_impl=mp_impl, mp_bf16=mp_bf16)
+        return reduce_loss_sums(tree_sum(sums), cfg)
+
+    for name, loss_fn in (("eager batched step", S.make_loss_fn(cfg, mp_impl, mp_bf16)),
+                          ("eager per-graph step", per_graph)):
+        st, ms = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cuda"), []
+        for batch in batches:
+            m = S._train_body(st, S.batch_on(batch, st.device), loss_fn, cfg)
+            ms.append({k: float(v) for k, v in m.items()})
+        m_err = close(metrics, ms, f"{tag} captured vs {name}")
+        p_err = _params_close(state.model.state_dict(), st.model.state_dict(),
+                              f"{tag} captured vs {name}")
+        log(f"[{tag}] the captured steps against the {name} on the card: metrics max "
+            f"abs err {m_err:.3e}, params {p_err:.3e} (rtol={PARAM_RTOL}, atol={PARAM_ATOL})")
 
 
 def phase_train(torch, FM):
@@ -1219,12 +1460,17 @@ def phase_train(torch, FM):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
-    want = rounds * bsz * TRAIN_STEPS
-    log(f"[train] trainer.train on the card: launches forward={fwd} backward={bwd} "
-        f"(expected {rounds} x {bsz} x {TRAIN_STEPS} = {want}), skipped="
-        f"{[m['skipped'] for m in card_metrics]}, {wall:.2f} s incl. first-call set-up")
-    if fwd != want or bwd != want or any(m["skipped"] for m in card_metrics):
-        raise AssertionError("the train path did not run both kernels once per round and graph")
+    runs = step_runs(step)
+    want = rounds * runs
+    log(f"[train] trainer.train on the card: launches forward={fwd} backward={bwd}, "
+        f"one a round for the batch of {bsz} (expected {rounds} x ({step.captured.replays} "
+        f"replays + {step.captured.warmups} warm-up runs of the capture) = {want}; a replay "
+        f"adds {json.dumps(per_replay(step))}), skipped="
+        f"{[m['skipped'] for m in card_metrics]}, {wall:.2f} s incl. capture; the warm-up "
+        f"ran under sync debug mode 'error' (no device-to-host sync)")
+    if (fwd != want or bwd != want or step.captured.replays != TRAIN_STEPS
+            or any(m["skipped"] for m in card_metrics)):
+        raise AssertionError("the train path did not run both kernels once per round a step")
 
     t0 = time.perf_counter()
     cpu = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -1249,18 +1495,8 @@ def phase_train(torch, FM):
     log(f"[train] params after {TRAIN_STEPS} steps: card vs CPU max abs err "
         f"{perr:.3e} (rtol={PARAM_RTOL}, atol={PARAM_ATOL}); loss "
         f"{card_metrics[0]['loss_total']:.4f} -> {card_metrics[-1]['loss_total']:.4f}")
-
-    params = {k: v.clone() for k, v in state.model.state_dict().items()}
-    moments = [s["momentum_buffer"].clone() for s in state.optimizer.state.values()]
-    updates = state.updates
-    state, m = step(state, _poisoned(batches[0]))
-    same = (all(torch.equal(v, params[k]) for k, v in state.model.state_dict().items())
-            and all(torch.equal(s["momentum_buffer"], b) for s, b in
-                    zip(state.optimizer.state.values(), moments)))
-    log(f"[train] NaN-poisoned batch: skipped={float(m['skipped'])}, params and "
-        f"momentum bit-identical={same}, updates {updates} -> {state.updates}")
-    if float(m["skipped"]) != 1.0 or not same or state.updates != updates:
-        raise AssertionError("the NaN skip changed the state")
+    check_captured(torch, cfg, batches, state, card_metrics, "train", _metrics_close)
+    check_nan_skip(torch, state, step, batches[0], "train")
 
     step_ms = []
     for i in range(TIMED_STEPS):
@@ -1275,9 +1511,18 @@ def phase_train(torch, FM):
         f"{max(timed):.3f})")
     prof = profile_run(lambda: step(state, batches[0]))
     log(f"[train] profile of one train step: {json.dumps(prof)}")
+    log_step_summary("train", timed, prof)
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
     return fwd, bwd, card_metrics
+
+
+def log_step_summary(tag: str, timed_ms, prof) -> None:
+    """ms per step, kernels and host launches per step, busy share."""
+    log(f"[{tag}] per step: {np.median(timed_ms):.3f} ms (median), "
+        f"{prof['device_kernels']} device kernels, {prof['host_launches']} host "
+        f"launches, device busy {prof['device_busy_ms']:.3f} ms = "
+        f"{1 - prof['device_idle_share']:.3f} of the profiled step's wall time")
 
 
 def _params_close(a: dict, b: dict, what: str) -> float:
@@ -1351,14 +1596,16 @@ def phase_train_csr(torch, FM, C):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fused_fwd, fused_bwd, fwd, bwd = (c.launches for c in counters)
-    want = rounds * bsz * TRAIN_STEPS
+    want = rounds * step_runs(step)
     log(f"[train-csr] trainer.train on the card: CSR launches forward={fwd} "
-        f"backward={bwd} (expected {rounds} x {bsz} x {TRAIN_STEPS} = {want}), "
-        f"fused_mp launches {fused_fwd}/{fused_bwd} (expected 0), skipped="
-        f"{[m['skipped'] for m in card_metrics]}, {wall:.2f} s incl. first-call set-up")
+        f"backward={bwd}, one a round for the batch of {bsz} (expected {rounds} x "
+        f"({step.captured.replays} replays + {step.captured.warmups} warm-up runs) = "
+        f"{want}; a replay adds {json.dumps(per_replay(step))}), fused_mp launches "
+        f"{fused_fwd}/{fused_bwd} (expected 0), skipped="
+        f"{[m['skipped'] for m in card_metrics]}, {wall:.2f} s incl. capture")
     if (fwd, bwd, fused_fwd, fused_bwd) != (want, want, 0, 0) or any(
-            m["skipped"] for m in card_metrics):
-        raise AssertionError("the CSR train path did not run its kernels once per round and graph")
+            m["skipped"] for m in card_metrics) or step.captured.replays != TRAIN_STEPS:
+        raise AssertionError("the CSR train path did not run its kernels once per round a step")
 
     t0 = time.perf_counter()
     cpu, cpu_metrics = run("cpu")
@@ -1373,15 +1620,8 @@ def phase_train_csr(torch, FM, C):
     p_err = _params_close(state.model.state_dict(), onehot.model.state_dict(), "CSR vs onehot")
     log(f"[train-csr] the same steps with mp_impl='onehot' on the card: metrics "
         f"max abs err {m_err:.3e}, params {p_err:.3e} (two kernels, one function)")
-
-    params = {k: v.clone() for k, v in state.model.state_dict().items()}
-    updates = state.updates
-    state, m = step(state, _poisoned(batches[0]))
-    same = all(torch.equal(v, params[k]) for k, v in state.model.state_dict().items())
-    log(f"[train-csr] NaN-poisoned batch: skipped={float(m['skipped'])}, params "
-        f"bit-identical={same}, updates {updates} -> {state.updates}")
-    if float(m["skipped"]) != 1.0 or not same or state.updates != updates:
-        raise AssertionError("the NaN skip changed the state")
+    check_captured(torch, cfg, batches, state, card_metrics, "train-csr", _metrics_close)
+    check_nan_skip(torch, state, step, batches[0], "train-csr")
 
     narrow = dataclasses.replace(cfg, csr_window=16)  # below every tile's span
     bad = S.create_train_state(narrow, device="cuda")
@@ -1405,6 +1645,7 @@ def phase_train_csr(torch, FM, C):
         f"{max(timed):.3f})")
     prof = profile_run(lambda: step(state, batches[0]))
     log(f"[train-csr] profile of one train step: {json.dumps(prof)}")
+    log_step_summary("train-csr", timed, prof)
     if not prof["device_kernels"]:
         raise AssertionError("the profiler saw no kernel on the card")
     return fwd, bwd
@@ -1766,7 +2007,6 @@ def phase_train_bf16(torch, FM, C, f32_metrics):
     rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
     gen = SyntheticRadarDataset(cfg, seed=3, num_objects=(6, 10)).batches(bsz)
     batches = [next(gen) for _ in range(TRAIN_STEPS)]  # the [train] phase's
-    want = rounds * bsz * TRAIN_STEPS
     counters = {
         "fused f32 fwd": (FM.fused_message_pass, "launches"),
         "fused bf16 fwd": (FM.fused_message_pass, "launches_bf16"),
@@ -1808,14 +2048,18 @@ def phase_train_bf16(torch, FM, C, f32_metrics):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        want = rounds * step_runs(step)
         expect = {k: (want if k in (f"{tag} bf16 fwd", f"{tag} bwd") else 0) for k in counters}
         log(f"[train-bf16] {tag}: trainer.train on the card, launches {json.dumps(got)} "
-            f"(expected {rounds} x {bsz} x {TRAIN_STEPS} = {want} bf16 forwards and f32 "
-            f"backwards, nothing else), skipped={[m['skipped'] for m in card_metrics]}, "
-            f"{wall:.2f} s incl. first-call set-up")
-        if got != expect or any(m["skipped"] for m in card_metrics):
+            f"(expected {rounds} x ({step.captured.replays} replays + "
+            f"{step.captured.warmups} warm-up runs) = {want} bf16 forwards and f32 "
+            f"backwards, one a round for the batch of {bsz}, nothing else; a replay adds "
+            f"{json.dumps(per_replay(step))}), skipped="
+            f"{[m['skipped'] for m in card_metrics]}, {wall:.2f} s incl. capture")
+        if (got != expect or any(m["skipped"] for m in card_metrics)
+                or step.captured.replays != TRAIN_STEPS):
             raise AssertionError(f"the bf16 train path ({tag}) did not run its kernels "
-                                 "once per round and graph")
+                                 "once per round a step")
         launches[tag] = (got[f"{tag} bf16 fwd"], got[f"{tag} bwd"])
 
         # Each step replayed on the CPU from the card's state before it, so
@@ -1853,6 +2097,9 @@ def phase_train_bf16(torch, FM, C, f32_metrics):
             raise AssertionError(f"bf16 {tag}: the f32 run's step-1 losses lie within "
                                  f"{BF16_REPLAY_SEPARATION}x the tolerance of the bf16 "
                                  "replay: no rounding shows in training")
+        check_captured(torch, cfg, batches, state, card_metrics, f"train-bf16] [{tag}",
+                       _bf16_metrics_close, mp_impl, mp_bf16=True)
+        check_nan_skip(torch, state, step, batches[0], f"train-bf16] [{tag}")
 
         step_ms = []
         for i in range(TIMED_STEPS):
@@ -1865,6 +2112,7 @@ def phase_train_bf16(torch, FM, C, f32_metrics):
         log(f"[train-bf16] {tag}: ms/step (numpy batch in, synchronised; median of "
             f"{len(timed)} after 2 warm-up): {np.median(timed):.3f} (min {min(timed):.3f}, "
             f"max {max(timed):.3f})")
+        log_step_summary(f"train-bf16] [{tag}", timed, profile_run(lambda: step(state, batches[0])))
     return launches
 
 
@@ -1936,6 +2184,7 @@ def phase_checkpoint(torch, FM):
         resumed = _train_snapshot(torch, run(resumed, batches[2:], 2, 4))
         again = _train_snapshot(torch, run(fresh(0), batches, 0, 4))
         launches = FM.fused_message_pass.launches
+        want = rounds * (12 + 4 * S.CapturedStep.WARMUP_RUNS)  # 4 train() calls, 12 steps
     finally:
         torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
         shutil.rmtree(directory, ignore_errors=True)
@@ -1944,8 +2193,10 @@ def phase_checkpoint(torch, FM):
         f"{saved}, restore vs the saved state max abs diff {restore_err:.3e}; 2 + 2 steps vs 4 "
         f"uninterrupted: {err:.3e} (at {at}) over {len(whole)} params/optimiser tensors and "
         f"the counters; 4 steps twice: {repeat:.3e} (at {repeat_at}); fused_message_pass "
-        f"launches {launches} (expected {rounds} x {bsz} x 12)")
-    if saved != [2] or restore_err != 0.0 or launches != rounds * bsz * 12:
+        f"launches {launches} (expected {rounds} x (12 replays + 4 captures x "
+        f"{S.CapturedStep.WARMUP_RUNS} warm-up runs) = {want}: one a round a step for the "
+        f"batch of {bsz})")
+    if saved != [2] or restore_err != 0.0 or launches != want:
         raise AssertionError("the checkpoint hook did not save or restore the state")
     if repeat != 0.0 or err != 0.0:
         raise AssertionError("4 steps do not repeat bit for bit, or a resumed run differs")
@@ -2178,16 +2429,18 @@ def phase_data_plane(torch, FM):
     finally:
         B.make_bucketed_train_step = make_step
     tb_fwd, tb_bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
-    graphs = sum(r[0].batch_size for r in records)
     reached = sorted({(r[0].max_nodes, r[0].batch_size) for r in records})
+    # One captured step a bucket reached (its warm-up runs), a replay a step.
+    want = rounds * (BUCKETED_STEPS + len(reached) * S.CapturedStep.WARMUP_RUNS)
     log(f"[data-plane] train_bucketed {BUCKETED_STEPS} steps on the card ({wall:.2f} s incl. "
-        f"first-call set-up): buckets (max_nodes, batch) {[(r[0].max_nodes, r[0].batch_size) for r in records]} "
+        f"captures): buckets (max_nodes, batch) {[(r[0].max_nodes, r[0].batch_size) for r in records]} "
         f"of {[(b.max_nodes, b.batch_size) for b in buckets]}; launches forward={tb_fwd} "
-        f"backward={tb_bwd} (expected {rounds} x {graphs} graphs); skipped="
-        f"{[r[3]['skipped'] for r in records]}")
-    if (len(records) != BUCKETED_STEPS or len(reached) < 2 or tb_fwd != rounds * graphs
-            or tb_bwd != rounds * graphs or any(r[3]["skipped"] for r in records)):
-        raise AssertionError("train_bucketed did not run both kernels once per round and graph "
+        f"backward={tb_bwd} (expected {rounds} x ({BUCKETED_STEPS} replays + {len(reached)} "
+        f"captures x {S.CapturedStep.WARMUP_RUNS} warm-up runs) = {want}: one a round a "
+        f"step, whatever the bucket's batch); skipped={[r[3]['skipped'] for r in records]}")
+    if (len(records) != BUCKETED_STEPS or len(reached) < 2 or tb_fwd != want
+            or tb_bwd != want or any(r[3]["skipped"] for r in records)):
+        raise AssertionError("train_bucketed did not run both kernels once per round a step "
                              "over two buckets")
     t0 = time.perf_counter()
     cpu_step, m_err, p_err = make_step(cfg, buckets), 0.0, 0.0
@@ -2215,7 +2468,7 @@ def phase_data_plane(torch, FM):
         torch.cuda.synchronize()
         worker_cuda = loader.workers_initialised_cuda()
     mp_fwd, mp_bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
-    want = rounds * cfg.batch_size * LOADER_STEPS
+    want = rounds * (LOADER_STEPS + S.CapturedStep.WARMUP_RUNS)  # train()'s own step
     log(f"[data-plane] MultiprocessBatches (2 forked workers) -> device_prefetch -> train, "
         f"{LOADER_STEPS} steps ({time.perf_counter() - t0:.2f} s): launches forward={mp_fwd} "
         f"backward={mp_bwd} (expected {want}); CUDA initialised in the workers: {worker_cuda}")
@@ -3017,12 +3270,18 @@ def phase_examples(torch, FM):
 
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
 
     def entry(name):
         return importlib.import_module(f"graph_neural_network_for_radar_perception_torch.{name}")
 
     rounds = len(GNNConfig().graph_convolution_stem_channels)
     results = {}
+
+    def trained(steps):
+        """Round launches of ``steps`` train steps through one captured step
+        (its warm-up runs and a replay a step), whatever the batch."""
+        return rounds * (steps + S.CapturedStep.WARMUP_RUNS)
 
     def run(label, call, fwd, bwd):
         """``call()`` on the card with stdout to stderr; ``fwd``/``bwd``:
@@ -3078,7 +3337,7 @@ def phase_examples(torch, FM):
 
         over = entry("examples.overfit_gnn")
         steps = run("overfit_gnn", lambda: over.main(["--steps", str(EXAMPLE_STEPS)] + cuda),
-                    rounds * EXAMPLE_STEPS, rounds * EXAMPLE_STEPS)
+                    trained(EXAMPLE_STEPS), trained(EXAMPLE_STEPS))
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
             cpu_step = over.main(["--steps", "1", "--device", "cpu"])
@@ -3088,14 +3347,12 @@ def phase_examples(torch, FM):
             f"loss_total {steps[0]['loss_total']!r} on the card, {cpu_step[0]['loss_total']!r} "
             f"on the CPU); loss {steps[0]['loss_total']:.4f} -> {steps[-1]['loss_total']:.4f}")
 
-        batch = GNNConfig().batch_size
         tg = entry("examples.train_gnn")
         tg_argv = ["--out", out("gnn")] + cuda
-        per_step = rounds * batch
         run("train_gnn", lambda: tg.main(["--iters", str(EXAMPLE_STEPS)] + tg_argv),
-            per_step * EXAMPLE_STEPS, per_step * EXAMPLE_STEPS)
+            trained(EXAMPLE_STEPS), trained(EXAMPLE_STEPS))
         state = run("train_gnn --resume", lambda: tg.main(
-            ["--iters", str(EXAMPLE_STEPS + 1), "--resume"] + tg_argv), per_step, per_step)
+            ["--iters", str(EXAMPLE_STEPS + 1), "--resume"] + tg_argv), trained(1), trained(1))
         if state.step != EXAMPLE_STEPS + 1:
             raise AssertionError(f"[examples] train_gnn resumed to step {state.step}")
 
@@ -3103,8 +3360,8 @@ def phase_examples(torch, FM):
         run("demo_training_run", lambda: demo.main(
             ["--iters", str(EXAMPLE_STEPS), "--eval-frames", str(EXAMPLE_FRAMES),
              "--out", out("demo")] + cuda),
-            rounds_of(per_step * EXAMPLE_STEPS + 2 * rounds * EXAMPLE_FRAMES),
-            per_step * EXAMPLE_STEPS)
+            rounds_of(trained(EXAMPLE_STEPS) + 2 * rounds * EXAMPLE_FRAMES),
+            trained(EXAMPLE_STEPS))
 
         lr = entry("examples.long_training_run")
         lr_argv = ["--max-iters", str(EXAMPLE_STEPS + 1), "--pool-batches", "2",
@@ -3131,7 +3388,7 @@ def phase_examples(torch, FM):
             ["--stage1-iters", str(EXAMPLE_STEPS), "--stage2-iters", str(EXAMPLE_STEPS),
              "--pool-batches", "2", "--n-train-frames", "4", "--n-eval-frames", "4",
              "--out", out("classifier_chain")] + cuda),
-            rounds_of(per_step * EXAMPLE_STEPS + rounds * 8), per_step * EXAMPLE_STEPS)
+            rounds_of(trained(EXAMPLE_STEPS) + rounds * 8), trained(EXAMPLE_STEPS))
 
         cnn = entry("examples.train_cnn")
         run("train_cnn", lambda: cnn.main(["--iters", str(EXAMPLE_STEPS)] + cuda), 0, 0)
@@ -3152,7 +3409,7 @@ def phase_examples(torch, FM):
         fix = entry("scripts.train_fixture_artifact")
         run("train_fixture_artifact", lambda: fix.main(
             ["--iters", str(EXAMPLE_STEPS), "--out", out("fixture_artifact")] + cuda),
-            rounds_of(rounds * 4 * EXAMPLE_STEPS), rounds * 4 * EXAMPLE_STEPS)
+            rounds_of(trained(EXAMPLE_STEPS)), trained(EXAMPLE_STEPS))
 
         written = {}
         for root, _, names in os.walk(tmp):
@@ -3180,6 +3437,17 @@ def phase_examples(torch, FM):
     log(f"[examples] wall s per entry point on {card()}: "
         f"{json.dumps({k: r['s'] for k, r in results.items()})}")
     return dict(total, entries=results)
+
+
+def phase_training(torch, FM, C) -> dict:
+    """``--phase train``: the batched kernels ([batched]) and the three
+    train phases, whose steps are captured CUDA graphs."""
+    batched = phase_batched(torch, FM, C)
+    fwd, bwd, f32_metrics = phase_train(torch, FM)
+    csr = phase_train_csr(torch, FM, C)
+    bf16 = phase_train_bf16(torch, FM, C, f32_metrics)
+    return {"batched": batched, "train": [fwd, bwd], "train-csr": list(csr),
+            "train-bf16": bf16}
 
 
 def card() -> str:
@@ -3213,7 +3481,8 @@ def main(argv) -> int:
               "classifier": (phase_classifier, "fused_mp"),
               "cnn": (phase_cnn, "fused_mp"),
               "parallel": (phase_parallel, "fused_mp", "csr_mp"),
-              "examples": (phase_examples, "fused_mp")}
+              "examples": (phase_examples, "fused_mp"),
+              "train": (lambda torch, _: phase_training(torch, FM, C), "fused_mp", "csr_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2
@@ -3273,12 +3542,15 @@ def main(argv) -> int:
     bwd_row = phase_kernel_bwd(torch, FM)
     csr_row = phase_kernel_csr(torch, C)
     csr_bwd_row = phase_kernel_csr_bwd(torch, C)
+    batched = phase_batched(torch, FM, C)
     deploy_launches = phase_deploy(torch, FM)
     train_fwd, train_bwd, f32_metrics = phase_train(torch, FM)
     csr_train_fwd, csr_train_bwd = phase_train_csr(torch, FM, C)
     csr_deploy = phase_deploy_csr(torch, FM, C)
     bf16_row = phase_kernel_bf16(torch, FM)
     csr_bf16_row = phase_kernel_csr_bf16(torch, C)
+    for row in (fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row, csr_bf16_row):
+        row.update(batched[row["name"]])
     gather_row, scatter_row = phase_microbench(torch, floor_lib)
     bf16_launches = phase_train_bf16(torch, FM, C, f32_metrics)
     phase_checkpoint(torch, FM)

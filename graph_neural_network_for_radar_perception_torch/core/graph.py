@@ -17,6 +17,7 @@ device as tensors.  A batch stacks each field along a new leading axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -33,6 +34,15 @@ def resolve_device(device) -> torch.device:
             "device='cpu' to run the plain versions"
         )
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made on first use and reused
+    (read it, never write it): a train step captured as a CUDA graph then
+    copies nothing from the host."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 class _TensorStruct:

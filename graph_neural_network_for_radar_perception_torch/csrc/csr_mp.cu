@@ -57,6 +57,15 @@
 // into dW1, db1, dW2, db2, the scalars and dx.  Every output is a
 // fixed-order sum: two launches give the same bits.
 //
+// A batch of graphs.  Every entry point takes `graphs`, B, and arrays
+// [B, ...] (contiguous; graph g's slice at g times one graph's size), the
+// counterpart of the vmapped pallas_call's leading grid axis over the
+// graphs: gemm_kernel batches (graph, matrix) pairs, and the edge kernels,
+// segsum_kernel and the partials get a grid dimension over the graphs
+// (csrc/mp_edge_tile.cuh).  Graph g's products, tiles and sums are those of
+// a call on graph g alone, so agg, msgs, gef and dx equal B calls bit for
+// bit; dw sums every graph's partials in graph order.
+//
 // What bounds them.  At the shipped widths (D = De = D2 = 64, H = 128) an
 // edge's message costs 2 * (De*H + H*D2) = 32 768 FLOP against ~300 bytes,
 // far above the H100's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B):
@@ -98,8 +107,9 @@ constexpr int kDxSplitK = 32;      // hidden channels per split-K partial of dx
 
 // ---------------------------------------------------------------------------
 // C[b][z] = A[b] . B[b] over the k range of split z, for batch b of
-// `batches`: A(m, k) = A[b*sab + m*sam + k*sak], B(k, n) = B[b*sbb + k*sbk +
-// n*sbn], C row-major [M, N] per (batch, split), splits fastest.  Split z
+// `batches` = graphs x inner, b = g * inner + j: A(m, k) = A[g*sag + j*sab +
+// m*sam + k*sak], B(k, n) = B[g*sbg + j*sbb + k*sbk + n*sbn], C row-major
+// [M, N] per (batch, split), splits fastest.  Split z
 // covers k in [z*k_split, (z+1)*k_split).  A block computes a 64 x 64 output
 // tile, 4 x 4 per thread, summing k in order: fixed-order sums.  A matrix
 // whose k stride is 1 is read with neighbouring threads on neighbouring k
@@ -111,10 +121,11 @@ enum GemmUse { kNodePartials, kNodeCotangent, kNodeWeightGrad };
 
 template <int Use, bool BF16 = false>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const float* __restrict__ A, long long sab, long long sam,
-            long long sak, const float* __restrict__ B, long long sbb,
-            long long sbk, long long sbn, float* __restrict__ C, int M, int N,
-            int K, int k_split, int splits) {
+gemm_kernel(const float* __restrict__ A, long long sag, long long sab,
+            long long sam, long long sak, const float* __restrict__ B,
+            long long sbg, long long sbb, long long sbk, long long sbn,
+            float* __restrict__ C, int M, int N, int K, int k_split, int splits,
+            int inner) {
   constexpr int kLoads = kTileK * kTile / kGemmThreads;  // per thread per matrix
   // Rows padded by 4 floats: 16-byte aligned, and a column store by
   // neighbouring threads spreads over the banks.
@@ -122,10 +133,11 @@ gemm_kernel(const float* __restrict__ A, long long sab, long long sam,
   __shared__ __align__(16) float Bs[kTileK][kTile + 4];
   const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   const int z = blockIdx.z % splits, batch = blockIdx.z / splits;
+  const int g = batch / inner, j = batch % inner;
   const int k0 = z * k_split;
   const int k1 = min(K, k0 + k_split);
-  A += batch * sab;
-  B += batch * sbb;
+  A += g * sag + j * sab;
+  B += g * sbg + j * sbb;
   C += static_cast<size_t>(blockIdx.z) * M * N;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
@@ -190,26 +202,28 @@ gemm_kernel(const float* __restrict__ A, long long sab, long long sam,
     }
 }
 
-// `batches` products, each split over k into ceil(K / k_split) partials.
+// graphs x inner products, each split over k into ceil(K / k_split)
+// partials.
 template <int Use, bool BF16 = false>
-cudaError_t gemm(const float* A, long long sab, long long sam, long long sak,
-                 const float* B, long long sbb, long long sbk, long long sbn,
-                 float* C, int M, int N, int K, int k_split, int batches,
-                 cudaStream_t stream) {
+cudaError_t gemm(const float* A, long long sag, long long sab, long long sam,
+                 long long sak, const float* B, long long sbg, long long sbb,
+                 long long sbk, long long sbn, float* C, int M, int N, int K,
+                 int k_split, int inner, int graphs, cudaStream_t stream) {
   const int splits = K > 0 ? (K + k_split - 1) / k_split : 1;
-  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits * batches);
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits * inner * graphs);
   gemm_kernel<Use, BF16><<<grid, kGemmThreads, 0, stream>>>(
-      A, sab, sam, sak, B, sbb, sbk, sbn, C, M, N, K, k_split, splits);
+      A, sag, sab, sam, sak, B, sbg, sbb, sbk, sbn, C, M, N, K, k_split, splits,
+      inner);
   return cudaGetLastError();
 }
 
-// csr_mp_backward's scratch, in floats, each part rounded up to 16 bytes:
-// xab [2, n, h]; rows [e, h]; dxab [2, n, h]; p_dx [2, ceil(h /
-// kDxSplitK), n, d]; p_w1rs [2, ceil(n / kSplitRows), d, h]; p_edge
-// [blocks, de*h + h + h*d2 + d2 + 4].
+// csr_mp_backward's scratch over `graphs` = B graphs, in floats, each part
+// rounded up to 16 bytes: xab [B, 2, n, h]; rows [B, e, h]; dxab [B, 2, n,
+// h]; p_dx [B, 2, ceil(h / kDxSplitK), n, d]; p_w1rs [B, 2, ceil(n /
+// kSplitRows), d, h]; p_edge [B, blocks, de*h + h + h*d2 + d2 + 4].
 constexpr int kScratchParts = 6;
 void bwd_scratch(int n, int e, int d, int de, int h, int d2, int blocks,
-                 long long (&sz)[kScratchParts]) {
+                 int graphs, long long (&sz)[kScratchParts]) {
   const long long nh = static_cast<long long>(n) * h;
   sz[0] = 2 * nh;
   sz[1] = static_cast<long long>(e) * h;
@@ -217,12 +231,14 @@ void bwd_scratch(int n, int e, int d, int de, int h, int d2, int blocks,
   sz[3] = 2LL * ((h + kDxSplitK - 1) / kDxSplitK) * n * d;
   sz[4] = 2LL * ((n + kSplitRows - 1) / kSplitRows) * d * h;
   sz[5] = static_cast<long long>(blocks) * edge_partial(de, h, d2);
-  for (long long& v : sz) v = (v + 3) & ~3LL;
+  for (long long& v : sz) v = (graphs * v + 3) & ~3LL;
 }
 
 bool widths_ok(int n, int e, int d, int de, int h, int d2) {
   return d > 0 && edge_widths_ok(n, e, de, h, d2);
 }
+
+bool graphs_ok(int graphs) { return graphs >= 1 && graphs <= 65535; }
 
 }  // namespace
 
@@ -237,8 +253,8 @@ int forward_entry(const float* x, const float* ef, const int* src,
                   const float* b1, const float* w2, const float* b2,
                   const float* scal, float* xab, float slope, float* msgs,
                   float* agg, int n, int e, int d, int de, int h, int d2,
-                  void* stream) {
-  if (!widths_ok(n, e, d, de, h, d2) || !(aligned16(ef) || e == 0) ||
+                  int graphs, void* stream) {
+  if (!widths_ok(n, e, d, de, h, d2) || !graphs_ok(graphs) || !(aligned16(ef) || e == 0) ||
       !aligned16(w1) || !aligned16(w2) || !aligned16(xab) || !aligned16(msgs))
     return cudaErrorInvalidValue;
   FwdPlan p;
@@ -246,33 +262,37 @@ int forward_entry(const float* x, const float* ef, const int* src,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long dh = static_cast<long long>(d) * h;
-  err = gemm<kNodePartials, BF16>(x, 0, d, 1, w1, dh, h, 1, xab, n, h, d, d, 2, s);
+  const long long nh = static_cast<long long>(n) * h;
+  // xab [B, 2, n, h]: graph g's x . W1r, x . W1s.
+  err = gemm<kNodePartials, BF16>(x, static_cast<long long>(n) * d, 0, d, 1, w1, 0,
+                                  dh, h, 1, xab, n, h, d, d, 2, graphs, s);
   if (err != cudaSuccess) return err;
-  return fwd_round<false, false, BF16>(p, xab, xab + static_cast<size_t>(n) * h, ef,
-                                       src, dst, nullptr, off, w1 + 2 * dh, b1, w2,
-                                       b2, scal, slope, msgs, agg, n, de, h, d2, s);
+  return fwd_round<false, false, BF16>(p, xab, xab + nh, ef, src, dst, nullptr, off,
+                                       w1 + 2 * dh, b1, w2, b2, scal, slope, msgs,
+                                       agg, n, e, de, h, d2, graphs, 2 * nh, s);
 }
 
 }  // namespace
 
-// Forward entry point, loaded with ctypes.  All pointers are device
-// pointers to contiguous arrays: x [n, d]; ef [e, de]; src, dst [e] int32
-// (effective indices, see the top of this file); off [n + 1] int32;
-// w1 [2d + de, h] (rows W1r, W1s, W1e); b1 [h]; w2 [h, d2]; b2 [d2];
-// scal [4] = (g1, be1, g2, be2); xab [2, n, h] and msgs [e, d2] scratch,
-// never read before the call writes them; agg [n, d2], every row of which
-// is written.  ef, w1, w2, xab and msgs are 16-byte aligned.  Requires de,
-// h, d2 multiples of 4 and a plan whose 8-edge tiles fit the shared
+// Forward entry point, loaded with ctypes, over `graphs` = B graphs of n
+// nodes and e edges each.  All pointers are device pointers to contiguous
+// arrays: x [B, n, d]; ef [B, e, de]; src, dst [B, e] int32 (effective
+// indices, see the top of this file); off [B, n + 1] int32; w1 [2d + de, h]
+// (rows W1r, W1s, W1e); b1 [h]; w2 [h, d2]; b2 [d2]; scal [4] = (g1, be1,
+// g2, be2); xab [B, 2, n, h] and msgs [B, e, d2] scratch, never read before
+// the call writes them; agg [B, n, d2], every row of which is written.  ef,
+// w1, w2, xab and msgs are 16-byte aligned.  Requires de, h, d2 multiples
+// of 4, 1 <= B <= 65535 and a plan whose 8-edge tiles fit the shared
 // memory.  Returns the first failing cudaError_t (0 on success).
 extern "C" int csr_mp_forward(const float* x, const float* ef, const int* src,
                               const int* dst, const int* off, const float* w1,
                               const float* b1, const float* w2,
                               const float* b2, const float* scal, float* xab,
                               float slope, float* msgs, float* agg, int n,
-                              int e, int d, int de, int h, int d2,
+                              int e, int d, int de, int h, int d2, int graphs,
                               void* stream) {
   return forward_entry<false>(x, ef, src, dst, off, w1, b1, w2, b2, scal, xab,
-                              slope, msgs, agg, n, e, d, de, h, d2, stream);
+                              slope, msgs, agg, n, e, d, de, h, d2, graphs, stream);
 }
 
 // The same with the TPU kernel's bf16 operands (top of this file).
@@ -283,9 +303,9 @@ extern "C" int csr_mp_forward_bf16(const float* x, const float* ef,
                                    const float* b2, const float* scal,
                                    float* xab, float slope, float* msgs,
                                    float* agg, int n, int e, int d, int de,
-                                   int h, int d2, void* stream) {
+                                   int h, int d2, int graphs, void* stream) {
   return forward_entry<true>(x, ef, src, dst, off, w1, b1, w2, b2, scal, xab,
-                             slope, msgs, agg, n, e, d, de, h, d2, stream);
+                             slope, msgs, agg, n, e, d, de, h, d2, graphs, stream);
 }
 
 // How the forward's edge kernel runs at these widths on the current device:
@@ -297,18 +317,20 @@ extern "C" int csr_mp_forward_plan(int n, int e, int d, int de, int h, int d2,
   return fwd_plan_out(e, de, h, d2, plan);
 }
 
-// The scratch of one csr_mp_backward call at these widths on the current
-// device, in floats, or minus a cudaError_t (1: widths csr_mp_forward does
-// not take).  plan[3] gets the edge kernel's tile, input stages and blocks.
-// Loaded with ctypes.
+// The scratch of one csr_mp_backward call at these widths over `graphs`
+// graphs on the current device, in floats, or minus a cudaError_t (1:
+// widths csr_mp_forward does not take).  plan[3] gets the edge kernel's
+// tile, input stages and blocks (a graph's).  Loaded with ctypes.
 extern "C" long long csr_mp_backward_scratch(int n, int e, int d, int de,
-                                             int h, int d2, int* plan) {
+                                             int h, int d2, int graphs,
+                                             int* plan) {
   BwdPlan p;
-  if (!widths_ok(n, e, d, de, h, d2)) return -cudaErrorInvalidValue;
+  if (!widths_ok(n, e, d, de, h, d2) || !graphs_ok(graphs))
+    return -cudaErrorInvalidValue;
   const cudaError_t err = bwd_plan(e, de, h, d2, false, p);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   long long sz[kScratchParts], total = 0;
-  bwd_scratch(n, e, d, de, h, d2, p.blocks, sz);
+  bwd_scratch(n, e, d, de, h, d2, p.blocks, graphs, sz);
   for (long long v : sz) total += v;
   plan[0] = p.tile;
   plan[1] = p.stages;
@@ -317,21 +339,23 @@ extern "C" long long csr_mp_backward_scratch(int n, int e, int d, int de,
 }
 
 // Backward entry point, loaded with ctypes.  Inputs as csr_mp_forward, plus
-// perm [e] int32, the edges in source order, and off_src [n + 1] int32,
-// each source's segment of perm; gout [n, d2].  scratch: the floats
-// csr_mp_backward_scratch gives, never read before the call writes them.
-// Outputs, every element written: gef [e, de]; dx [n, d]; dw [(2d + de)*h
-// + h + h*d2 + d2 + 4] = dW1 (rows W1r, W1s, W1e) | db1 | dW2 | db2 | dg1
-// dbe1 dg2 dbe2.  ef, w1, w2, gout and scratch are 16-byte aligned.
-// Requires the widths csr_mp_forward takes.  Returns the first failing
-// cudaError_t (0 on success).
+// perm [B, e] int32, each graph's edges in source order, and off_src [B, n +
+// 1] int32, each source's segment of perm; gout [B, n, d2].  scratch: the
+// floats csr_mp_backward_scratch gives for `graphs` graphs, never read
+// before the call writes them.  Outputs, every element written: gef [B, e,
+// de]; dx [B, n, d]; dw [(2d + de)*h + h + h*d2 + d2 + 4] = dW1 (rows W1r,
+// W1s, W1e) | db1 | dW2 | db2 | dg1 dbe1 dg2 dbe2, summed over the graphs.
+// ef, w1, w2, gout and scratch are 16-byte aligned.  Requires the widths
+// csr_mp_forward takes.  Returns the first failing cudaError_t (0 on
+// success).
 extern "C" int csr_mp_backward(
     const float* x, const float* ef, const int* src, const int* dst,
     const int* off, const int* perm, const int* off_src, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* scal,
     const float* gout, float slope, float* scratch, float* gef, float* dx,
-    float* dw, int n, int e, int d, int de, int h, int d2, void* stream) {
-  if (!widths_ok(n, e, d, de, h, d2) || !(aligned16(ef) || e == 0) ||
+    float* dw, int n, int e, int d, int de, int h, int d2, int graphs,
+    void* stream) {
+  if (!widths_ok(n, e, d, de, h, d2) || !graphs_ok(graphs) || !(aligned16(ef) || e == 0) ||
       !aligned16(w1) || !aligned16(w2) || !aligned16(gout) || !aligned16(scratch) ||
       !(aligned16(gef) || e == 0))
     return cudaErrorInvalidValue;
@@ -339,7 +363,7 @@ extern "C" int csr_mp_backward(
   cudaError_t err = bwd_plan(e, de, h, d2, false, p);
   if (err != cudaSuccess) return err;
   long long sz[kScratchParts];
-  bwd_scratch(n, e, d, de, h, d2, p.blocks, sz);
+  bwd_scratch(n, e, d, de, h, d2, p.blocks, graphs, sz);
   float* xab = scratch;
   float* rows = xab + sz[0];
   float* dxab = rows + sz[1];
@@ -349,35 +373,39 @@ extern "C" int csr_mp_backward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long dh = static_cast<long long>(d) * h;
   const long long nh = static_cast<long long>(n) * h;
-  // (1) x . W1r, x . W1s.
-  err = gemm<kNodePartials>(x, 0, d, 1, w1, dh, h, 1, xab, n, h, d, d, 2, s);
+  const long long nd = static_cast<long long>(n) * d;
+  // (1) x . W1r, x . W1s of each graph: xab [B, 2, n, h].
+  err = gemm<kNodePartials>(x, nd, 0, d, 1, w1, 0, dh, h, 1, xab, n, h, d, d, 2,
+                            graphs, s);
   if (err != cudaSuccess) return err;
   // (2) The edge tiles: gef, rows = g_pre1, the blocks' partials.
   err = bwd_edges<false>(p, xab, xab + nh, ef, src, dst, nullptr, off,
                          w1 + 2 * dh, b1, w2, b2, scal, gout, slope, gef, rows,
-                         p_edge, n, e, de, h, d2, s);
+                         p_edge, n, e, de, h, d2, graphs, 2 * nh, s);
   if (err != cudaSuccess) return err;
-  // (3) dxa, dxb: segmented sums of g_pre1 in edge order.
-  segsum_kernel<<<dim3((n + kWarps - 1) / kWarps, 2), kWarps * 32, 0, s>>>(
-      rows, dst, nullptr, perm, off, off_src, n, h, dxab);
+  // (3) dxa, dxb: segmented sums of g_pre1 in edge order, dxab [B, 2, n, h].
+  segsum_kernel<<<dim3((n + kWarps - 1) / kWarps, 2, graphs), kWarps * 32, 0, s>>>(
+      rows, dst, nullptr, perm, off, off_src, n, e, h,
+      static_cast<long long>(e) * h, 2 * nh, dxab);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // (4) dxa W1r^T, dxb W1s^T, split over the hidden channels.
-  err = gemm<kNodeCotangent>(dxab, nh, h, 1, w1, dh, 1, h, p_dx, n, d, h,
-                             kDxSplitK, 2, s);
+  err = gemm<kNodeCotangent>(dxab, 2 * nh, nh, h, 1, w1, 0, dh, 1, h, p_dx, n, d, h,
+                             kDxSplitK, 2, graphs, s);
   if (err != cudaSuccess) return err;
   // (5) x^T dxa, x^T dxb, split over the nodes.
-  err = gemm<kNodeWeightGrad>(x, 0, 1, d, dxab, nh, h, 1, p_w1rs, d, h, n,
-                              kSplitRows, 2, s);
+  err = gemm<kNodeWeightGrad>(x, nd, 0, 1, d, dxab, 2 * nh, nh, h, 1, p_w1rs, d, h, n,
+                              kSplitRows, 2, graphs, s);
   if (err != cudaSuccess) return err;
   // (6) The fixed-order sums of every partial.
   const int splits = (n + kSplitRows - 1) / kSplitRows;
   const int dx_splits = (h + kDxSplitK - 1) / kDxSplitK;
   const long long edge_out = edge_partial(de, h, d2);
-  const long long rest = 2 * dh + static_cast<long long>(n) * d;
+  const long long rest = 2 * dh + graphs * nd;
   constexpr int kOut = kReduceThreads / kReduceGroups;
   const int grid = static_cast<int>((edge_out + kOut - 1) / kOut +
                                     (rest + kReduceThreads - 1) / kReduceThreads);
   bwd_reduce_kernel<<<grid, kReduceThreads, 0, s>>>(
-      p_w1rs, splits, p_edge, p.blocks, p_dx, dx_splits, n, d, de, h, d2, dw, dx);
+      p_w1rs, splits, p_edge, graphs * p.blocks, p_dx, dx_splits, n, d, de, h, d2,
+      graphs, dw, dx);
   return cudaGetLastError();
 }

@@ -94,6 +94,15 @@
 // order; (3) bwd_reduce_kernel: every partial in block order.  Every output
 // is written by the call (no zeroing by the caller) and is a fixed-order sum.
 //
+// A batch of graphs.  Every entry point takes `graphs`, B, and arrays
+// [B, ...] (contiguous; graph g's slice at g times one graph's size): the
+// JAX package vmaps the one-graph round, so its pallas_call runs once a
+// round for the whole batch with a leading grid axis over the graphs.  Here
+// each kernel gets a grid dimension over the graphs (csrc/mp_edge_tile.cuh);
+// graph g's tiles and sums are exactly those of a call on graph g alone, so
+// agg, msgs, gef and dxab equal B calls of one graph bit for bit, and dw
+// sums every graph's block partials in graph order.
+//
 // What bounds it.  Three times the forward's FMAs: 2 * 3 * (De*H + H*D2) =
 // 98 304 FLOP an edge at the shipped widths, against ~400 bytes of its own
 // traffic, so FP32 FMAs on paper (~13.5 us for 9 216 live edges at 67
@@ -113,8 +122,9 @@ int forward_entry(const float* xa, const float* xb, const float* ef,
                   const int* off, const float* w1e, const float* b1,
                   const float* w2, const float* b2, const float* scal,
                   float slope, float* msgs, float* agg, int n, int e, int de,
-                  int h, int d2, void* stream) {
-  if (!edge_widths_ok(n, e, de, h, d2) || !(aligned16(ef) || e == 0) ||
+                  int h, int d2, int graphs, void* stream) {
+  if (!edge_widths_ok(n, e, de, h, d2) || graphs < 1 || graphs > 65535 ||
+      !(aligned16(ef) || e == 0) ||
       !aligned16(xa) || !aligned16(xb) || !aligned16(w1e) || !aligned16(w2) ||
       !aligned16(msgs))
     return cudaErrorInvalidValue;
@@ -123,31 +133,34 @@ int forward_entry(const float* xa, const float* xb, const float* ef,
   if (err != cudaSuccess) return err;
   return fwd_round<true, BF16, BF16>(p, xa, xb, ef, senders, receivers, order,
                                      off, w1e, b1, w2, b2, scal, slope, msgs,
-                                     agg, n, de, h, d2,
+                                     agg, n, e, de, h, d2, graphs,
+                                     static_cast<long long>(n) * h,
                                      static_cast<cudaStream_t>(stream));
 }
 
 // fused_mp_backward's scratch, in floats, each part rounded up to 16 bytes:
-// rows [e, h] (g_pre1 by edge) and p_edge [blocks, edge_partial].
+// rows [graphs, e, h] (g_pre1 by edge) and p_edge [graphs, blocks,
+// edge_partial].
 constexpr int kFusedScratchParts = 2;
-void fused_bwd_scratch(int e, int de, int h, int d2, int blocks,
+void fused_bwd_scratch(int e, int de, int h, int d2, int blocks, int graphs,
                        long long (&sz)[kFusedScratchParts]) {
-  sz[0] = static_cast<long long>(e) * h;
-  sz[1] = static_cast<long long>(blocks) * edge_partial(de, h, d2);
+  sz[0] = static_cast<long long>(graphs) * e * h;
+  sz[1] = static_cast<long long>(graphs) * blocks * edge_partial(de, h, d2);
   for (long long& v : sz) v = (v + 3) & ~3LL;
 }
 
 }  // namespace
 
-// Forward entry point, loaded with ctypes.  All pointers are device
-// pointers to contiguous arrays: xa, xb [n, h]; ef [e, de]; senders,
-// receivers [e] int32; recv_order [e] int32 and recv_off [n + 1] int32, the
-// receiver order of the graph's layout (top of this file); w1e [de, h]; b1
-// [h]; w2 [h, d2]; b2 [d2]; scal [4] = (g1, be1, g2, be2); msgs [e, d2], a
-// scratch never read before the call writes it; agg [n, d2], every row of
-// which is written.  xa, xb, ef, w1e, w2 and msgs are 16-byte aligned.
-// Requires de, h, d2 multiples of 4 and a plan whose 8-edge tiles fit the
-// shared memory.  Returns the first failing cudaError_t (0 on
+// Forward entry point, loaded with ctypes, over `graphs` = B graphs of n
+// nodes and e edges each.  All pointers are device pointers to contiguous
+// arrays: xa, xb [B, n, h]; ef [B, e, de]; senders, receivers [B, e] int32;
+// recv_order [B, e] int32 and recv_off [B, n + 1] int32, the receiver order
+// of each graph's layout (top of this file); w1e [de, h]; b1 [h]; w2 [h,
+// d2]; b2 [d2]; scal [4] = (g1, be1, g2, be2); msgs [B, e, d2], a scratch
+// never read before the call writes it; agg [B, n, d2], every row of which
+// is written.  xa, xb, ef, w1e, w2 and msgs are 16-byte aligned.  Requires
+// de, h, d2 multiples of 4, 1 <= B <= 65535 and a plan whose 8-edge tiles
+// fit the shared memory.  Returns the first failing cudaError_t (0 on
 // success).
 extern "C" int fused_mp_forward(const float* xa, const float* xb,
                                 const float* ef, const int* senders,
@@ -156,10 +169,11 @@ extern "C" int fused_mp_forward(const float* xa, const float* xb,
                                 const float* b1, const float* w2,
                                 const float* b2, const float* scal,
                                 float slope, float* msgs, float* agg, int n,
-                                int e, int de, int h, int d2, void* stream) {
+                                int e, int de, int h, int d2, int graphs,
+                                void* stream) {
   return forward_entry<false>(xa, xb, ef, senders, receivers, recv_order,
                               recv_off, w1e, b1, w2, b2, scal, slope, msgs,
-                              agg, n, e, de, h, d2, stream);
+                              agg, n, e, de, h, d2, graphs, stream);
 }
 
 // The same with the TPU kernel's bf16 operands (top of this file): the same
@@ -172,10 +186,11 @@ extern "C" int fused_mp_forward_bf16(const float* xa, const float* xb,
                                      const float* w2, const float* b2,
                                      const float* scal, float slope,
                                      float* msgs, float* agg, int n, int e,
-                                     int de, int h, int d2, void* stream) {
+                                     int de, int h, int d2, int graphs,
+                                     void* stream) {
   return forward_entry<true>(xa, xb, ef, senders, receivers, recv_order,
                              recv_off, w1e, b1, w2, b2, scal, slope, msgs, agg,
-                             n, e, de, h, d2, stream);
+                             n, e, de, h, d2, graphs, stream);
 }
 
 // How the forward's edge kernel runs at these widths on the current device:
@@ -187,18 +202,19 @@ extern "C" int fused_mp_forward_plan(int n, int e, int de, int h, int d2,
   return fwd_plan_out(e, de, h, d2, plan);
 }
 
-// The scratch of one fused_mp_backward call at these widths on the current
-// device, in floats, or minus a cudaError_t (1: widths the forward does not
-// take).  plan[3] gets the edge kernel's tile, input stages and blocks.
-// Loaded with ctypes.
+// The scratch of one fused_mp_backward call at these widths over `graphs`
+// graphs on the current device, in floats, or minus a cudaError_t (1:
+// widths the forward does not take).  plan[3] gets the edge kernel's tile,
+// input stages and blocks (a graph's).  Loaded with ctypes.
 extern "C" long long fused_mp_backward_scratch(int n, int e, int de, int h,
-                                               int d2, int* plan) {
-  if (!edge_widths_ok(n, e, de, h, d2)) return -cudaErrorInvalidValue;
+                                               int d2, int graphs, int* plan) {
+  if (!edge_widths_ok(n, e, de, h, d2) || graphs < 1 || graphs > 65535)
+    return -cudaErrorInvalidValue;
   BwdPlan p;
   const cudaError_t err = bwd_plan(e, de, h, d2, true, p);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   long long sz[kFusedScratchParts];
-  fused_bwd_scratch(e, de, h, d2, p.blocks, sz);
+  fused_bwd_scratch(e, de, h, d2, p.blocks, graphs, sz);
   plan[0] = p.tile;
   plan[1] = p.stages;
   plan[2] = p.blocks;
@@ -206,21 +222,23 @@ extern "C" long long fused_mp_backward_scratch(int n, int e, int de, int h,
 }
 
 // Backward entry point, loaded with ctypes.  Inputs as fused_mp_forward,
-// plus send_order [e] and send_off [n + 1] int32 (the sender order of the
-// layout) and gout [n, d2]; w1e, w2, gout, xa, xb and, for e > 0, ef are
-// 16-byte aligned.  scratch: the floats fused_mp_backward_scratch gives,
-// never read before the call writes them.  Outputs, every element written:
-// gef [e, de] (16-byte aligned); dxab [2, n, h] = dxa, dxb; dw [de*h + h +
-// h*d2 + d2 + 4] = dW1e | db1 | dW2 | db2 | dg1 dbe1 dg2 dbe2.  Returns the
-// first failing cudaError_t (0 on success).
+// plus send_order [B, e] and send_off [B, n + 1] int32 (the sender order of
+// each layout) and gout [B, n, d2]; w1e, w2, gout, xa, xb and, for e > 0, ef
+// are 16-byte aligned.  scratch: the floats fused_mp_backward_scratch gives
+// for `graphs` graphs, never read before the call writes them.  Outputs,
+// every element written: gef [B, e, de] (16-byte aligned); dxab [B, 2, n,
+// h] = dxa, dxb of each graph; dw [de*h + h + h*d2 + d2 + 4] = dW1e | db1 |
+// dW2 | db2 | dg1 dbe1 dg2 dbe2, summed over the graphs.  Returns the first
+// failing cudaError_t (0 on success).
 extern "C" int fused_mp_backward(
     const float* xa, const float* xb, const float* ef, const int* senders,
     const int* receivers, const int* recv_order, const int* recv_off,
     const int* send_order, const int* send_off, const float* w1e,
     const float* b1, const float* w2, const float* b2, const float* scal,
     const float* gout, float slope, float* scratch, float* gef, float* dxab,
-    float* dw, int n, int e, int de, int h, int d2, void* stream) {
-  if (!edge_widths_ok(n, e, de, h, d2) || !(aligned16(ef) || e == 0) ||
+    float* dw, int n, int e, int de, int h, int d2, int graphs, void* stream) {
+  if (!edge_widths_ok(n, e, de, h, d2) || graphs < 1 || graphs > 65535 ||
+      !(aligned16(ef) || e == 0) ||
       !(aligned16(gef) || e == 0) || !aligned16(xa) || !aligned16(xb) ||
       !aligned16(w1e) || !aligned16(w2) || !aligned16(gout) ||
       !aligned16(scratch))
@@ -229,24 +247,27 @@ extern "C" int fused_mp_backward(
   cudaError_t err = bwd_plan(e, de, h, d2, true, p);
   if (err != cudaSuccess) return err;
   long long sz[kFusedScratchParts];
-  fused_bwd_scratch(e, de, h, d2, p.blocks, sz);
+  fused_bwd_scratch(e, de, h, d2, p.blocks, graphs, sz);
   float* rows = scratch;
   float* p_edge = rows + sz[0];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // (1) The edge tiles over the receiver order: gef, rows = g_pre1, the
   // blocks' partials.
+  const long long nh = static_cast<long long>(n) * h;
   err = bwd_edges<true>(p, xa, xb, ef, senders, receivers, recv_order,
                         recv_off, w1e, b1, w2, b2, scal, gout, slope, gef,
-                        rows, p_edge, n, e, de, h, d2, s);
+                        rows, p_edge, n, e, de, h, d2, graphs, nh, s);
   if (err != cudaSuccess) return err;
   // (2) dxa over the receiver segments, dxb over the sender segments.
-  segsum_kernel<<<dim3((n + kWarps - 1) / kWarps, 2), kWarps * 32, 0, s>>>(
-      rows, receivers, recv_order, send_order, recv_off, send_off, n, h, dxab);
+  segsum_kernel<<<dim3((n + kWarps - 1) / kWarps, 2, graphs), kWarps * 32, 0, s>>>(
+      rows, receivers, recv_order, send_order, recv_off, send_off, n, e, h,
+      static_cast<long long>(e) * h, 2 * nh, dxab);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // (3) The partials in block order (no node part: d = 0).
+  // (3) The partials in block order, graph by graph (no node part: d = 0).
   constexpr int kOut = kReduceThreads / kReduceGroups;
   const int grid = static_cast<int>((edge_partial(de, h, d2) + kOut - 1) / kOut);
   bwd_reduce_kernel<<<grid, kReduceThreads, 0, s>>>(
-      nullptr, 0, p_edge, p.blocks, nullptr, 0, n, 0, de, h, d2, dw, nullptr);
+      nullptr, 0, p_edge, graphs * p.blocks, nullptr, 0, n, 0, de, h, d2, graphs,
+      dw, nullptr);
   return cudaGetLastError();
 }

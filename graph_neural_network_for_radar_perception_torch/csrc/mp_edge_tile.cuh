@@ -41,6 +41,17 @@
 // * bwd_reduce_kernel: every partial summed in block order (and, for the
 //   CSR round, its node-level partials).
 //
+// A batch of graphs (the JAX package vmaps the one-graph round, and the
+// batching rule of pallas_call gives the kernel a leading grid axis over
+// the graphs): every kernel takes a grid dimension over the graphs (y for
+// the edge kernels, z for segsum_kernel and gemm_kernel), and graph g reads
+// and writes its own slice of each array, at per-graph strides.  Its edge
+// tiles, segments and sums are exactly those of a launch on graph g alone
+// (gridDim.x and every run are per graph), so the per-graph outputs are
+// those launches' bits; the weight gradients are the partials of every
+// graph's blocks, summed in graph order (bwd_reduce_kernel).  With one
+// graph the kernels do what they did before the graph axis.
+//
 // No atomics: every output is a fixed-order sum, so two launches give the
 // same bits.  What bounds them: f32 FMAs on paper (the top of
 // csrc/csr_mp.cu), shared-memory bandwidth for tile_gemm in practice (a
@@ -97,14 +108,25 @@ __device__ __forceinline__ bool in_range(int i, int n) {
 // by edge.  Edges whose destination is out of range (dropped) are
 // skipped: their rows are never read.  In order of q; one warp
 // per node, lanes own columns, and the lanes load the next 32 edges'
-// indices together; rows and out have width h.
+// indices together; rows and out have width h.  blockIdx.z = g, the graph:
+// dst, order and perm at g * e, off and off_src at g * (n + 1), rows at
+// g * rows_gs and dxab at g * out_gs.
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_kernel(const float* __restrict__ rows, const int* __restrict__ dst,
               const int* __restrict__ order, const int* __restrict__ perm,
               const int* __restrict__ off, const int* __restrict__ off_src,
-              int n, int h, float* __restrict__ dxab) {
+              int n, int e, int h, long long rows_gs, long long out_gs,
+              float* __restrict__ dxab) {
   const int v = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (v >= n) return;
+  const size_t g = blockIdx.z;
+  rows += g * rows_gs;
+  dst += g * e;
+  if (order) order += g * e;
+  if (perm) perm += g * e;
+  off += g * (n + 1);
+  if (off_src) off_src += g * (n + 1);
+  dxab += g * out_gs;
   const bool by_src = blockIdx.y == 1;
   const int* seg = by_src ? off_src : off;
   float* out = dxab + (by_src ? static_cast<size_t>(n) * h : 0);
@@ -346,6 +368,12 @@ int bwd_xty_items(int de, int h, int d2) {
   return (items + kEdgeThreads - 1) / kEdgeThreads;
 }
 
+// The partial of one edge block of bwd_edge_kernel, in floats:
+// dW1e | db1 | dW2 | db2 | dg1 dbe1 dg2 dbe2.
+__host__ __device__ __forceinline__ size_t edge_partial_floats(int de, int h, int d2) {
+  return static_cast<size_t>(de) * h + h + static_cast<size_t>(h) * d2 + d2 + 4;
+}
+
 // The sum over the RT threads that share a row (neighbouring
 // lanes), in a fixed order; every one of them gets it.
 template <int RT>
@@ -467,8 +495,24 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                     const float* __restrict__ gout, float slope,
                     float* __restrict__ gef, float* __restrict__ g_rows,
                     float* __restrict__ partial, int n, int e, int de,
-                    int h, int d2, int stages) {
+                    int h, int d2, long long x_gs, int stages) {
   constexpr int RT = kEdgeThreads / T, WR = 32 / RT;
+  // blockIdx.y = g, the graph: its slices of every per-graph array (xa, xb
+  // at g * x_gs), and its blocks' partials after those of graphs < g.
+  {
+    const size_t g = blockIdx.y;
+    xa += g * x_gs;
+    xb += g * x_gs;
+    ef += g * e * de;
+    gef += g * e * de;
+    src += g * e;
+    dst += g * e;
+    if constexpr (ORDER) order += g * e;
+    off += g * (n + 1);
+    gout += g * n * d2;
+    g_rows += g * e * h;
+    partial += g * gridDim.x * edge_partial_floats(de, h, d2);
+  }
   static_assert(RT * T == kEdgeThreads && RT >= 8 && RT <= 32, "8 to 32 threads a row");
   extern __shared__ __align__(16) float smem[];
   const int lde = de + kPad, ldh = h + kPad, ldd = d2 + kPad;
@@ -559,8 +603,7 @@ bwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   };
 
   // This block's partial: dW1e | db1 | dW2 | db2 | dg1 dbe1 dg2 dbe2.
-  float* out = partial + static_cast<size_t>(blockIdx.x) *
-                          (de * h + h + h * d2 + d2 + 4);
+  float* out = partial + static_cast<size_t>(blockIdx.x) * edge_partial_floats(de, h, d2);
   float* out_w2 = out + de * h + h;
   float acc_w1e[DWI][8][4], acc_w2[DWI][8][4];
 #pragma unroll
@@ -768,8 +811,9 @@ cudaError_t bwd_plan(int e, int de, int h, int d2, bool order, BwdPlan& p) {
   return cudaErrorInvalidValue;
 }
 
-// One launch of bwd_edge_kernel as planned (p); xa, xb [n, h] the node
-// products, order the receiver order (ORDER) or null.
+// One launch of bwd_edge_kernel as planned (p) over `graphs` graphs; xa,
+// xb [n, h] the node products of graph g at g * x_gs, order the receiver
+// order (ORDER) or null; the other arrays [graphs, ...], contiguous.
 template <int T, int DWI, bool ORDER>
 cudaError_t launch_bwd_edges(const BwdPlan& p, const float* xa, const float* xb,
                              const float* ef, const int* src, const int* dst,
@@ -778,15 +822,15 @@ cudaError_t launch_bwd_edges(const BwdPlan& p, const float* xa, const float* xb,
                              const float* w2, const float* b2,
                              const float* scal, const float* gout, float slope,
                              float* gef, float* rows, float* part, int n,
-                             int e, int de, int h, int d2,
-                             cudaStream_t stream) {
+                             int e, int de, int h, int d2, int graphs,
+                             long long x_gs, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(bwd_edge_kernel<T, DWI, ORDER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.smem));
   if (err != cudaSuccess) return err;
-  bwd_edge_kernel<T, DWI, ORDER><<<p.blocks, kEdgeThreads, p.smem, stream>>>(
+  bwd_edge_kernel<T, DWI, ORDER><<<dim3(p.blocks, graphs), kEdgeThreads, p.smem, stream>>>(
       xa, xb, ef, src, dst, order, off, w1e, b1, w2, b2, scal, gout, slope,
-      gef, rows, part, n, e, de, h, d2, p.stages);
+      gef, rows, part, n, e, de, h, d2, x_gs, p.stages);
   return cudaGetLastError();
 }
 
@@ -798,14 +842,15 @@ cudaError_t bwd_edges(const BwdPlan& p, const float* xa, const float* xb,
                       const float* b1, const float* w2, const float* b2,
                       const float* scal, const float* gout, float slope,
                       float* gef, float* rows, float* part, int n, int e,
-                      int de, int h, int d2, cudaStream_t stream) {
+                      int de, int h, int d2, int graphs, long long x_gs,
+                      cudaStream_t stream) {
   const int dwi = p.items > 1 ? 2 : 1;
 #define MP_BWD(T, W)                                                         \
   if (p.tile == T && dwi == W)                                               \
     return launch_bwd_edges<T, W, ORDER>(p, xa, xb, ef, src, dst, order, off, \
                                          w1e, b1, w2, b2, scal, gout, slope, \
                                          gef, rows, part, n, e, de, h, d2,   \
-                                         stream);
+                                         graphs, x_gs, stream);
   MP_BWD(32, 1) MP_BWD(32, 2) MP_BWD(16, 1) MP_BWD(16, 2) MP_BWD(8, 1) MP_BWD(8, 2)
 #undef MP_BWD
   return cudaErrorInvalidValue;
@@ -853,13 +898,26 @@ fwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                 const int* __restrict__ off, const float* __restrict__ w1e,
                 const float* __restrict__ b1, const float* __restrict__ w2,
                 const float* __restrict__ b2, const float* __restrict__ scal,
-                float slope, float* __restrict__ msgs, int n, int de, int h,
-                int d2, int stages) {
+                float slope, float* __restrict__ msgs, int n, int e, int de,
+                int h, int d2, long long x_gs, int stages) {
   constexpr int RT = kEdgeThreads / T, WR = 32 / RT;
   static_assert(RT * T == kEdgeThreads && RT >= 8 && RT <= 32, "8 to 32 threads a row");
   extern __shared__ __align__(16) float smem[];
   const int lde = de + kPad, ldh = h + kPad, ldd = d2 + kPad;
   const int stage_f = T * (lde + 2 * ldh);
+  // blockIdx.y = g, the graph: its slices of every per-graph array (xa, xb
+  // at g * x_gs).
+  {
+    const size_t g = blockIdx.y;
+    xa += g * x_gs;
+    xb += g * x_gs;
+    ef += g * e * de;
+    src += g * e;
+    dst += g * e;
+    if constexpr (ORDER) order += g * e;
+    off += g * (n + 1);
+    msgs += g * e * d2;
+  }
   float* s_w1e = smem;                       // [de][ldh]
   float* s_w2 = s_w1e + de * ldh;            // [h][ldd]
   float* s_stage = s_w2 + h * ldd;           // [stages] of ef | xa | xb
@@ -1069,46 +1127,52 @@ cudaError_t launch_fwd_edges(const FwdPlan& p, const float* xa, const float* xb,
                              const float* w1e, const float* b1,
                              const float* w2, const float* b2,
                              const float* scal, float slope, float* msgs,
-                             int n, int de, int h, int d2, cudaStream_t stream) {
+                             int n, int e, int de, int h, int d2, int graphs,
+                             long long x_gs, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(fwd_edge_kernel<T, ORDER, ROUND_X, BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.smem));
   if (err != cudaSuccess) return err;
-  fwd_edge_kernel<T, ORDER, ROUND_X, BF16><<<p.blocks, kEdgeThreads, p.smem, stream>>>(
+  fwd_edge_kernel<T, ORDER, ROUND_X, BF16><<<dim3(p.blocks, graphs), kEdgeThreads, p.smem, stream>>>(
       xa, xb, ef, src, dst, order, off, w1e, b1, w2, b2, scal, slope, msgs, n,
-      de, h, d2, p.stages);
+      e, de, h, d2, x_gs, p.stages);
   return cudaGetLastError();
 }
 
-// A forward round's two launches over the node products xa, xb [n, h]:
-// fwd_edge_kernel at the plan's tile (messages into msgs [e, d2]), then
-// segsum_kernel (agg [n, d2], every row written).  order: the receiver
-// order (ORDER) or null.  xa, xb, ef, w1e, w2 and msgs are 16-byte aligned.
+// A forward round's two launches over `graphs` graphs, graph g's node
+// products xa, xb [n, h] at g * x_gs: fwd_edge_kernel at the plan's tile
+// (messages into msgs [graphs, e, d2]), then segsum_kernel (agg [graphs, n,
+// d2], every row written).  order: the receiver order (ORDER) or null; the
+// index arrays [graphs, ...].  xa, xb, ef, w1e, w2 and msgs are 16-byte
+// aligned.
 template <bool ORDER, bool ROUND_X, bool BF16>
 cudaError_t fwd_round(const FwdPlan& p, const float* xa, const float* xb,
                       const float* ef, const int* src, const int* dst,
                       const int* order, const int* off, const float* w1e,
                       const float* b1, const float* w2, const float* b2,
                       const float* scal, float slope, float* msgs, float* agg,
-                      int n, int de, int h, int d2, cudaStream_t stream) {
+                      int n, int e, int de, int h, int d2, int graphs,
+                      long long x_gs, cudaStream_t stream) {
   cudaError_t err = cudaErrorInvalidValue;
 #define MP_FWD(T)                                                              \
   if (p.tile == T)                                                             \
     err = launch_fwd_edges<T, ORDER, ROUND_X, BF16>(p, xa, xb, ef, src, dst,   \
                                                     order, off, w1e, b1, w2,   \
                                                     b2, scal, slope, msgs, n,  \
-                                                    de, h, d2, stream);
+                                                    e, de, h, d2, graphs,      \
+                                                    x_gs, stream);
   MP_FWD(32) MP_FWD(16) MP_FWD(8)
 #undef MP_FWD
   if (err != cudaSuccess) return err;
-  segsum_kernel<<<(n + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-      msgs, dst, order, nullptr, off, nullptr, n, d2, agg);
+  segsum_kernel<<<dim3((n + kWarps - 1) / kWarps, 1, graphs), kWarps * 32, 0, stream>>>(
+      msgs, dst, order, nullptr, off, nullptr, n, e, d2,
+      static_cast<long long>(e) * d2, static_cast<long long>(n) * d2, agg);
   return cudaGetLastError();
 }
 
 // The partial of one edge block, in floats: dW1e | db1 | dW2 | db2 | 4.
 long long edge_partial(int de, int h, int d2) {
-  return static_cast<long long>(de) * h + h + static_cast<long long>(h) * d2 + d2 + 4;
+  return static_cast<long long>(edge_partial_floats(de, h, d2));
 }
 
 // The final sums, in fixed order.  The edge blocks' partials
@@ -1119,11 +1183,15 @@ long long edge_partial(int de, int h, int d2) {
 // part [x^T dxa | x^T dxb], the sum of the node splits in order, and dx,
 // the sum of the 2 x dx_splits partials of dxa W1r^T, dxb W1s^T in order.
 // The fused round has no node part (d = 0): dw is the edge part alone.
+// Over `graphs` graphs: `blocks` counts every graph's edge blocks, their
+// partials in graph order; the node partials are [graphs, 2, splits, d, h]
+// (dw sums them graph by graph, each graph's splits in order) and [graphs,
+// 2, dx_splits, n, d] (dx [graphs, n, d], one graph's each).
 __global__ void __launch_bounds__(kReduceThreads)
 bwd_reduce_kernel(const float* __restrict__ p_w1rs, int splits,
                   const float* __restrict__ p_edge, int blocks,
                   const float* __restrict__ p_dx, int dx_splits, int n, int d,
-                  int de, int h, int d2, float* __restrict__ dw,
+                  int de, int h, int d2, int graphs, float* __restrict__ dw,
                   float* __restrict__ dx) {
   constexpr int kOut = kReduceThreads / kReduceGroups;
   __shared__ float group_sum[kReduceGroups][kOut];
@@ -1156,15 +1224,18 @@ bwd_reduce_kernel(const float* __restrict__ p_w1rs, int splits,
   const long long i = static_cast<long long>(blockIdx.x - edge_blocks) * blockDim.x + threadIdx.x;
   if (i < node) {
     const long long b = i / dh;
-    const float* p = p_w1rs + b * splits * dh + (i - b * dh);
     float v = 0.f;
-    for (int z = 0; z < splits; ++z) v += p[z * dh];
+    for (int g = 0; g < graphs; ++g) {
+      const float* p = p_w1rs + ((2LL * g + b) * splits) * dh + (i - b * dh);
+      for (int z = 0; z < splits; ++z) v += p[z * dh];
+    }
     dw[i] = v;
-  } else if (i < node + ndx) {
-    const float* p = p_dx + (i - node);
+  } else if (i < node + graphs * ndx) {
+    const long long k = i - node, g = k / ndx;
+    const float* p = p_dx + g * 2 * dx_splits * ndx + (k - g * ndx);
     float v = 0.f;
     for (int z = 0; z < 2 * dx_splits; ++z) v += p[z * ndx];
-    dx[i - node] = v;
+    dx[k] = v;
   }
 }
 

@@ -72,7 +72,9 @@ def bucketed_batches(
 def make_bucketed_train_step(
     cfg: GNNConfig, buckets: Sequence[Bucket], **step_kwargs
 ):
-    """One ``make_train_step`` per bucket, all sharing one TrainState.
+    """One ``make_train_step`` per bucket, all sharing one TrainState (on
+    the card one captured CUDA graph per bucket, all in the process's one
+    graph memory pool).
 
     step_kwargs forward to train.steps.make_train_step (``mp_impl``,
     ``mp_bf16``).  The JAX package's ``donate`` (buffer donation to XLA)

@@ -22,6 +22,13 @@ configurations run the plain gather → MLP → segment path.  ``mp_bf16``
 runs the fused rounds with the TPU kernels' bf16 operands (the JAX
 package's ``fast_forward(mp_bf16=True)``); it needs a fused round.
 
+Every block takes one graph ([N, D] nodes, [E] edges) or a batch of them
+with a leading graph axis ([B, N, D], [B, E]), as the JAX package's
+``jax.vmap`` of the one-graph model does: per-row products are shared,
+layer/group norm statistics, gathers and segment sums stay per graph
+(``ops/norms.py``, ``ops/segment.py``), and each fused round is one call of
+the kernels for the whole batch.
+
 With a ``graph_group`` (the JAX package's ``graph_axis``: a process group
 of ``parallel/mesh.py``) the edge arrays are this rank's shard along E.
 Each round then computes the partial aggregate over the local edges, on
@@ -235,7 +242,7 @@ class ResidualGraphConvBlock(nn.Module):
         if mp_bf16 and not self.fused:
             raise ValueError("mp_bf16 needs the fused round: channel "
                              "normalisation, leaky ReLU and sum aggregation")
-        n = x.shape[0]
+        n = x.shape[-2]
         if self.identity is not None:
             identity = self.identity_norm(self.identity(x), node_mask)
         else:
@@ -271,7 +278,7 @@ class ResidualGraphConvBlock(nn.Module):
                 agg = P.psum(agg, graph_group)
             if self.aggregation == "mean":
                 cnt = P.psum(S.segment_count(receivers, n, edge_mask), graph_group)
-                agg = agg / torch.clamp(cnt[:, None], min=1.0)
+                agg = agg / torch.clamp(cnt[..., None], min=1.0)
         parts = [x, agg] if extra_features is None else [x, extra_features, agg]
         upd = self.upd_mlp(torch.cat(parts, dim=-1), node_mask)
         return identity + upd
@@ -314,36 +321,40 @@ class GraphConvolution(nn.Module):
         if mp_impl == "csr" and not self.fused:
             raise ValueError("mp_impl='csr' needs channel normalisation, "
                              "leaky ReLU and sum aggregation")
+        n = x.shape[-2]
         if self.fused:
             # The kernel takes no masks: masked edges get the sentinel N at
             # both ends and zero features (JAX fast_path.py:115-118, 156).
-            n = torch.full_like(senders, x.shape[0])
-            senders = torch.where(edge_mask, senders, n).int()
-            receivers = torch.where(edge_mask, receivers, n).int()
-            edge_feat = torch.where(edge_mask[:, None], edge_feat,
+            sentinel = torch.full_like(senders, n)
+            senders = torch.where(edge_mask, senders, sentinel).int()
+            receivers = torch.where(edge_mask, receivers, sentinel).int()
+            edge_feat = torch.where(edge_mask[..., None], edge_feat,
                                     torch.zeros_like(edge_feat))
         layout = fused = None
         if mp_impl == "csr":
-            edge_feat = edge_feat + self._csr_guard(senders, receivers,
-                                                    x.shape[0])
-            layout = C.csr_layout(receivers, senders, x.shape[0],
-                                  *self.csr_tiling)
+            # Per graph: a violation poisons that graph's edges only.
+            guard = self._csr_guard(senders, receivers, n)
+            edge_feat = edge_feat + guard[..., None, None]
+            layout = C.csr_layout(receivers, senders, n, *self.csr_tiling)
         elif self.fused and FM.needs_layout(x):
             # The fused kernels' fixed-order sums walk the edges by receiver
-            # and by sender: sorted once per graph.
-            fused = FM.fused_layout(senders, receivers, x.shape[0])
+            # and by sender: sorted once per graph (per batch: all graphs
+            # in one sort).
+            fused = FM.fused_layout(senders, receivers, n)
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
                     layout, mp_bf16, fused, extra_features, graph_group)
         return x
 
     def _csr_guard(self, senders, receivers, n):
-        """NaN (0-d, on the device, no host sync) if an edge falls outside
-        its tile's destination or source window — the CSR round would drop
-        it — else 0.  Added to the encoded edges, it makes the train step's
-        NaN skip fire instead of training on wrong sums (fast_path.py:
-        137-147).  The port's kernels also need sorted destinations: out of
-        order ones count too."""
+        """NaN (0-d, on the device, no host sync; [B], one a graph, for a
+        batch) if an edge falls outside its tile's destination or source
+        window — the CSR round would drop it — else 0.  Added to the encoded
+        edges, it makes the loss NaN and the train step's NaN skip fire
+        instead of training on wrong sums (fast_path.py:137-147; under the
+        JAX package's vmap, one graph's violation poisons the batch's loss).
+        The port's kernels also need sorted destinations: out of order ones
+        count too."""
         edge_tile, window, src_window = self.csr_tiling
         n_viol = (C.window_span_violations(senders, n, edge_tile, window)
                   + C.order_violations(senders, n))

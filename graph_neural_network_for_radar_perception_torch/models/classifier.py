@@ -275,6 +275,6 @@ def make_classifier_train_step(ccfg: ClassifierConfig
         loss.backward()
         ok = finite_update(state, loss, state.model.parameters())
         return state, {"loss_obj_cls": loss.detach(), "object_accuracy": acc.detach(),
-                       "skipped": loss.new_tensor(0.0 if ok else 1.0)}
+                       "skipped": (~ok).to(torch.float32)}
 
     return init, step, loss_fn

@@ -404,7 +404,7 @@ def make_grid_train_step(cfg: CNNConfig) -> Tuple[Callable, Callable, Callable]:
         loss.backward()
         ok = finite_update(state, loss, state.model.parameters())
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = loss.new_tensor(0.0 if ok else 1.0)
+        metrics["skipped"] = (~ok).to(torch.float32)
         return state, metrics
 
     return init, step, loss_fn

@@ -60,16 +60,16 @@ class GATv2Conv(nn.Module):
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask):
         del node_mask  # the attention is over edges; masked edges weigh 0
         h, c = self.num_heads, self.out_channels
-        n = x.shape[0]
-        xs = S.gather_nodes(self.lin_l(x), senders).reshape(-1, h, c)
-        xr = S.gather_nodes(self.lin_r(x), receivers).reshape(-1, h, c)
-        e = self.lin_edge(edge_feat).reshape(-1, h, c)
+        n, lead = x.shape[-2], tuple(x.shape[:-2])  # lead: a batch's graph axis
+        xs = S.gather_nodes(self.lin_l(x), senders).reshape(lead + (-1, h, c))
+        xr = S.gather_nodes(self.lin_r(x), receivers).reshape(lead + (-1, h, c))
+        e = self.lin_edge(edge_feat).reshape(lead + (-1, h, c))
         s = F.leaky_relu(xs + xr + e, GAT_SLOPE)            # [E, H, C]
         logits = (s * self.att).sum(-1)                       # [E, H]
         # normalised over each receiver's incoming edges, per head
         alpha = S.segment_softmax(logits, receivers, n, edge_mask)
         msg = xs * alpha[..., None]
-        out = S.masked_segment_sum(msg.reshape(-1, h * c), receivers, n,
+        out = S.masked_segment_sum(msg.reshape(lead + (-1, h * c)), receivers, n,
                                    edge_mask)
         return out + self.bias
 

@@ -2,7 +2,11 @@
 
 The JAX package's ``models/gnn.py`` (the reference's
 modules/neural_net/gnn/gnn_detector.py:31-201): encoders → message-passing
-stack → four task heads, over ONE padded graph.
+stack → four task heads, over ONE padded graph or, for ``forward``, a
+batch of them with a leading graph axis (every field of the RadarGraph and
+the labels [B, ...]): one call for the batch where the JAX package vmaps
+the one-graph model (train/steps.batched_forward), each message round one
+kernel launch for all B graphs, layer/group norm statistics per graph.
 
 * ``forward`` — training path: cluster membership is ground truth.
 * ``deploy`` — deployment path: decodes predicted cluster centers, runs
@@ -46,7 +50,7 @@ from .blocks import (
 )
 
 
-class GNNOutputs(NamedTuple):
+class GNNOutputs(NamedTuple):  # a batch's: [B, ...]
     node_cls: torch.Tensor      # [N, num_classes]
     node_offsets: torch.Tensor  # [N, 2] (normalised units)
     edge_cls: torch.Tensor      # [Eu, num_edge_classes]

@@ -40,6 +40,13 @@ The kernels need dst non-decreasing over the edges they keep (as
 in the repo meets it (``pad_frame``'s row-major list, ``spatial_sort_frame``,
 ``merge_frames``).
 
+A batch of graphs is a leading graph axis on x, ef, src and dst, as in
+``ops.fused_mp``: one C call of the kernels for all the graphs (graph b's
+outputs those of a call on graph b alone, the weight gradients summed in
+graph order); the layout's index preparation runs on every graph at once
+(sorts and scans along the last axis); the plain versions loop over the
+graphs.
+
 ``bf16=True`` is the TPU kernel's bf16 mode, which rounds at other points
 than the fused round's: x and W1r/W1s are rounded *before* the node
 products (``_fwd_kernel``: ``xw = x[...].astype(dt)``), then ef, W1e, the
@@ -57,6 +64,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.graph import device_constant
 from ._build import load
 from .fused_mp import (
     BackwardPlan,
@@ -68,8 +76,11 @@ from .fused_mp import (
     _cnorm_stats,
     _plan,
     _scalar,
+    batch_layout,
     fused_message_pass_reference,
     message_pass_bf16_plain,
+    per_graph,
+    with_graph_axis,
 )
 
 # Sign of each raw edge feature under edge reversal (s→r) ↦ (r→s):
@@ -88,9 +99,7 @@ def reverse_edge_features(ef: torch.Tensor) -> torch.Tensor:
             f"edge feature dim {ef.shape[-1]} != 7; the reversal sign "
             "pattern only applies to the standard feature layout"
         )
-    signs = torch.tensor(EDGE_FEATURE_REVERSAL_SIGNS, dtype=ef.dtype,
-                         device=ef.device)
-    return ef * signs
+    return ef * device_constant(EDGE_FEATURE_REVERSAL_SIGNS, ef.dtype, ef.device)
 
 
 # ------------------------------------------------------------ host checks
@@ -153,86 +162,91 @@ def _floor8(v):
 
 
 def _pad_edges(idx: torch.Tensor, n: int, edge_tile: int) -> torch.Tensor:
-    """idx padded with sentinel n to a multiple of edge_tile."""
-    rem = (-idx.shape[0]) % edge_tile
+    """idx [..., E] padded with sentinel n to a multiple of edge_tile."""
+    rem = (-idx.shape[-1]) % edge_tile
     if not rem:
         return idx
-    return torch.cat([idx, idx.new_full((rem,), n)])
+    return torch.cat([idx, idx.new_full(idx.shape[:-1] + (rem,), n)], dim=-1)
 
 
 def _layout(dst, n: int, edge_tile: int, window: int):
     """Per-chunk window bases + window-local destination indices.
 
-    dst: [E] int sorted destinations with sentinel n for padded edges (E a
-    multiple of edge_tile).  Returns (bases [C, 1] int32, dst_loc [E] int32
-    with ``window`` as the no-match sentinel).  The clip bound is
-    floor-8-aligned, as the TPU kernel's ``pl.multiple_of(base, 8)`` needs:
-    with (n - window) % 8 != 0 the top few node ids fall outside the highest
-    window and are flagged by the sentinel."""
-    firsts = dst[::edge_tile]
+    dst: [..., E] int sorted destinations with sentinel n for padded edges
+    (E a multiple of edge_tile; a leading graph axis per graph).  Returns
+    (bases [..., C, 1] int32, dst_loc [..., E] int32 with ``window`` as the
+    no-match sentinel).  The clip bound is floor-8-aligned, as the TPU
+    kernel's ``pl.multiple_of(base, 8)`` needs: with (n - window) % 8 != 0
+    the top few node ids fall outside the highest window and are flagged by
+    the sentinel."""
+    firsts = dst[..., ::edge_tile]
     bases = _floor8(firsts).clamp(0, max(((n - window) // 8) * 8, 0))
-    loc = dst - torch.repeat_interleave(bases, edge_tile)
+    loc = dst - torch.repeat_interleave(bases, edge_tile, dim=-1)
     loc = torch.where((dst < n) & (loc >= 0) & (loc < window), loc,
                       torch.full_like(loc, window))
-    return bases.int().reshape(-1, 1), loc.int()
+    return bases.int()[..., None], loc.int()
 
 
 def _src_layout(src, n: int, edge_tile: int, ws: int):
     """Per-chunk source-window bases + window-local source indices.
 
-    src: [E] int sources with sentinel n for padded edges (E a multiple of
-    edge_tile), unsorted within a tile.  Returns (bases [C, 1] int32,
-    src_loc [E] int32 with ``ws`` as the no-match sentinel).  With ws == n
-    every base clips to 0: the unwindowed gather."""
-    chunks = src.reshape(-1, edge_tile)
+    src: [..., E] int sources with sentinel n for padded edges (E a
+    multiple of edge_tile), unsorted within a tile.  Returns (bases [...,
+    C, 1] int32, src_loc [..., E] int32 with ``ws`` as the no-match
+    sentinel).  With ws == n every base clips to 0: the unwindowed
+    gather."""
+    chunks = src.reshape(src.shape[:-1] + (-1, edge_tile))
     mins = torch.where(chunks < n, chunks, torch.full_like(chunks, n)).amin(-1)
     bases = _floor8(mins).clamp(0, max(((n - ws) // 8) * 8, 0))
-    loc = chunks - bases[:, None]
+    loc = chunks - bases[..., None]
     loc = torch.where((chunks < n) & (loc >= 0) & (loc < ws), loc,
                       torch.full_like(loc, ws))
-    return bases.int().reshape(-1, 1), loc.reshape(-1).int()
+    return bases.int()[..., None], loc.reshape(src.shape).int()
 
 
 def window_span_violations(dst, n: int, edge_tile: int, window: int):
-    """Count (0-d tensor, on dst's device, no host sync) of valid edges
-    whose destination falls outside its tile's node window — the edges
-    ``_layout`` drops.  Callers poison the output with NaN when it is
-    nonzero, so that the train step's NaN skip fires."""
+    """Count (0-d tensor, on dst's device, no host sync; [B] for a batch's
+    dst [B, E]) of valid edges whose destination falls outside its tile's
+    node window — the edges ``_layout`` drops.  Callers poison the output
+    with NaN when it is nonzero, so that the train step's NaN skip fires."""
     dst = _pad_edges(dst, n, edge_tile)
     _, loc = _layout(dst, n, edge_tile, window)
-    return ((dst < n) & (loc == window)).sum()
+    return ((dst < n) & (loc == window)).sum(-1)
 
 
 def src_window_violations(src, n: int, edge_tile: int, src_window: int):
-    """Count (0-d tensor, no host sync) of valid edges whose source falls
-    outside its tile's source window — the edges ``_src_layout`` cuts off.
-    Zero when src_window is 0 or ≥ n (unwindowed gather)."""
+    """Count (0-d tensor, no host sync; [B] for a batch) of valid edges
+    whose source falls outside its tile's source window — the edges
+    ``_src_layout`` cuts off.  Zero when src_window is 0 or ≥ n
+    (unwindowed gather)."""
     src = _pad_edges(src, n, edge_tile)
     src = torch.where(src < n, src, torch.full_like(src, n))
     ws = min(src_window, n) if src_window else n
     _, loc = _src_layout(src, n, edge_tile, ws)
-    return ((src < n) & (loc == ws)).sum()
+    return ((src < n) & (loc == ws)).sum(-1)
 
 
 def order_violations(dst, n: int):
-    """Count (0-d tensor, no host sync) of valid destinations (< n) that
-    break the kernels' precondition: dst non-decreasing over valid edges.
-    The TPU kernel needs no order; the port's segmented sums do."""
+    """Count (0-d tensor, no host sync; [B] for a batch) of valid
+    destinations (< n) that break the kernels' precondition: dst
+    non-decreasing over valid edges.  The TPU kernel needs no order; the
+    port's segmented sums do."""
     d = torch.where((dst >= 0) & (dst < n), dst, torch.full_like(dst, n))
-    return ((d < n) & (d != _suffix_min(d))).sum()
+    return ((d < n) & (d != _suffix_min(d))).sum(-1)
 
 
 def _suffix_min(idx: torch.Tensor) -> torch.Tensor:
-    return idx.flip(0).cummin(0).values.flip(0)
+    """The suffix minimum along the last axis."""
+    return idx.flip(-1).cummin(-1).values.flip(-1)
 
 
 def _effective_indices(src, dst, n: int, edge_tile: int, window: int,
                        src_window: int):
-    """(src_eff, dst_eff) [E] int32: the TPU kernel's window semantics as
-    sentinels.  dst_eff = N where the destination falls outside its tile's
-    window (message dropped); src_eff = N where the source falls outside
-    its tile's source window (zero x_src, message kept)."""
-    e = src.shape[0]
+    """(src_eff, dst_eff) [..., E] int32: the TPU kernel's window semantics
+    as sentinels.  dst_eff = N where the destination falls outside its
+    tile's window (message dropped); src_eff = N where the source falls
+    outside its tile's source window (zero x_src, message kept)."""
+    e = src.shape[-1]
     # The clipping of _forward_impl.
     window = min(window, n)
     ws = min(src_window, n) if src_window else n
@@ -243,26 +257,32 @@ def _effective_indices(src, dst, n: int, edge_tile: int, window: int,
     _, src_loc = _src_layout(src_p, n, edge_tile, ws)
     dst_eff = torch.where(dst_loc == window, torch.full_like(dst_p, n), dst_p)
     src_eff = torch.where(src_loc == ws, torch.full_like(src_p, n), src_p)
-    return src_eff[:e].int().contiguous(), dst_eff[:e].int().contiguous()
+    return src_eff[..., :e].int().contiguous(), dst_eff[..., :e].int().contiguous()
+
+
+def _node_ids(key: torch.Tensor, n: int) -> torch.Tensor:
+    """0 … n (key's type), with key's leading axes."""
+    nodes = torch.arange(n + 1, dtype=key.dtype, device=key.device)
+    return nodes.expand(key.shape[:-1] + (n + 1,)).contiguous()
 
 
 def _segment_offsets(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """off [n+1] int32 with the positions of node v's segment in
+    """off [..., n+1] int32 with the positions of node v's segment in
     [off[v], off[v+1]), from a key that is non-decreasing everywhere: the
     suffix minimum of idx (sentinels N inside the run take the next kept
     destination and are skipped by the kernel; the tail of sentinels
     forms the virtual segment N).  Exact when idx is non-decreasing over
     its entries < N."""
     key = _suffix_min(idx).contiguous()
-    nodes = torch.arange(n + 1, dtype=key.dtype, device=key.device)
-    return torch.searchsorted(key, nodes, out_int32=True)
+    return torch.searchsorted(key, _node_ids(key, n), out_int32=True)
 
 
 class CSRLayout(NamedTuple):
     """The index preparation of one graph's CSR rounds, shared by all of
     them (it depends on the edges and the tiling only): the effective
     indices and, on the card, the destination segments and the edges in
-    source order with their segments."""
+    source order with their segments.  A batch's has a leading graph axis
+    on each tensor."""
 
     src: torch.Tensor                        # [E] int32, effective sources
     dst: torch.Tensor                        # [E] int32, effective destinations
@@ -274,20 +294,20 @@ class CSRLayout(NamedTuple):
 
 def csr_layout(src, dst, n: int, edge_tile: int = 512, window: int = 256,
                src_window: int = 0) -> CSRLayout:
-    """The ``CSRLayout`` of a graph's (src, dst) at this tiling.  On the
-    card everything stays on the device (no host sync)."""
+    """The ``CSRLayout`` of a graph's (src, dst) at this tiling, or of
+    every graph of a batch ([B, E]).  On the card everything stays on the
+    device (no host sync)."""
     src_e, dst_e = _effective_indices(src, dst, n, edge_tile, window,
                                       src_window)
     if src_e.device.type == "cpu":
         return CSRLayout(src_e, dst_e, edge_tile)
     # The source side of the backward: stable, so that each node's
     # cotangent sums in edge order.
-    perm = torch.argsort(src_e, stable=True).int()
-    nodes = torch.arange(n + 1, dtype=torch.int32, device=src_e.device)
-    off_src = torch.searchsorted(src_e[perm.long()].contiguous(), nodes,
-                                 out_int32=True)
-    return CSRLayout(src_e, dst_e, edge_tile, _segment_offsets(dst_e, n), perm,
-                     off_src)
+    perm = torch.argsort(src_e, dim=-1, stable=True)
+    off_src = torch.searchsorted(torch.gather(src_e, -1, perm),
+                                 _node_ids(src_e, n), out_int32=True)
+    return CSRLayout(src_e, dst_e, edge_tile, _segment_offsets(dst_e, n),
+                     perm.int(), off_src)
 
 
 # ---------------------------------------------------------- plain versions
@@ -295,7 +315,12 @@ def _forward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2,
                    slope, bf16):
     """The round over effective indices (receiver = dst, sender = src).
     ``bf16``: x, W1r and W1s rounded before the node products, then the
-    operands of ``message_pass_bf16_plain``."""
+    operands of ``message_pass_bf16_plain``.  A batch runs each graph's in
+    turn."""
+    if x.ndim == 3:
+        return per_graph(lambda xb, eb, sb, db: _forward_plain(
+            xb, eb, sb, db, w1, b1, w2, b2, g1, be1, g2, be2, slope, bf16),
+            x, ef, src_e, dst_e)
     if not bf16:
         return fused_message_pass_reference(
             x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2, slope)
@@ -313,7 +338,7 @@ def fused_message_pass_csr_reference(
     """Plain PyTorch version of what ``_forward_impl`` returns, for any
     input (contract-violating ones included): the plain round over the
     effective indices, with the TPU kernel's bf16 operands if ``bf16``."""
-    src_e, dst_e = _effective_indices(src, dst, x.shape[0], edge_tile,
+    src_e, dst_e = _effective_indices(src, dst, x.shape[-2], edge_tile,
                                       window, src_window)
     return _forward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2,
                           be2, slope, bf16)
@@ -324,7 +349,13 @@ def _backward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2, be2,
     """The chain rule of ``_bwd_kernel`` over effective indices, with the
     TPU kernel's per-edge products: x_dst and x_src are gathered per edge
     (zero for a sentinel), dW1 = [x_dst ‖ x_src ‖ ef]ᵀ·g_pre1, and dx
-    scatters g_pre1·W1rᵀ at dst and g_pre1·W1sᵀ at src."""
+    scatters g_pre1·W1rᵀ at dst and g_pre1·W1sᵀ at src.  A batch runs each
+    graph's in turn: dx and gef per graph, the rest summed in graph
+    order."""
+    if x.ndim == 3:
+        return per_graph(lambda xb, eb, sb, db, gb: _backward_plain(
+            xb, eb, sb, db, w1, b1, w2, b2, g1, be1, g2, be2, gb, slope,
+            edge_tile), x, ef, src_e, dst_e, g_out, stacked=2)
     n, d = x.shape
     d2 = w2.shape[1]
     di, si = dst_e.long(), src_e.long()
@@ -370,7 +401,7 @@ def fused_message_pass_csr_backward_reference(
     gef [E, De], dW1 [2D+De, H] (all three blocks), db1 [H], dW2 [H, D2],
     db2 [D2], dγ1, dβ1, dγ2, dβ2) shaped like g1.  Recompute per edge, then
     the explicit chain rule over the effective indices."""
-    src_e, dst_e = _effective_indices(src, dst, x.shape[0], edge_tile,
+    src_e, dst_e = _effective_indices(src, dst, x.shape[-2], edge_tile,
                                       window, src_window)
     out = _backward_plain(x, ef, src_e, dst_e, w1, b1, w2, b2, g1, be1, g2,
                           be2, g_out, slope, edge_tile)
@@ -386,7 +417,7 @@ def _kernel(bf16: bool = False):
     lib = load("csr_mp")
     fn = lib.csr_mp_forward_bf16 if bf16 else lib.csr_mp_forward
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -396,7 +427,7 @@ def _bwd_kernel():
     """The backward kernel's C entry point (same library as the forward)."""
     fn = load("csr_mp").csr_mp_backward
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -405,7 +436,7 @@ def _bwd_kernel():
 def _bwd_scratch():
     """``csr_mp_backward_scratch``: the backward's scratch size and plan."""
     fn = load("csr_mp").csr_mp_backward_scratch
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_longlong
     return fn
 
@@ -414,25 +445,36 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
-    """One call of ``csr_mp_forward`` (``csr_mp_forward_bf16`` with
-    ``bf16``): the node products, the edge tiles' messages into a scratch
-    by edge, then every agg row written once."""
-    _check_kernel_widths("fused_message_pass_csr", x, ef, w1, w2)
-    n, d = x.shape
-    e, de = ef.shape
+def _forward_launch(x, ef, layout, w1, b1, w2, b2, scal, slope):
+    """The arguments of one ``csr_mp_forward`` call over a batch (x [B, N,
+    D], the layout's with the same graph axis), with its buffers allocated,
+    and the outputs (msgs [B, E, D2], agg [B, N, D2]) that it writes."""
+    b, n, d = x.shape
+    e, de = ef.shape[1:]
     h, d2 = w1.shape[1], w2.shape[1]
     emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
-    agg = emp(n, d2)
-    xab, msgs = emp(2, n, h), emp(e, d2)  # scratch
-    with torch.cuda.device(x.device):
-        rc = _kernel(bf16)(
-            x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
+    agg = emp(b, n, d2)
+    xab, msgs = emp(b, 2, n, h), emp(b, e, d2)  # scratch
+    args = (x.data_ptr(), ef.data_ptr(), layout.src.data_ptr(),
             layout.dst.data_ptr(), layout.off.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(),
             xab.data_ptr(), float(slope), msgs.data_ptr(),
-            agg.data_ptr(), n, e, d, de, h, d2, _stream(x),
-        )
+            agg.data_ptr(), n, e, d, de, h, d2, b, _stream(x))
+    return args, (msgs, agg, xab)
+
+
+def _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope, bf16=False):
+    """One call of ``csr_mp_forward`` (``csr_mp_forward_bf16`` with
+    ``bf16``) over a graph or a batch: the node products, the edge tiles'
+    messages into a scratch by edge, then every agg row written once."""
+    _check_kernel_widths("fused_message_pass_csr", x, ef, w1, w2)
+    if x.ndim == 2:  # a graph: a batch of one
+        return _forward_cuda(x[None], ef[None], batch_layout(layout), w1, b1,
+                             w2, b2, scal, slope, bf16)[0]
+    args, (_, agg, *_alive) = _forward_launch(x, ef, layout, w1, b1, w2, b2,
+                                              scal, slope)
+    with torch.cuda.device(x.device):
+        rc = _kernel(bf16)(*args)
     if rc != 0:
         raise RuntimeError(f"csr_mp_forward{'_bf16' if bf16 else ''} failed: "
                            f"cudaError_t {rc}")
@@ -449,12 +491,12 @@ def _forward_plan(n, e, d, de, h, d2, device) -> ForwardPlan:
     return _plan("csr_mp", "csr_mp_forward_plan", device, n, e, d, de, h, d2)
 
 
-def _backward_plan(n, e, d, de, h, d2, device) -> BackwardPlan:
-    """How ``csr_mp_backward`` runs at these widths on ``device``, as the C
-    library plans it (``csr_mp_backward_scratch``)."""
+def _backward_plan(n, e, d, de, h, d2, device, graphs=1) -> BackwardPlan:
+    """How ``csr_mp_backward`` runs at these widths over ``graphs`` graphs
+    on ``device``, as the C library plans it (``csr_mp_backward_scratch``)."""
     plan = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        floats = _bwd_scratch()(n, e, d, de, h, d2, plan)
+        floats = _bwd_scratch()(n, e, d, de, h, d2, graphs, plan)
     if floats < 0:
         raise ValueError(f"csr_mp_backward: De={de}, H={h}, D2={d2}: "
                          f"cudaError_t {-floats}")
@@ -465,16 +507,22 @@ def _backward_launch(x, ef, layout, w1, b1, w2, b2, scal, g_out, slope):
     """The arguments of one ``csr_mp_backward`` call, with its buffers
     allocated, and the function that returns its results.  The C call sums
     every partial itself (as ``_backward_impl`` sums its per-tile partials
-    outside Pallas): the results are views of its outputs."""
+    outside Pallas): the results are views of its outputs.  A batch (x [B,
+    N, D], the layout's with the same graph axis) gives dx and gef per
+    graph; a single graph's arrays give one graph's."""
     _check_kernel_widths("fused_message_pass_csr_backward", x, ef, w1, w2)
-    n, d = x.shape
-    e, de = ef.shape
+    single = x.ndim == 2
+    if single:
+        x, ef, g_out = with_graph_axis(x, ef, g_out)
+        layout = batch_layout(layout)
+    b, n, d = x.shape
+    e, de = ef.shape[1:]
     h, d2 = w1.shape[1], w2.shape[1]
     emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
-    scratch = emp(_backward_plan(n, e, d, de, h, d2, x.device).floats)
-    # Outputs, every element written: gef, dx and
-    # dw = dW1 ‖ db1 ‖ dW2 ‖ db2 ‖ dγ1 dβ1 dγ2 dβ2.
-    gef, dx = emp(e, de), emp(n, d)
+    scratch = emp(_backward_plan(n, e, d, de, h, d2, x.device, b).floats)
+    # Outputs, every element written: gef, dx per graph and
+    # dw = dW1 ‖ db1 ‖ dW2 ‖ db2 ‖ dγ1 dβ1 dγ2 dβ2, summed over the graphs.
+    gef, dx = emp(b, e, de), emp(b, n, d)
     k = (2 * d + de) * h
     dw = emp(k + h + h * d2 + d2 + 4)
     args = (
@@ -483,14 +531,15 @@ def _backward_launch(x, ef, layout, w1, b1, w2, b2, scal, g_out, slope):
         layout.off_src.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
         float(slope), scratch.data_ptr(), gef.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), n, e, d, de, h, d2, _stream(x),
+        dw.data_ptr(), n, e, d, de, h, d2, b, _stream(x),
     )
 
-    def results(_alive=(layout, scratch)):
+    def results(_alive=(x, ef, g_out, layout, scratch)):
         # _alive holds the tensors only the pointers above refer to.
-        return (dx, gef, dw[:k].view(2 * d + de, h), dw[k : k + h],
-                dw[k + h : k + h + h * d2].view(h, d2),
-                dw[k + h + h * d2 : -4], *dw[-4:].unbind())
+        per = (dx[0], gef[0]) if single else (dx, gef)
+        return per + (dw[:k].view(2 * d + de, h), dw[k : k + h],
+                      dw[k + h : k + h + h * d2].view(h, d2),
+                      dw[k + h + h * d2 : -4], *dw[-4:].unbind())
 
     return args, results
 
@@ -510,10 +559,10 @@ def _backward_cuda(x, ef, layout, w1, b1, w2, b2, scal, g_out, slope):
 
 # ------------------------------------------------------------ the wrappers
 def _check_gout(g_out, x, w2):
-    n, d2 = x.shape[0], w2.shape[1]
-    if tuple(g_out.shape) != (n, d2) or g_out.dtype != torch.float32:
+    want = x.shape[:-1] + (w2.shape[1],)
+    if tuple(g_out.shape) != want or g_out.dtype != torch.float32:
         raise ValueError(f"g_out: {tuple(g_out.shape)} {g_out.dtype}, "
-                         f"expected ({n}, {d2}) float32")
+                         f"expected {want} float32")
     if g_out.device != x.device or not g_out.is_contiguous():
         raise ValueError("g_out must be contiguous and on x's device")
 
@@ -523,17 +572,18 @@ def fused_message_pass_csr_backward(
     edge_tile=512, window=256, src_window=0,
 ):
     """Cotangents of one CSR round for the cotangent ``g_out`` [N, D2] of
-    agg: what ``fused_message_pass_csr_backward_reference`` returns.  A CUDA
-    input launches the kernel (or raises); a CPU input runs the plain
-    version.  ``fused_message_pass_csr_backward.launches`` counts kernel
-    launches."""
+    agg (of a batch: a leading graph axis on x, ef, src, dst and g_out):
+    what ``fused_message_pass_csr_backward_reference`` returns.  A CUDA
+    input launches the kernels of one C call (or raises); a CPU input runs
+    the plain version.  ``fused_message_pass_csr_backward.launches`` counts
+    the C calls."""
     _check(x, ef, src, dst, w1, b1, w2, b2)
     _check_gout(g_out, x, w2)
     if x.device.type == "cpu":
         return fused_message_pass_csr_backward_reference(
             x, ef, src, dst, w1, b1, w2, b2, g1, be1, g2, be2, g_out, slope,
             edge_tile, window, src_window)
-    layout = csr_layout(src, dst, x.shape[0], edge_tile, window, src_window)
+    layout = csr_layout(src, dst, x.shape[-2], edge_tile, window, src_window)
     scal = torch.cat([_scalar(v, x) for v in (g1, be1, g2, be2)])
     out = _backward_cuda(x, ef, layout, w1, b1, w2, b2, scal, g_out, slope)
     shape = torch.as_tensor(g1).shape
@@ -541,9 +591,10 @@ def fused_message_pass_csr_backward(
 
 
 class _FusedMessagePassCSR(torch.autograd.Function):
-    """Autograd node of one CSR round (the JAX package's ``custom_vjp`` with
-    ``pallas_backward=True``), over a graph's ``CSRLayout``.  A bf16
-    forward gets the same f32 backward: the flag is not passed on."""
+    """Autograd node of one CSR round over a graph or a batch (x [B, N, D]; the JAX
+    package's ``custom_vjp`` with ``pallas_backward=True``, vmapped), over
+    the graphs' ``CSRLayout``.  A bf16 forward gets the same f32 backward:
+    the flag is not passed on."""
 
     @staticmethod
     def forward(ctx, x, ef, w1, b1, w2, b2, g1, be1, g2, be2, slope, layout,
@@ -593,16 +644,18 @@ def fused_message_pass_csr(
     graph's ``csr_layout(src, dst, N, edge_tile, window, src_window)``, made
     once and passed to every round of the graph (it then stands for src,
     dst and the tiling), or None to make it here.
-    Returns agg [N, D2] f32.
+    Returns agg [N, D2] f32.  A batch of B graphs prepends B to x, ef,
+    src and dst (and the layout's tensors, and agg): one C call for all of
+    them.
 
     A CUDA input launches the kernels (or raises); a CPU input runs the
-    plain versions.  ``fused_message_pass_csr.launches`` counts launches of
-    the f32 forward kernel, ``fused_message_pass_csr.launches_bf16`` those
-    of its bf16 instantiation."""
+    plain versions.  ``fused_message_pass_csr.launches`` counts calls of
+    the f32 forward's C entry point, ``fused_message_pass_csr.launches_bf16``
+    those of its bf16 instantiation."""
     _check(x, ef, src, dst, w1, b1, w2, b2)
     scalars = [_scalar(v, x) for v in (g1, be1, g2, be2)]
     if layout is None:
-        layout = csr_layout(src, dst, x.shape[0], edge_tile, window,
+        layout = csr_layout(src, dst, x.shape[-2], edge_tile, window,
                             src_window)
     return _FusedMessagePassCSR.apply(x, ef, w1, b1, w2, b2, *scalars, slope,
                                       layout, bool(bf16))

@@ -28,6 +28,15 @@ does, so two launches give the same bits: they walk the graph's
 ``fused_layout`` (its edges by receiver and by sender, stable), which the
 model makes once per graph and hands to every round.
 
+A batch of graphs is a leading graph axis: x [B, N, D], ef [B, E, De],
+senders/receivers [B, E] (a single graph [N, D] is a batch of one).  The
+JAX package vmaps the one-graph round, and the batching rule of
+``pallas_call`` runs each kernel once for the whole batch with a leading
+grid axis over the graphs; here one C call takes the B graphs, and its
+kernels a grid dimension over them: graph b's outputs are those of a call
+on graph b alone, bit for bit, and the weight gradients sum the graphs'
+partials in graph order.  The plain versions loop over the graphs.
+
 ``bf16=True`` is the TPU kernel's bf16 mode (``_kernel`` with ``bf16``):
 every operand of a matrix product is rounded to bfloat16 and every product
 accumulates in float32 — a different function from the f32 round.  The
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 from typing import NamedTuple
 
 import torch
@@ -80,6 +90,34 @@ def message_pass_bf16_plain(xa, xb, ef, senders, receivers, w1e, b1, w2, b2,
     return out[:n]
 
 
+def per_graph(fn, *batched, stacked=None):
+    """The plain function ``fn`` of one graph over a batch: ``fn(*graph b's
+    slices of batched)`` for each graph b in order.  A tensor result comes
+    back stacked on a new leading axis; for a tuple, its first ``stacked``
+    entries are stacked and the others (weight gradients) summed in graph
+    order."""
+    outs = [fn(*(t[b] for t in batched)) for b in range(batched[0].shape[0])]
+    if torch.is_tensor(outs[0]):
+        return torch.stack(outs)
+    cols = list(zip(*outs))
+    return (tuple(torch.stack(c) for c in cols[:stacked])
+            + tuple(functools.reduce(operator.add, c) for c in cols[stacked:]))
+
+
+def with_graph_axis(*tensors):
+    """The tensors with a leading graph axis of one (views), for a single
+    graph's arrays."""
+    return tuple(t[None] for t in tensors)
+
+
+def batch_layout(layout):
+    """A single graph's layout (``FusedLayout`` or ``ops.csr_mp.CSRLayout``)
+    with a leading graph axis of one on each of its tensors; None stays."""
+    if layout is None:
+        return None
+    return type(layout)(*(v[None] if torch.is_tensor(v) else v for v in layout))
+
+
 def fused_message_pass_reference(
     x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope=0.01,
     bf16=False,
@@ -88,7 +126,11 @@ def fused_message_pass_reference(
     stages → ``index_add_``.  w1: [2D+De, H], w2: [H, D2] (in × out).
     ``bf16``: the TPU kernel's bf16 mode, which rounds the f32 products
     xa = x·W1r and xb = x·W1s (``_forward_impl``) and then the operands of
-    ``message_pass_bf16_plain``."""
+    ``message_pass_bf16_plain``.  A batch (x [B, N, D]) runs each graph's
+    round in turn."""
+    if x.ndim == 3:
+        return per_graph(lambda *g: fused_message_pass_reference(
+            *g, w1, b1, w2, b2, g1, be1, g2, be2, slope, bf16), x, ef, senders, receivers)
     n, d = x.shape
     if bf16:
         return message_pass_bf16_plain(
@@ -143,7 +185,13 @@ def fused_message_pass_backward_reference(
     Returns (gef [E, De], dxa [N, H], dxb [N, H], dw1e [De, H], db1 [H],
     dw2 [H, D2], db2 [D2], dγ1, dβ1, dγ2, dβ2), the last four 0-d.  xa = x·W1r
     and xb = x·W1s are the per-node partials; dx and the W1r/W1s rows of dW1
-    follow from dxa/dxb outside (``_FusedMessagePass.backward``)."""
+    follow from dxa/dxb outside (``_FusedMessagePass.backward``).  A batch
+    (x [B, N, D]) runs each graph's in turn: gef, dxa and dxb per graph, the
+    rest summed in graph order."""
+    if x.ndim == 3:
+        return per_graph(lambda xb, eb, sb, rb, gb: fused_message_pass_backward_reference(
+            xb, eb, sb, rb, w1, b1, w2, b2, g1, be1, g2, be2, gb, slope),
+            x, ef, senders, receivers, g_out, stacked=3)
     n, d = x.shape
     h, d2 = w1.shape[1], w2.shape[1]
     s, r = senders.long(), receivers.long()
@@ -177,7 +225,7 @@ class FusedLayout(NamedTuple):
     them (it depends on the edges only): the edges by receiver and by
     sender, each in a stable order, so that every node sums its edges in
     edge order, with its segments.  An end outside [0, N) sorts last, past
-    offset N: no segment holds it."""
+    offset N: no segment holds it.  A batch's has a leading graph axis."""
 
     recv_order: torch.Tensor  # [E] int32, the edges by receiver
     recv_off: torch.Tensor    # [N+1] int32, node v's: recv_order[recv_off[v]:recv_off[v+1]]
@@ -188,21 +236,24 @@ class FusedLayout(NamedTuple):
 def fused_layout(senders: torch.Tensor, receivers: torch.Tensor,
                  n: int) -> FusedLayout:
     """The ``FusedLayout`` of a graph's edges (senders, receivers [E] int32)
-    over n nodes.  Both orders come from one stable argsort: the receivers
-    as keys [0, n] and the senders as keys [n+1, 2n+1] side by side (an end
-    outside [0, n) counts as n).  On the card everything stays on the
-    device (no host sync)."""
-    e = senders.shape[0]
+    over n nodes, or of every graph of a batch ([B, E]: one stable sort
+    along the last axis).  Both orders come from one stable argsort: the
+    receivers as keys [0, n] and the senders as keys [n+1, 2n+1] side by
+    side (an end outside [0, n) counts as n).  On the card everything stays
+    on the device (no host sync)."""
+    e = senders.shape[-1]
 
     def key(idx):
         return torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
 
-    keys = torch.cat([key(receivers), key(senders) + (n + 1)])
-    order = torch.argsort(keys, stable=True)
+    keys = torch.cat([key(receivers), key(senders) + (n + 1)], dim=-1)
+    order = torch.argsort(keys, dim=-1, stable=True)
     nodes = torch.arange(2 * (n + 1), dtype=keys.dtype, device=keys.device)
-    off = torch.searchsorted(keys[order].contiguous(), nodes, out_int32=True)
-    return FusedLayout(order[:e].int(), off[: n + 1],
-                       (order[e:] - e).int(), off[n + 1 :] - e)
+    off = torch.searchsorted(torch.gather(keys, -1, order),
+                             nodes.expand(*keys.shape[:-1], -1).contiguous(),
+                             out_int32=True)
+    return FusedLayout(order[..., :e].int(), off[..., : n + 1].contiguous(),
+                       (order[..., e:] - e).int(), off[..., n + 1 :] - e)
 
 
 def needs_layout(x: torch.Tensor) -> bool:
@@ -238,8 +289,7 @@ def _kernel(bf16: bool = False):
     lib = load("fused_mp")
     fn = lib.fused_mp_forward_bf16 if bf16 else lib.fused_mp_forward
     fn.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -271,7 +321,7 @@ def _bwd_kernel():
     """The backward's C entry point (same library as the forward)."""
     fn = load("fused_mp").fused_mp_backward
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -280,7 +330,7 @@ def _bwd_kernel():
 def _bwd_scratch():
     """``fused_mp_backward_scratch``: the backward's scratch size and plan."""
     fn = load("fused_mp").fused_mp_backward_scratch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_longlong
     return fn
 
@@ -293,11 +343,16 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x, ef, senders, receivers, w1, b1, w2, b2):
-    n, d = x.shape
-    e, de = ef.shape
+    """Shapes, types, devices and contiguity of a round's inputs: a graph's
+    (x [N, D], ef [E, De], senders, receivers [E]) or a batch's (each with
+    the same leading graph axis)."""
+    *lead, n, d = x.shape
+    e, de = ef.shape[-2:]
     h, d2 = w1.shape[1], w2.shape[1]
+    lead = tuple(lead)
     shapes = {
-        "senders": (senders, (e,)), "receivers": (receivers, (e,)),
+        "ef": (ef, lead + (e, de)),
+        "senders": (senders, lead + (e,)), "receivers": (receivers, lead + (e,)),
         "w1": (w1, (2 * d + de, h)), "b1": (b1, (h,)),
         "w2": (w2, (h, d2)), "b2": (b2, (d2,)),
     }
@@ -319,7 +374,7 @@ def _check(x, ef, senders, receivers, w1, b1, w2, b2):
 def _check_kernel_widths(name, x, ef, w1, w2):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    de, h, d2 = ef.shape[1], w1.shape[1], w2.shape[1]
+    de, h, d2 = ef.shape[-1], w1.shape[1], w2.shape[1]
     if de % 4 or h % 4 or d2 % 4:
         raise ValueError(
             f"{name} kernel: unsupported widths De={de}, H={h}, D2={d2} "
@@ -331,36 +386,54 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _node_products(x, w1, node_products=None):
+    """xa = x·W1r, xb = x·W1s: the node partials of a round (pre1 = xa[r] +
+    xb[s] + ef·W1e + b1), once per round as the JAX package computes them
+    outside its kernel, or the ``node_products`` given."""
+    d = x.shape[-1]
+    return node_products or (x @ w1[:d], x @ w1[d : 2 * d])
+
+
+def _forward_launch(x, ef, senders, receivers, w1, b1, w2, b2, scal, slope,
+                    layout, node_products=None):
+    """The arguments of one ``fused_mp_forward`` call over a batch (x [B, N,
+    D]), with xa, xb (``_node_products``) and its buffers allocated, and the
+    outputs (msgs [B, E, D2], agg [B, N, D2]) that it writes."""
+    b, n, d = x.shape
+    e = ef.shape[1]
+    de, h, d2 = ef.shape[2], w1.shape[1], w2.shape[1]
+    xa, xb = _node_products(x, w1, node_products)
+    w1e = w1[2 * d :]
+    msgs = torch.empty(b, e, d2, dtype=torch.float32, device=x.device)
+    agg = torch.empty(b, n, d2, dtype=torch.float32, device=x.device)
+    args = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), senders.data_ptr(),
+            receivers.data_ptr(), layout.recv_order.data_ptr(),
+            layout.recv_off.data_ptr(), w1e.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), float(slope),
+            msgs.data_ptr(), agg.data_ptr(), n, e, de, h, d2, b, _stream())
+    return args, (msgs, agg, xa, xb)
+
+
 def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
              slope, bf16, layout):
-    """One forward round: the plain version on the CPU, else the kernels
-    of one C call (its bf16 instantiation with ``bf16``) over the graph's
-    ``layout``: the messages into a scratch by edge, then every agg row
-    written once."""
+    """One forward round of a graph or a batch (x [B, N, D]): the plain
+    version on the CPU, else the kernels of one C call (its bf16
+    instantiation with ``bf16``) over the graphs' ``layout``: the messages
+    into a scratch by edge, then every agg row written once."""
     if x.device.type == "cpu":
         return fused_message_pass_reference(
             x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, slope,
             bf16)
     _check_kernel_widths("fused_message_pass", x, ef, w1, w2)
-    n, d = x.shape
-    e, de = ef.shape
-    h, d2 = w1.shape[1], w2.shape[1]
+    if x.ndim == 2:  # a graph: a batch of one
+        x, ef, senders, receivers = with_graph_axis(x, ef, senders, receivers)
+        return _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2,
+                        be2, slope, bf16, batch_layout(layout))[0]
     scal = torch.cat([g1, be1, g2, be2])
-    # Node partials, once per round (as the JAX package computes them
-    # outside its kernel): pre1 = xa[r] + xb[s] + ef·W1e + b1.
-    xa = x @ w1[:d]
-    xb = x @ w1[d : 2 * d]
-    w1e = w1[2 * d :]
-    msgs = torch.empty(e, d2, dtype=torch.float32, device=x.device)
-    agg = torch.empty(n, d2, dtype=torch.float32, device=x.device)
+    args, (_, agg, *_alive) = _forward_launch(x, ef, senders, receivers, w1, b1,
+                                              w2, b2, scal, slope, layout)
     with torch.cuda.device(x.device):
-        rc = _kernel(bf16)(
-            xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), senders.data_ptr(),
-            receivers.data_ptr(), layout.recv_order.data_ptr(),
-            layout.recv_off.data_ptr(), w1e.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), float(slope),
-            msgs.data_ptr(), agg.data_ptr(), n, e, de, h, d2, _stream(),
-        )
+        rc = _kernel(bf16)(*args)
     if rc != 0:
         raise RuntimeError(f"fused_mp_forward{'_bf16' if bf16 else ''} failed: "
                            f"cudaError_t {rc}")
@@ -372,13 +445,13 @@ def _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
 
 
 @functools.lru_cache(maxsize=None)
-def _backward_plan(n, e, de, h, d2, device) -> BackwardPlan:
-    """How ``fused_mp_backward`` runs at these widths on ``device``, as the
-    C library plans it (``fused_mp_backward_scratch``); the same on every
-    call, so asked once."""
+def _backward_plan(n, e, de, h, d2, device, graphs=1) -> BackwardPlan:
+    """How ``fused_mp_backward`` runs at these widths over ``graphs`` graphs
+    on ``device``, as the C library plans it (``fused_mp_backward_scratch``);
+    the same on every call, so asked once."""
     plan = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        floats = _bwd_scratch()(n, e, de, h, d2, plan)
+        floats = _bwd_scratch()(n, e, de, h, d2, graphs, plan)
     if floats < 0:
         raise ValueError(f"fused_mp_backward: De={de}, H={h}, D2={d2}: "
                          f"cudaError_t {-floats}")
@@ -386,22 +459,30 @@ def _backward_plan(n, e, de, h, d2, device) -> BackwardPlan:
 
 
 def _backward_launch(x, ef, senders, receivers, layout, w1, b1, w2, b2, scal,
-                     g_out, slope):
+                     g_out, slope, node_products=None):
     """The arguments of one ``fused_mp_backward`` call, with its buffers
     allocated and xa = x·W1r, xb = x·W1s computed (as ``_backward_impl``
     recomputes them), and the function that returns its results: views of
-    the C call's outputs, every element of which the call writes."""
+    the C call's outputs, every element of which the call writes.  A batch
+    (x [B, N, D], the layout's with the same graph axis) gives gef, dxa and
+    dxb per graph; a single graph's arrays give one graph's.
+    ``node_products``: xa, xb to use (``_node_products``)."""
     _check_kernel_widths("fused_message_pass_backward", x, ef, w1, w2)
-    n, d = x.shape
-    e, de = ef.shape
+    single = x.ndim == 2
+    if single:
+        x, ef, senders, receivers, g_out = with_graph_axis(x, ef, senders, receivers, g_out)
+        layout = batch_layout(layout)
+        node_products = node_products and with_graph_axis(*node_products)
+    b, n, d = x.shape
+    e, de = ef.shape[1:]
     h, d2 = w1.shape[1], w2.shape[1]
-    xa = x @ w1[:d]
-    xb = x @ w1[d : 2 * d]
+    xa, xb = _node_products(x, w1, node_products)
     w1e = w1[2 * d :]
     emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
-    scratch = emp(_backward_plan(n, e, de, h, d2, x.device).floats)
-    # Outputs: gef, dxa ‖ dxb and dw = dW1e ‖ db1 ‖ dW2 ‖ db2 ‖ dγ1 dβ1 dγ2 dβ2.
-    gef, dxab = emp(e, de), emp(2, n, h)
+    scratch = emp(_backward_plan(n, e, de, h, d2, x.device, b).floats)
+    # Outputs: gef, dxa ‖ dxb per graph and dw = dW1e ‖ db1 ‖ dW2 ‖ db2 ‖
+    # dγ1 dβ1 dγ2 dβ2, summed over the graphs.
+    gef, dxab = emp(b, e, de), emp(b, 2, n, h)
     k = de * h
     dw = emp(k + h + h * d2 + d2 + 4)
     args = (
@@ -411,14 +492,16 @@ def _backward_launch(x, ef, senders, receivers, layout, w1, b1, w2, b2, scal,
         layout.send_off.data_ptr(), w1e.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
         float(slope), scratch.data_ptr(), gef.data_ptr(), dxab.data_ptr(),
-        dw.data_ptr(), n, e, de, h, d2, _stream(),
+        dw.data_ptr(), n, e, de, h, d2, b, _stream(),
     )
 
-    def results(_alive=(xa, xb, layout, scratch)):
+    def results(_alive=(x, ef, senders, receivers, g_out, xa, xb, layout, scratch)):
         # _alive holds the tensors only the pointers above refer to.
-        return (gef, dxab[0], dxab[1], dw[:k].view(de, h), dw[k : k + h],
-                dw[k + h : k + h + h * d2].view(h, d2),
-                dw[k + h + h * d2 : -4], *dw[-4:].unbind())
+        per = (gef, dxab[:, 0], dxab[:, 1])
+        return ((tuple(t[0] for t in per) if single else per)
+                + (dw[:k].view(de, h), dw[k : k + h],
+                   dw[k + h : k + h + h * d2].view(h, d2),
+                   dw[k + h + h * d2 : -4], *dw[-4:].unbind()))
 
     return args, results
 
@@ -427,20 +510,21 @@ def fused_message_pass_backward(
     x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2, g_out,
     slope=0.01, layout=None,
 ):
-    """Cotangents of one round for the cotangent ``g_out`` [N, D2] of agg.
+    """Cotangents of one round for the cotangent ``g_out`` [N, D2] of agg
+    (of a batch: x [B, N, D], g_out [B, N, D2], the layout's with the same
+    graph axis).
 
     Returns what ``fused_message_pass_backward_reference`` returns.  A CUDA
-    input runs the kernels of one ``fused_mp_backward`` call (or raises)
-    over the graph's ``layout`` (made here if None); a CPU input runs the
-    plain version.  ``fused_message_pass_backward.launches`` counts the C
-    calls.  xa/xb are recomputed here with two matmuls (as
+    input runs the kernels of one ``fused_mp_backward`` call for all the
+    graphs (or raises) over the graphs' ``layout`` (made here if None); a
+    CPU input runs the plain version.  ``fused_message_pass_backward.launches``
+    counts the C calls.  xa/xb are recomputed here with two matmuls (as
     ``_backward_impl`` recomputes them), not saved by the forward."""
     _check(x, ef, senders, receivers, w1, b1, w2, b2)
-    n, d = x.shape
-    d2 = w2.shape[1]
-    if tuple(g_out.shape) != (n, d2) or g_out.dtype != torch.float32:
+    want = x.shape[:-1] + (w2.shape[1],)
+    if tuple(g_out.shape) != want or g_out.dtype != torch.float32:
         raise ValueError(f"g_out: {tuple(g_out.shape)} {g_out.dtype}, "
-                         f"expected ({n}, {d2}) float32")
+                         f"expected {want} float32")
     if g_out.device != x.device or not g_out.is_contiguous():
         raise ValueError("g_out must be contiguous and on x's device")
     if x.device.type == "cpu":
@@ -448,7 +532,7 @@ def fused_message_pass_backward(
             x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
             g_out, slope)
     if layout is None:
-        layout = fused_layout(senders, receivers, n)
+        layout = fused_layout(senders, receivers, x.shape[-2])
     scal = torch.cat([_scalar(v, x) for v in (g1, be1, g2, be2)])
     args, results = _backward_launch(x, ef, senders, receivers, layout, w1,
                                      b1, w2, b2, scal, g_out, slope)
@@ -461,13 +545,14 @@ def fused_message_pass_backward(
 
 
 class _FusedMessagePass(torch.autograd.Function):
-    """Autograd node of one round (the JAX package's ``custom_vjp`` with
-    ``pallas_backward=True``).  The forward saves its inputs; the backward
-    runs ``fused_message_pass_backward`` and finishes as ``_backward_impl``
-    does: dx = dxa·W1rᵀ + dxb·W1sᵀ, dW1 = [xᵀ·dxa; xᵀ·dxb; dW1e].  A bf16
-    forward gets the same f32 backward: the flag is not passed on.  On the
-    card both walk the graph's ``FusedLayout``; the plain versions take
-    none."""
+    """Autograd node of one round over a graph or a batch (x [B, N, D]; the
+    JAX package's ``custom_vjp`` with ``pallas_backward=True``, vmapped).  The
+    forward saves its inputs; the backward runs
+    ``fused_message_pass_backward`` and finishes as ``_backward_impl`` does:
+    dx = dxa·W1rᵀ + dxb·W1sᵀ per graph, dW1 = [xᵀ·dxa; xᵀ·dxb; dW1e] over
+    every graph's nodes.  A bf16 forward gets the same f32 backward: the
+    flag is not passed on.  On the card both walk the graphs'
+    ``FusedLayout``; the plain versions take none."""
 
     @staticmethod
     def forward(ctx, x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2,
@@ -487,9 +572,10 @@ class _FusedMessagePass(torch.autograd.Function):
          dbe2) = fused_message_pass_backward(
             x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
             g_out.contiguous(), ctx.slope, ctx.layout)
-        d = x.shape[1]
+        d, h = x.shape[-1], w1.shape[1]
         dx = dxa @ w1[:d].t() + dxb @ w1[d : 2 * d].t()
-        dw1 = torch.cat([x.t() @ dxa, x.t() @ dxb, dw1e])
+        xt = x.reshape(-1, d).t()  # every graph's nodes
+        dw1 = torch.cat([xt @ dxa.reshape(-1, h), xt @ dxb.reshape(-1, h), dw1e])
         return (dx, gef, None, None, dw1, db1, dw2, db2, dg1.reshape(1),
                 dbe1.reshape(1), dg2.reshape(1), dbe2.reshape(1), None, None,
                 None)
@@ -504,23 +590,25 @@ def fused_message_pass(
     x: [N, D] f32; ef: [E, De] f32; senders/receivers: [E] int32 (padded
     edges carry N); w1: [2D+De, H]; b1: [H]; w2: [H, D2]; b2: [D2]; g1, be1,
     g2, be2: scalar norm affine parameters (one-element tensors or floats;
-    their gradients have shape (1,), as ``ScalarNorm``'s parameters).
-    ``bf16``: the TPU kernel's bf16 operands (module docstring); the
-    gradients are those of the f32 round.  ``layout``: the graph's
+    their gradients have shape (1,), as ``ScalarNorm``'s parameters).  A
+    batch of B graphs prepends B to x, ef, senders and receivers (and to
+    agg): one call of the kernels for all of them.  ``bf16``: the TPU
+    kernel's bf16 operands (module docstring); the gradients are those of
+    the f32 round.  ``layout``: the graph's (or the batch's)
     ``fused_layout(senders, receivers, N)``, made once and passed to every
     round of the graph, or None to make it here (on the card; the plain
-    versions need none).  Returns agg [N, D2] f32.
+    versions need none).  Returns agg [N, D2] f32 ([B, N, D2]).
 
     A CUDA input launches the kernels (or raises); a CPU input runs the
     plain versions.  ``fused_message_pass.launches`` counts calls of the
-    f32 forward's C entry point (two kernels each),
+    f32 forward's C entry point (two kernels each, whatever B is),
     ``fused_message_pass.launches_bf16`` those of its bf16 instantiation;
     under ``torch.no_grad()`` nothing is saved for a
     backward."""
     _check(x, ef, senders, receivers, w1, b1, w2, b2)
     scalars = [_scalar(v, x) for v in (g1, be1, g2, be2)]
     if layout is None and needs_layout(x):
-        layout = fused_layout(senders, receivers, x.shape[0])
+        layout = fused_layout(senders, receivers, x.shape[-2])
     return _FusedMessagePass.apply(x, ef, senders, receivers, w1, b1, w2, b2,
                                    *scalars, slope, bool(bf16), layout)
 

@@ -10,6 +10,8 @@ The reference defines (modules/neural_net/common.py:208-253):
 All three use the Bessel-corrected std (``torch.std``, ddof=1), add eps to
 the *std* (not the variance), and take a single scalar affine pair (γ, β).
 With padded static shapes, layer/group statistics exclude masked rows.
+A batch of graphs (x [B, N, D], mask [B, N]) takes each graph's own
+statistics, as the JAX package's vmapped norms do.
 ``torch.nn.LayerNorm`` / ``GroupNorm`` are not these functions.
 """
 
@@ -44,18 +46,22 @@ def layer_norm(
     x: torch.Tensor, gamma, beta, mask: Optional[torch.Tensor] = None,
     eps: float = EPS,
 ) -> torch.Tensor:
-    """Whole-tensor normalisation (reference common.py:223-233).
+    """Whole-tensor normalisation (reference common.py:223-233), per graph
+    for a batch (x [B, N, D]: statistics over each graph's [N, D]).
 
-    mask: [N] bool over rows of x [N, D]; masked rows are excluded from the
-    statistics but still transformed (then discarded downstream)."""
+    mask: [N] bool over rows of x [N, D] ([B, N]); masked rows are excluded
+    from the statistics but still transformed (then discarded
+    downstream)."""
+    graph = (-2, -1)  # one graph's axes
     if mask is None:
-        mean = x.mean()
-        var = ((x - mean) ** 2).sum() / max(x.numel() - 1, 1)
+        mean = x.mean(graph, keepdim=True)
+        var = ((x - mean) ** 2).sum(graph, keepdim=True) / max(x.shape[-2] * x.shape[-1] - 1, 1)
         std = torch.sqrt(var)
     else:
-        m = mask.to(x.dtype)[:, None]
-        count = m.sum() * x.shape[-1]
-        mean, std = _bessel_std((x * m).sum(), (x * x * m).sum(), count)
+        m = mask.to(x.dtype)[..., None]
+        count = m.sum(graph, keepdim=True) * x.shape[-1]
+        mean, std = _bessel_std((x * m).sum(graph, keepdim=True),
+                                (x * x * m).sum(graph, keepdim=True), count)
     return gamma * ((x - mean) / (std + eps)) + beta
 
 
@@ -65,22 +71,24 @@ def group_norm(
 ) -> torch.Tensor:
     """Group normalisation with node-coupled statistics (reference
     common.py:236-253): x [N, D] → [N, G, D/G], stats over (N, D/G) per
-    group.  mask excludes padded rows from the statistics."""
-    n, d = x.shape
+    group (per graph for a batch, x [B, N, D]).  mask excludes padded rows
+    from the statistics."""
+    *lead, n, d = x.shape
     g = num_groups
-    xg = x.reshape(n, g, d // g)
+    xg = x.reshape(*lead, n, g, d // g)
+    stats = (-3, -1)  # a group's axes within one graph
     if mask is None:
-        mean = xg.mean(dim=(0, 2), keepdim=True)
+        mean = xg.mean(dim=stats, keepdim=True)
         cnt = n * (d // g)
-        var = ((xg - mean) ** 2).sum(dim=(0, 2), keepdim=True) / max(cnt - 1, 1)
+        var = ((xg - mean) ** 2).sum(dim=stats, keepdim=True) / max(cnt - 1, 1)
         std = torch.sqrt(var)
     else:
-        m = mask.to(x.dtype)[:, None, None]
-        count = m.sum() * (d // g)
+        m = mask.to(x.dtype)[..., None, None]
+        count = m.sum(dim=(-3, -2, -1), keepdim=True) * (d // g)
         mean, std = _bessel_std(
-            (xg * m).sum(dim=(0, 2), keepdim=True),
-            (xg * xg * m).sum(dim=(0, 2), keepdim=True),
+            (xg * m).sum(dim=stats, keepdim=True),
+            (xg * xg * m).sum(dim=stats, keepdim=True),
             count,
         )
     out = gamma * ((xg - mean) / (std + eps)) + beta
-    return out.reshape(n, d)
+    return out.reshape(x.shape)

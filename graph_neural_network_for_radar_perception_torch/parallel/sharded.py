@@ -46,7 +46,6 @@ from ..train.steps import (
     TrainState,
     _apply_update,
     batch_on,
-    lr_schedule,
     per_graph_loss_sums,
 )
 from . import collectives as P
@@ -68,7 +67,6 @@ def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
     args)`` → (loss, metrics, per-graph surrogates) is steps 1-2: the
     global loss and metrics (detached, equal on every rank) and what step
     3 backprops."""
-    schedule = lr_schedule(cfg)
     keep = 1.0 if mesh.graph_index == 0 else 0.0
     replicated = frozenset(replicated)
 
@@ -97,7 +95,7 @@ def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
         if ok:
             grads = [g.view_as(p) for g, p in
                      zip(flat.split([p.numel() for p in params]), params)]
-            _apply_update(state, grads, cfg, schedule)
+            _apply_update(state, grads, cfg)
         model.zero_grad(set_to_none=True)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}

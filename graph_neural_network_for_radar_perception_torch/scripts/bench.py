@@ -21,7 +21,9 @@ Timing: after ``--warmup`` calls, ``--steps`` calls (``5 * --steps``
 frames for ``detect``), each timed by the host clock around work that ends
 in ``torch.cuda.synchronize()`` (numpy batch in) and by CUDA events;
 median and spread.  Then one call under ``torch.profiler``
-(``utils/timing.profile_run``): the card's busy share and kernel count.
+(``utils/timing.profile_run``): the card's busy share, its kernel count
+and the launches the host issued (on the card a train step is one replay
+of its captured CUDA graph, the first warm-up call its capture).
 Training rows also report the analytic TFLOP/s
 (``utils/profiling.flops_per_train_step``) and MFU against the card's dense
 bf16 peak.  ``bench.py``'s two-K scan slope is not copied: it works around
@@ -141,6 +143,7 @@ def _timed(fn, device: torch.device, warmup: int, reps: int) -> dict:
         prof = profile_run(fn)
         row.update(event_ms=float(np.median(dev)), event_ms_min=float(min(dev)),
                    event_ms_max=float(max(dev)), device_kernels=prof["device_kernels"],
+                   host_launches=prof["host_launches"],
                    device_busy_ms=prof["device_busy_ms"],
                    device_idle_share=prof["device_idle_share"],
                    profiled_wall_ms=prof["wall_ms"])
@@ -174,7 +177,8 @@ def bench_train_b8(device, warmup: int, steps: int) -> dict:
             f"max {row['host_ms_max']:.3f}) → {row['valid_edge_msgs_per_s']:.3e} "
             f"valid-edge-msgs/s at {out['occupancy']:.1%} occupancy, "
             f"~{row['tflops_analytic']:.3f} TFLOP/s analytic, MFU {row['mfu']}, "
-            f"idle {row.get('device_idle_share')}, kernels {row.get('device_kernels')}, "
+            f"idle {row.get('device_idle_share')}, kernels {row.get('device_kernels')} "
+            f"and host launches {row.get('host_launches')} a step, "
             f"skipped {row['skipped']:.0f}")
     return out
 

@@ -96,7 +96,7 @@ def time_one(name: str, fused_lib: str, csr_lib: str) -> dict:
     fused_raw = (xa.data_ptr(), xb.data_ptr(), ef.data_ptr(), s.data_ptr(), r.data_ptr(),
                  layout.recv_order.data_ptr(), layout.recv_off.data_ptr(), w1e.data_ptr(),
                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scal.data_ptr(), 0.01,
-                 msgs.data_ptr(), agg.data_ptr(), N, E, DE, H, D2,
+                 msgs.data_ptr(), agg.data_ptr(), N, E, DE, H, D2, 1,
                  torch.cuda.current_stream().cuda_stream)
     _, cargs, _ = chip_smoke.csr_problems(torch, np.random.default_rng(5))[0]
     cscal = torch.cat(cargs[8:])
@@ -106,7 +106,7 @@ def time_one(name: str, fused_lib: str, csr_lib: str) -> dict:
                clayout.dst.data_ptr(), clayout.off.data_ptr(), cargs[4].data_ptr(),
                cargs[5].data_ptr(), cargs[6].data_ptr(), cargs[7].data_ptr(),
                cscal.data_ptr(), xab.data_ptr(), 0.01, cmsgs.data_ptr(),
-               cagg.data_ptr(), N, E, D, DE, H, D2, torch.cuda.current_stream().cuda_stream)
+               cagg.data_ptr(), N, E, D, DE, H, D2, 1, torch.cuda.current_stream().cuda_stream)
     rounds = {"fused": (FM._kernel(False), fused_raw, agg),
               "csr": (C._kernel(False), csr_raw, cagg)}
 

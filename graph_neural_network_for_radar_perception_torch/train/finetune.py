@@ -91,7 +91,7 @@ def make_finetune_step(cfg: GNNConfig) -> Tuple[Callable, Callable]:
             loss.backward()
             ok = finite_update(state, loss, getattr(state.model, TRAINED).parameters())
             metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["skipped"] = loss.new_tensor(0.0 if ok else 1.0)
+            metrics["skipped"] = (~ok).to(torch.float32)
             return state, metrics
 
         return step, optimizer

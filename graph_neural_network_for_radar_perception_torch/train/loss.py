@@ -16,17 +16,20 @@ loss.py:10-76 + lossfunc.py:19-55):
 
 The reference concatenates every graph of the batch before taking means
 (gnn_detector.py:454-467), so each loss here is a per-graph (sum, count)
-pair; the train step adds the pairs over the batch before dividing.
+pair; the train step adds the pairs over the batch before dividing.  The
+model's outputs of a batch (a leading graph axis, as the JAX package's
+vmap gives them) give one (sum, count) pair a graph: LossSums with a [B]
+axis, which ``tree_sum`` adds in graph order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from ..config.config import GNNConfig
-from ..core.graph import GraphLabels, RadarGraph
+from ..core.graph import GraphLabels, RadarGraph, device_constant
 from ..models.gnn import GNNOutputs
 
 FOCAL_ALPHA = 0.25
@@ -35,7 +38,8 @@ FOCAL_GAMMA = 2.0
 
 class LossSums(NamedTuple):
     """Per-graph weighted loss sums and element counts for each task, plus
-    accuracy numerators.  All 0-d tensors; additive across graphs."""
+    accuracy numerators.  All 0-d tensors ([B] for a batch's graphs);
+    additive across graphs."""
 
     edge_sum: torch.Tensor
     edge_cnt: torch.Tensor
@@ -82,20 +86,21 @@ def cross_entropy(logits, labels_onehot, class_weights=None):
 
 def normalize_offsets(offsets: torch.Tensor, cfg: GNNConfig) -> torch.Tensor:
     """compute_offsets.py:6-11."""
-    mu = torch.tensor(cfg.reg_mu, dtype=offsets.dtype, device=offsets.device)
-    sigma = torch.tensor(cfg.reg_sigma, dtype=offsets.dtype,
-                         device=offsets.device)
+    mu = device_constant(tuple(cfg.reg_mu), offsets.dtype, offsets.device)
+    sigma = device_constant(tuple(cfg.reg_sigma), offsets.dtype, offsets.device)
     return (offsets - mu) / sigma
 
 
 def graph_loss_sums(out: GNNOutputs, graph: RadarGraph, labels: GraphLabels,
                     cfg: GNNConfig) -> LossSums:
-    """Masked loss sums/counts for ONE graph."""
+    """Masked loss sums/counts for ONE graph, or for each graph of a batch
+    (outputs, graph and labels with a leading graph axis; the JAX package
+    vmaps the one-graph function): every sum runs over a graph's last
+    axis."""
     nmask = graph.node_mask.float()
     umask = graph.und_mask.float()
     cmask = labels.cluster_mask.float()
-    cw = torch.tensor(cfg.class_weights_dyn, dtype=torch.float32,
-                      device=nmask.device)
+    cw = device_constant(tuple(cfg.class_weights_dyn), torch.float32, nmask.device)
 
     # edge focal loss (loss.py:57-58)
     edge_1h = one_hot(labels.edge_class, cfg.num_edge_classes)
@@ -109,16 +114,16 @@ def graph_loss_sums(out: GNNOutputs, graph: RadarGraph, labels: GraphLabels,
     # object CE (loss.py:69-70)
     o_loss = cross_entropy(out.obj_cls, one_hot(labels.cluster_class,
                                                 cfg.num_classes))
-    node_cnt = nmask.sum()
+    node_cnt = nmask.sum(-1)
 
     def correct(logits, target, mask):  # gnn_detector.py:23-28,473-476
-        return ((logits.argmax(-1) == target.long()).float() * mask).sum()
+        return ((logits.argmax(-1) == target.long()).float() * mask).sum(-1)
 
     return LossSums(
-        edge_sum=(e_loss * umask).sum(), edge_cnt=umask.sum(),
-        node_sum=(n_loss * nmask).sum(), node_cnt=node_cnt,
-        reg_sum=(r_loss * nmask).sum(), reg_cnt=node_cnt,
-        obj_sum=(o_loss * cmask).sum(), obj_cnt=cmask.sum(),
+        edge_sum=(e_loss * umask).sum(-1), edge_cnt=umask.sum(-1),
+        node_sum=(n_loss * nmask).sum(-1), node_cnt=node_cnt,
+        reg_sum=(r_loss * nmask).sum(-1), reg_cnt=node_cnt,
+        obj_sum=(o_loss * cmask).sum(-1), obj_cnt=cmask.sum(-1),
         node_correct=correct(out.node_cls, labels.node_class, nmask),
         edge_correct=correct(out.edge_cls, labels.edge_class, umask),
         obj_correct=correct(out.obj_cls, labels.cluster_class, cmask),
@@ -152,7 +157,11 @@ def reduce_loss_sums(sums: LossSums, cfg: GNNConfig
     return total, metrics
 
 
-def tree_sum(sums: Sequence[LossSums]) -> LossSums:
-    """Sum per-graph LossSums (the JAX package sums one LossSums whose
-    fields carry the vmapped batch axis)."""
-    return LossSums(*(torch.stack(xs).sum(0) for xs in zip(*sums)))
+def tree_sum(sums) -> LossSums:
+    """Sum per-graph LossSums over the graphs, in graph order: one LossSums
+    whose fields carry a leading graph axis (the batched model's, as the
+    JAX package's ``tree_sum`` takes the vmapped one), or a sequence of
+    one graph's each."""
+    if not isinstance(sums, LossSums):
+        sums = LossSums(*(torch.stack(xs) for xs in zip(*sums)))
+    return LossSums(*(x.sum(0) for x in sums))

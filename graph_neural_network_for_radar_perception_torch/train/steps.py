@@ -1,43 +1,190 @@
 """Train/eval steps and optimiser construction.
 
-The JAX package's ``train/steps.py``: the model runs over the B graphs of a
-batch (written out as a loop where JAX vmaps the one-graph model), the
-per-graph loss sums are added before dividing, and the SGD (momentum 0.9,
-coupled weight decay, MultiStep LR ×0.1 at 50 %/80 %) or AdamW update
-follows.  A batch with a non-finite loss or gradient is skipped whole: the
-parameters, the optimiser's moments, the gradient-accumulation buffer and
-the schedule's count stay as they were (reference training.py:40-45).
+The JAX package's ``train/steps.py``, whose step is one compiled program:
+the model runs over the B graphs of a batch in one call
+(``batched_forward``: a leading graph axis where the JAX package vmaps the
+one-graph model, so each message round is one launch of its kernels for
+the whole batch), the per-graph loss sums are added in graph order before
+dividing, and the update — optax's chain(add_decayed_weights, sgd)
+(momentum 0.9, coupled weight decay, MultiStep LR ×0.1 at 50 %/80 %) or
+adamw, with optax.MultiSteps gradient accumulation — runs as tensor ops on
+the device: the learning rate is a 0-d tensor computed from the count of
+applied updates, and a batch with a non-finite loss or gradient is skipped
+without a branch (``all_finite``, ``apply_if``): the parameters, the
+optimiser's moments, the accumulation buffer and the counts stay as they
+were (reference training.py:40-45).
 
-The port updates the parameters and optimiser state in place
-(``torch.optim``); a step returns the same ``TrainState`` object it was
-given.
+On a CUDA device ``make_train_step`` captures the step as one CUDA graph
+per state and batch shape (the counterpart of ``jax.jit``) and replays it:
+one host launch a step, no device→host sync inside.  ``make_train_scan``
+replays it once per batch, as ``lax.scan`` repeats its body.  On the CPU
+the same code runs eagerly.
+
+The port updates in place: the optimiser keeps the parameters in one flat
+buffer (each parameter a view of it) with its moments and the accumulation
+buffer in flat buffers beside it, and the counts in one device tensor; a
+step returns the same ``TrainState`` object it was given.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..config.config import GNNConfig
-from ..core.graph import GraphBatch, resolve_device
+from ..core.graph import GraphBatch, GraphLabels, RadarGraph, resolve_device
 from ..models.gnn import RadarGNN
+from ..ops import csr_mp as C
+from ..ops import fused_mp as FM
 from .loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 
 
-@dataclasses.dataclass
+class Optimizer:
+    """optax's chain(add_decayed_weights(wd), sgd(lr, momentum)) or
+    adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+    (set_param_for_training_gnn.py:46-56) as tensor ops over one flat
+    buffer of the parameters, in optax's order of operations.
+
+    The parameters become views of ``flat`` (re-made, with their values,
+    if one of them was moved or replaced since); the moments are flat
+    buffers, zero at first as optax's init makes them.  ``propose`` gives
+    the updated parameters and moments for a flat gradient, a 0-d learning
+    rate and the 0-d count of earlier updates (Adam's bias correction)
+    without writing anything; ``commit`` writes them where a 0-d predicate
+    holds.  For torch.optim's callers: ``state[p]`` holds p's moments as
+    views (SGD "momentum_buffer", AdamW "exp_avg" and "exp_avg_sq"),
+    ``state_dict``/``load_state_dict`` have torch.optim's form, and
+    ``step()`` applies each parameter's ``.grad`` at
+    ``param_groups[0]["lr"]``."""
+
+    def __init__(self, params, kind: str, lr: float, weight_decay: float,
+                 momentum: float = 0.9, betas=(0.9, 0.999), eps: float = 1e-8):
+        self.params = list(params)
+        if any(p.dtype != torch.float32 for p in self.params):
+            raise TypeError("the optimiser keeps float32 parameters")
+        self.kind = kind
+        if kind == "sgd":
+            group = dict(lr=lr, weight_decay=weight_decay, momentum=momentum)
+        else:
+            group = dict(lr=lr, weight_decay=weight_decay, betas=betas, eps=eps)
+        self.param_groups = [dict(params=self.params, **group)]
+        sizes = [p.numel() for p in self.params]
+        self.offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        self.flat: Optional[torch.Tensor] = None
+        self.bind()
+        names = ("momentum_buffer",) if kind == "sgd" else ("exp_avg", "exp_avg_sq")
+        self.moments = {k: torch.zeros_like(self.flat) for k in names}
+        self._count = torch.zeros((), dtype=torch.int64, device=self.flat.device)
+
+    def _views(self, buf: torch.Tensor) -> List[torch.Tensor]:
+        return [buf[o:o + p.numel()].view_as(p)
+                for p, o in zip(self.params, self.offsets)]
+
+    def bind(self) -> torch.Tensor:
+        """Make every parameter a view of ``flat`` (again, with its current
+        values, if any was moved or replaced); returns ``flat``."""
+        flat = self.flat
+        if flat is not None and all(
+                p.device == flat.device
+                and p.data_ptr() == flat.data_ptr() + 4 * o
+                for p, o in zip(self.params, self.offsets)):
+            return flat
+        with torch.no_grad():
+            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        for p, v in zip(self.params, self._views(self.flat)):
+            p.data = v
+        for k, m in getattr(self, "moments", {}).items():
+            self.moments[k] = m.to(self.flat.device)
+        if hasattr(self, "_count"):
+            self._count = self._count.to(self.flat.device)
+        return self.flat
+
+    @property
+    def state(self) -> Dict[torch.Tensor, Dict[str, torch.Tensor]]:
+        views = {k: self._views(m) for k, m in self.moments.items()}
+        return {p: {k: v[i] for k, v in views.items()}
+                for i, p in enumerate(self.params)}
+
+    def propose(self, g: torch.Tensor, lr: torch.Tensor, count: torch.Tensor):
+        """(updated flat parameters, updated moments) for the flat gradient
+        ``g`` at rate ``lr``; ``count`` updates were applied before."""
+        hp = self.param_groups[0]
+        p, wd = self.flat, hp["weight_decay"]
+        if self.kind == "sgd":  # add_decayed_weights, then trace, then -lr
+            buf = (g + wd * p) + hp["momentum"] * self.moments["momentum_buffer"]
+            return p + (-lr) * buf, {"momentum_buffer": buf}
+        (b1, b2), eps = hp["betas"], hp["eps"]
+        mu = (1 - b1) * g + b1 * self.moments["exp_avg"]
+        nu = (1 - b2) * (g * g) + b2 * self.moments["exp_avg_sq"]
+        t = (count + 1).to(torch.float32)
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        mu_hat = mu / (1 - (one * b1) ** t)
+        nu_hat = nu / (1 - (one * b2) ** t)
+        u = mu_hat / (torch.sqrt(nu_hat) + eps) + wd * p
+        return p + (-lr) * u, {"exp_avg": mu, "exp_avg_sq": nu}
+
+    def commit(self, take: torch.Tensor, params: torch.Tensor,
+               moments: Dict[str, torch.Tensor]) -> None:
+        """Write the proposed parameters and moments where ``take`` (0-d
+        bool) holds; elsewhere everything keeps its bits."""
+        olds = [self.flat, *self.moments.values()]
+        news = apply_if(take, [params, *(moments[k] for k in self.moments)], olds)
+        for old, new in zip(olds, news):
+            old.copy_(new)
+
+    def step(self) -> None:
+        """torch.optim's step: each parameter's ``.grad`` (zero where None)
+        at ``param_groups[0]["lr"]``."""
+        flat = self.bind()
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                       for p in self.params])
+        lr = torch.tensor(self.param_groups[0]["lr"], dtype=torch.float32, device=flat.device)
+        with torch.no_grad():
+            self.commit(torch.ones((), dtype=torch.bool, device=flat.device),
+                        *self.propose(g, lr, self._count))
+        self._count += 1
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> dict:
+        """torch.optim's form: per-parameter moments (copies), the groups'
+        hyper-parameters with the parameters as indices."""
+        views = {k: self._views(m) for k, m in self.moments.items()}
+        group = {k: v for k, v in self.param_groups[0].items() if k != "params"}
+        return {"state": {i: {k: v[i].clone() for k, v in views.items()}
+                          for i in range(len(self.params))},
+                "param_groups": [dict(group, params=list(range(len(self.params))))]}
+
+    def load_state_dict(self, saved: dict) -> None:
+        """Copies a ``state_dict``'s moments in place (torch.optim's
+        AdamW "step" entries are the TrainState's ``updates`` here)."""
+        views = {k: self._views(m) for k, m in self.moments.items()}
+        with torch.no_grad():
+            for i, st in saved["state"].items():
+                for k, v in views.items():
+                    if k in st:
+                        v[int(i)].copy_(st[k])
+
+
+@dataclasses.dataclass(eq=False)
 class TrainState:
-    """The model (its parameters), the optimiser (its state), the number of
-    steps taken, and the number of optimiser updates applied, which drives
-    the LR schedule (skipped batches and accumulation micro-steps apply
-    none).  ``acc_grads``/``mini_step`` hold gradient accumulation's running
-    mean (``optax.MultiSteps``) when ``cfg.grad_accumulation_steps > 1``."""
+    """The model (its parameters), the optimiser (its state) and the counts:
+    steps taken, optimiser updates applied (they drive the LR schedule;
+    skipped batches and accumulation micro-steps apply none) and gradient
+    accumulation's micro-step, all in one int64 device tensor
+    (``counters``), read as ints (``step``, ``updates``, ``mini_step``: a
+    host sync each) and set in place.  ``acc_grads`` holds gradient
+    accumulation's running mean (``optax.MultiSteps``) when
+    ``cfg.grad_accumulation_steps > 1``: views of the flat ``acc``."""
 
     model: RadarGNN
-    optimizer: torch.optim.Optimizer
+    optimizer: Any
     step: int = 0
     updates: int = 0
     acc_grads: Optional[List[torch.Tensor]] = None
@@ -47,35 +194,85 @@ class TrainState:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: parameters, moments, counts and the
+        accumulation buffer (``make_train_step``'s states)."""
+        opt = self.optimizer
+        return ([opt.bind(), *opt.moments.values(), self.counters]
+                + ([] if self.acc is None else [self.acc]))
 
-def lr_schedule(cfg: GNNConfig) -> Callable[[int], float]:
+
+def _count_property(i: int) -> property:
+    """Count i of ``TrainState.counters`` as an int (a host sync to read)."""
+
+    def get(self) -> int:
+        return int(self.counters[i])
+
+    def put(self, v) -> None:
+        if "counters" not in self.__dict__:
+            self.counters = torch.zeros(3, dtype=torch.int64, device=self.device)
+        self.counters[i].fill_(int(v))
+
+    return property(get, put)
+
+
+def _get_acc(self) -> Optional[List[torch.Tensor]]:
+    acc = self.__dict__.get("acc")
+    return None if acc is None else self.optimizer._views(acc)
+
+
+def _set_acc(self, grads) -> None:
+    acc = self.__dict__.get("acc")
+    if grads is None:
+        self.acc = None
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads]).to(self.device)
+    if acc is None or acc.shape != flat.shape:
+        self.acc = flat.clone()
+    else:
+        acc.copy_(flat)
+
+
+TrainState.step, TrainState.updates, TrainState.mini_step = map(_count_property, range(3))
+TrainState.acc_grads = property(_get_acc, _set_acc)
+
+
+def lr_schedule(cfg: GNNConfig) -> Callable:
     """MultiStepLR(γ=0.1 @50%/80%) as optax's piecewise-constant schedule
     (set_param_for_training_gnn.py:50-56): the rate for update number
-    ``count`` (from 0) is scaled once per milestone ≤ count, in float32."""
-    boundaries = dict.fromkeys(cfg.lr_milestones, np.float32(cfg.lr_gamma))
+    ``count`` (from 0) is scaled once per milestone ≤ count, in float32.
+    ``count`` an int gives a float; a tensor (the device count of applied
+    updates) gives a 0-d float32 tensor on its device, with no host sync."""
+    milestones = sorted(set(cfg.lr_milestones))
+    gamma = np.float32(cfg.lr_gamma)
 
-    def schedule(count: int) -> float:
+    def schedule(count):
+        if torch.is_tensor(count):
+            v = torch.full((), cfg.learning_rate, dtype=torch.float32,
+                           device=count.device)
+            for threshold in milestones:
+                v = torch.where(count >= threshold, v * float(gamma), v)
+            return v
         v = np.float32(cfg.learning_rate)
-        for threshold, scale in sorted(boundaries.items()):
+        for threshold in milestones:
             if count >= threshold:
-                v = np.float32(scale * v)
+                v = np.float32(gamma * v)
         return float(v)
 
     return schedule
 
 
-def make_optimizer(cfg: GNNConfig, params) -> torch.optim.Optimizer:
-    """torch.optim.SGD(momentum, coupled weight decay: wd is added to the raw
-    gradient before the momentum buffer, whose first value is the gradient)
-    — optax's chain(add_decayed_weights, sgd) — or AdamW with optax.adamw's
-    defaults (set_param_for_training_gnn.py:46-56).  The learning rate is set
-    from ``lr_schedule`` before every update (``make_train_step``)."""
+def make_optimizer(cfg: GNNConfig, params) -> Optimizer:
+    """The ``Optimizer`` of ``cfg.optim``: SGD (momentum, coupled weight
+    decay: wd is added to the raw gradient before the momentum buffer, whose
+    first value is the gradient) — optax's chain(add_decayed_weights, sgd) —
+    or AdamW with optax.adamw's defaults (set_param_for_training_gnn.py:
+    46-56).  The learning rate comes from ``lr_schedule`` at every update
+    (``_apply_update``); ``param_groups[0]["lr"]`` is the first one."""
     lr = lr_schedule(cfg)(0)
     if cfg.optim == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=cfg.weight_decay)
-    return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum, dampening=0,
-                           nesterov=False, weight_decay=cfg.weight_decay)
+        return Optimizer(params, "adamw", lr, cfg.weight_decay)
+    return Optimizer(params, "sgd", lr, cfg.weight_decay, momentum=cfg.momentum)
 
 
 def create_train_state(cfg: GNNConfig,
@@ -97,20 +294,37 @@ def batch_on(batch: GraphBatch, device) -> GraphBatch:
     return batch.to(device)
 
 
+def batched_forward(model: RadarGNN, cfg: GNNConfig,
+                    mp_impl: Optional[str] = None,
+                    mp_bf16: bool = False) -> Callable:
+    """fn(graph batch, node2cluster [B, N], cluster_mask [B, C]) → GNNOutputs
+    with a leading graph axis: ONE model call for the B graphs (the JAX
+    package vmaps the one-graph model).  Layer/group norm statistics stay
+    per graph; each message round is one kernel launch for all of them.
+    ``mp_impl``/``mp_bf16`` as in ``make_loss_fn``."""
+
+    def forward(graph: RadarGraph, node2cluster, cluster_mask):
+        return model(graph, node2cluster, cfg.max_clusters, cluster_mask,
+                     mp_impl=mp_impl, mp_bf16=mp_bf16)
+
+    return forward
+
+
 def make_loss_fn(cfg: GNNConfig, mp_impl: Optional[str] = None,
                  mp_bf16: bool = False) -> Callable:
     """(model, batch) → (total loss, metrics) over the B graphs of a batch:
-    one model call per graph, per-graph LossSums added, then divided.  The
-    per-graph loop keeps layer/group norm statistics per graph, as the JAX
-    package's vmap does.  ``mp_impl`` ("onehot" | "csr") overrides
-    ``cfg.mp_impl`` for the message rounds, as the JAX signature's does;
-    ``mp_bf16`` runs them with bf16 operands (f32 accumulation and
-    backward), as the JAX package's fast path does."""
+    one model call (``batched_forward``), the per-graph LossSums added in
+    graph order (``tree_sum``), then divided (JAX ``make_loss_fn``).
+    ``mp_impl`` ("onehot" | "csr") overrides ``cfg.mp_impl`` for the
+    message rounds, as the JAX signature's does; ``mp_bf16`` runs them with
+    bf16 operands (f32 accumulation and backward), as the JAX package's fast
+    path does."""
 
     def loss_fn(model: RadarGNN, batch: GraphBatch):
-        sums = per_graph_loss_sums(model, batch, cfg, mp_impl=mp_impl,
-                                   mp_bf16=mp_bf16)
-        return reduce_loss_sums(tree_sum(sums), cfg)
+        labels = batch.labels
+        out = batched_forward(model, cfg, mp_impl, mp_bf16)(
+            batch.graph, labels.node2cluster, labels.cluster_mask)
+        return reduce_loss_sums(tree_sum(graph_loss_sums(out, batch.graph, labels, cfg)), cfg)
 
     return loss_fn
 
@@ -118,7 +332,8 @@ def make_loss_fn(cfg: GNNConfig, mp_impl: Optional[str] = None,
 def per_graph_loss_sums(model: RadarGNN, batch: GraphBatch, cfg: GNNConfig,
                         **model_kwargs) -> List[LossSums]:
     """One model call per graph of the batch (``model_kwargs`` passed on)
-    and its ``graph_loss_sums``, in batch order."""
+    and its ``graph_loss_sums``, in batch order: the reference's per-graph
+    loop, which the grid steps of ``parallel/`` keep."""
     sums = []
     for b in range(batch.batch_size):
         graph, labels = batch.graph.at(b), batch.labels.at(b)
@@ -128,92 +343,266 @@ def per_graph_loss_sums(model: RadarGNN, batch: GraphBatch, cfg: GNNConfig,
     return sums
 
 
-def _apply_update(state: TrainState, grads: List[torch.Tensor],
-                  cfg: GNNConfig, schedule: Callable[[int], float]) -> None:
-    """Apply (or, between accumulation boundaries, accumulate) one finite
-    gradient, as optax.MultiSteps(tx, k) does."""
+def all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """0-d bool tensor: every element of every tensor is finite (no host
+    sync)."""
+    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+
+def apply_if(ok: torch.Tensor, new: Sequence[torch.Tensor],
+             old: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Elementwise select between two lists of tensors on a 0-d predicate:
+    ``new`` where ``ok``, else ``old`` (the branchless NaN-batch skip)."""
+    return [torch.where(ok, n, o) for n, o in zip(new, old)]
+
+
+def _apply_update(state: TrainState, grad, cfg: GNNConfig,
+                  ok: Optional[torch.Tensor] = None) -> None:
+    """Apply (or, between accumulation boundaries, accumulate) one gradient
+    — flat, or one a parameter — as optax.MultiSteps(tx, k) does, if ``ok``
+    (0-d bool; default: always), with no branch and no host sync: every
+    write is a select on ``ok``, so a skipped batch leaves the parameters,
+    the moments, the accumulation buffer and the counts as they were."""
+    opt = state.optimizer
+    opt.bind()
+    if not torch.is_tensor(grad):
+        grad = torch.cat([g.reshape(-1) for g in grad])
+    counts = state.counters
+    if ok is None:
+        ok = torch.ones((), dtype=torch.bool, device=counts.device)
+    take = ok
     k = cfg.grad_accumulation_steps
-    params = list(state.model.parameters())
     if k > 1:
-        if state.acc_grads is None:
-            state.acc_grads = [torch.zeros_like(p) for p in params]
-        n = state.mini_step
-        for acc, g in zip(state.acc_grads, grads):
-            acc.add_((g - acc) / (n + 1))  # optax's running mean
-        state.mini_step = (n + 1) % k
-        if state.mini_step:
-            return
-        grads = [acc.clone() for acc in state.acc_grads]
-        for acc in state.acc_grads:
-            acc.zero_()
-    for p, g in zip(params, grads):
-        p.grad = g
-    for group in state.optimizer.param_groups:
-        group["lr"] = schedule(state.updates)
-    state.optimizer.step()
-    state.updates += 1
+        if state.acc is None:
+            state.acc = torch.zeros_like(opt.flat)
+        n = counts[2]
+        acc = state.acc + (grad - state.acc) / (n + 1)  # optax's running mean
+        emit = n == k - 1
+        state.acc.copy_(torch.where(ok, torch.where(emit, 0.0, acc), state.acc))
+        counts[2].copy_(torch.where(ok, (n + 1) % k, n))
+        grad, take = acc, ok & emit
+    count = counts[1]
+    opt.commit(take, *opt.propose(grad, lr_schedule(cfg)(count), count))
+    count.add_(take.to(count.dtype))
 
 
-def finite_update(state: TrainState, loss: torch.Tensor, params) -> bool:
-    """After ``loss.backward()``: step ``state.optimizer`` over ``params`` (a
-    zero gradient where none reached one) if the loss and every gradient are
-    finite, else change nothing (the NaN skip; one device→host sync).  Then
-    clear the gradients and count the step.  Returns whether the update was
-    applied.  The finetuning, classifier and grid-CNN steps share it."""
+def finite_update(state: TrainState, loss: torch.Tensor, params) -> torch.Tensor:
+    """After ``loss.backward()``: step ``state.optimizer`` (a torch.optim
+    optimiser over ``params``; a zero gradient where none reached one) and
+    keep its result only if the loss and every gradient are finite (the JAX
+    finetuning and grid-CNN steps' ``all_finite``/``apply_if``): no branch,
+    no host sync.  SGD's momentum buffers are made at zero first (optax's
+    init), so that a skipped first step keeps them.  Then clear the
+    gradients and count the step.  Returns ok, a 0-d bool device tensor.
+    The finetuning, classifier and grid-CNN steps share it."""
     params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    ok = bool(torch.cat([loss.detach().reshape(1)]
-                        + [g.reshape(-1) for g in grads]).isfinite().all())
-    if ok:
-        for p, g in zip(params, grads):
-            p.grad = g
-        state.optimizer.step()
-        state.updates += 1
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
+    ok = all_finite([loss.detach(), *grads])
+    opt = state.optimizer
+    for group in opt.param_groups:
+        if group.get("momentum", 0):
+            for p in group["params"]:
+                opt.state[p].setdefault("momentum_buffer", torch.zeros_like(p))
+    live = [p.detach() for p in params] + [
+        v for s in opt.state.values() for v in s.values() if torch.is_tensor(v)]
+    before = [t.clone() for t in live]
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    for t, v in zip(live, apply_if(ok, live, before)):
+        t.copy_(v)
+    opt.zero_grad(set_to_none=True)
+    state.counters[0].add_(1)
+    state.counters[1].add_(ok.to(torch.int64))
     return ok
+
+
+def _train_body(state: TrainState, batch: GraphBatch, loss_fn: Callable,
+                cfg: GNNConfig) -> Dict[str, torch.Tensor]:
+    """One step on tensors on the state's device: loss, gradients, the
+    branchless update.  Its three parts are profiler ranges:
+    ``train_step.forward``, ``train_step.backward``, ``train_step.update``
+    (on the card they run where the step is captured, not per replay)."""
+    opt = state.optimizer
+    with record_function("train_step.forward"):
+        loss, metrics = loss_fn(state.model, batch)
+    with record_function("train_step.backward"):
+        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+    with record_function("train_step.update"), torch.no_grad():
+        # A parameter the loss does not reach gets a zero gradient, so
+        # that weight decay and momentum still apply to it, as in optax.
+        grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                          for g, p in zip(grads, opt.params)])
+        ok = all_finite([loss.detach(), grad])
+        _apply_update(state, grad, cfg, ok)
+        state.counters[0].add_(1)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["skipped"] = (~ok).to(torch.float32)
+    return metrics
+
+
+# ------------------------------------------------------------ CUDA graphs
+_POOLS: Dict[torch.device, tuple] = {}
+
+
+def _pool(device: torch.device):
+    """The one CUDA-graph memory pool of this process's train steps on
+    ``device`` (each bucket's step included): their graphs replay one at a
+    time, so they share it.  A pool whose graphs are all gone cannot take
+    another capture, so a graph of one allocation holds it for the
+    process."""
+    if device not in _POOLS:
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(keeper):
+            torch.zeros(1, device=device)
+        _POOLS[device] = (keeper.pool(), keeper)
+    return _POOLS[device][0]
+
+
+def launch_counters() -> List[Tuple[object, str]]:
+    """The message rounds' launch counters, as (function, attribute)."""
+    return [(FM.fused_message_pass, "launches"),
+            (FM.fused_message_pass, "launches_bf16"),
+            (FM.fused_message_pass_backward, "launches"),
+            (C.fused_message_pass_csr, "launches"),
+            (C.fused_message_pass_csr, "launches_bf16"),
+            (C.fused_message_pass_csr_backward, "launches")]
+
+
+def _read_counters() -> List[int]:
+    return [getattr(f, a) for f, a in launch_counters()]
+
+
+def _add_counters(deltas: Sequence[int]) -> None:
+    for (f, a), d in zip(launch_counters(), deltas):
+        setattr(f, a, getattr(f, a) + d)
+
+
+def _batch_leaves(batch) -> list:
+    """The arrays of a batch (numpy or tensors), graph fields then labels'."""
+    return ([getattr(batch.graph, f) for f in RadarGraph.__dataclass_fields__]
+            + [getattr(batch.labels, f) for f in GraphLabels.__dataclass_fields__])
+
+
+class _Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: list                # static input buffers, in _batch_leaves order
+    outputs: Dict[str, torch.Tensor]
+    launches: List[int]         # each launch counter's advance per replay
+    state: TrainState           # kept alive: the graph writes its tensors
+
+
+class CapturedStep:
+    """``body(state, batch)`` on a CUDA device, captured as one CUDA graph
+    per state and batch shape (and per binding of the state's tensors) and
+    replayed: the batch is copied into the graph's static input buffers,
+    the graph replayed, and its metrics cloned before the next replay can
+    overwrite them.
+
+    Capture: on a side stream the body runs once eagerly (libraries,
+    constants and other first-use work) and once more under
+    ``torch.cuda.set_sync_debug_mode("error")`` — a device→host sync there
+    raises — then the state is restored to its values before the two, and
+    the body is captured into the process's one graph pool.  A capture that
+    fails raises: the step never falls back to eager work on the card.
+
+    The launch counters of the message rounds advance by what a replay
+    launches: the capture itself launches nothing, so its advance is taken
+    back and added at every replay.  ``warmups`` counts the eager runs
+    (``WARMUP_RUNS`` a capture), ``replays`` the graph launches."""
+
+    WARMUP_RUNS = 2
+
+    def __init__(self, body: Callable):
+        self.body = body
+        self.graphs: Dict[tuple, _Captured] = {}
+        self.warmups = 0
+        self.replays = 0
+
+    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        leaves = _batch_leaves(batch)
+        binding = tuple(t.data_ptr() for t in state.tensors())
+        key = (id(state), binding, tuple((tuple(a.shape), str(a.dtype)) for a in leaves))
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(state, leaves)
+        else:
+            _copy_into(entry.inputs, leaves)
+        with record_function("train_step.replay"):
+            entry.graph.replay()
+        _add_counters(entry.launches)
+        self.replays += 1
+        return {k: v.clone() for k, v in entry.outputs.items()}
+
+    def _capture(self, state: TrainState, leaves) -> _Captured:
+        device = state.device
+        inputs = [torch.empty(tuple(a.shape), device=device,
+                              dtype=a.dtype if torch.is_tensor(a)
+                              else torch.from_numpy(np.asarray(a[:0])).dtype)
+                  for a in leaves]
+        _copy_into(inputs, leaves)
+        names = list(RadarGraph.__dataclass_fields__)
+        static = GraphBatch(
+            RadarGraph(**dict(zip(names, inputs[:len(names)]))),
+            GraphLabels(**dict(zip(GraphLabels.__dataclass_fields__, inputs[len(names):]))))
+        saved = [t.clone() for t in state.tensors()]
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.body(state, static)  # first use
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self.body(state, static)  # as it will be captured
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        current.wait_stream(side)
+        self.warmups += self.WARMUP_RUNS
+        for t, v in zip(state.tensors(), saved):
+            t.copy_(v)
+        graph = torch.cuda.CUDAGraph()
+        before = _read_counters()
+        with torch.cuda.graph(graph, pool=_pool(device)):
+            outputs = self.body(state, static)
+        launches = [a - b for a, b in zip(_read_counters(), before)]
+        _add_counters([-d for d in launches])  # the capture launched nothing
+        return _Captured(graph, inputs, outputs, launches, state)
+
+
+def _copy_into(buffers: List[torch.Tensor], arrays) -> None:
+    for buf, a in zip(buffers, arrays):
+        buf.copy_(a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)))
 
 
 def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,
                     mp_bf16: bool = False) -> Callable:
     """(state, batch) → (state, metrics); single device.  The batch may hold
-    numpy arrays or tensors; it is moved to the model's device.  metrics are
-    0-d tensors on that device, ``skipped`` = 1.0 for a skipped batch (a
-    non-finite loss or gradient, such as the CSR round's NaN guard gives).
-    ``mp_impl`` and ``mp_bf16`` as in ``make_loss_fn``.  The step's
-    three parts are profiler ranges: ``train_step.forward`` (batch to
-    device, loss), ``train_step.backward`` and ``train_step.update``
-    (finiteness check, optimiser)."""
+    numpy arrays or tensors.  metrics are 0-d tensors on the state's
+    device, ``skipped`` = 1.0 for a skipped batch (a non-finite loss or
+    gradient, such as the CSR round's NaN guard gives).  ``mp_impl`` and
+    ``mp_bf16`` as in ``make_loss_fn``.
+
+    On the CPU the step runs eagerly.  On a CUDA device it is captured once
+    per state and batch shape (``CapturedStep``, ``train_step.captured``)
+    and replayed: one host launch a step, the profiler range
+    ``train_step.replay`` around it."""
     loss_fn = make_loss_fn(cfg, mp_impl, mp_bf16)
-    schedule = lr_schedule(cfg)
+
+    def body(state: TrainState, batch: GraphBatch) -> Dict[str, torch.Tensor]:
+        return _train_body(state, batch, loss_fn, cfg)
+
+    captured = CapturedStep(body)
 
     def train_step(state: TrainState, batch: GraphBatch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model = state.model
-        with record_function("train_step.forward"):
-            batch = batch_on(batch, state.device)
-            model.zero_grad(set_to_none=True)
-            loss, metrics = loss_fn(model, batch)
-        with record_function("train_step.backward"):
-            loss.backward()
-        with record_function("train_step.update"):
-            # A parameter the loss does not reach gets a zero gradient, so
-            # that weight decay and momentum still apply to it, as in optax.
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in model.parameters()]
-            # torch.optim updates in place, so finiteness is decided before
-            # the update: one device→host sync per step, accepted here.
-            finite = torch.cat([loss.detach().reshape(1)]
-                               + [g.reshape(-1) for g in grads]).isfinite().all()
-            ok = bool(finite)
-            if ok:
-                _apply_update(state, grads, cfg, schedule)
-            model.zero_grad(set_to_none=True)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = loss.new_tensor(0.0 if ok else 1.0)
-        return state, metrics
+        if cfg.grad_accumulation_steps > 1 and state.acc is None:
+            state.acc = torch.zeros_like(state.optimizer.bind())
+        if state.device.type == "cpu":
+            return state, body(state, batch_on(batch, state.device))
+        return state, captured(state, batch)
 
+    train_step.captured = captured
     return train_step
 
 
@@ -222,10 +611,10 @@ def make_train_scan(cfg: GNNConfig, length: int,
                     mp_bf16: bool = False) -> Callable:
     """(state, batches) → (state, last step's metrics): train steps in
     sequence, with ``make_train_step``'s results, as the JAX package's
-    ``lax.scan``.  ``batches`` is either one batch reused for ``length``
-    steps, or batches stacked on a leading axis (node_feat of rank 4): then
-    one step per entry of that axis, whatever ``length`` is.  Capturing
-    the steps as one CUDA graph is later work (ROADMAP.md)."""
+    ``lax.scan``: on the card each is a replay of the one captured step.
+    ``batches`` is either one batch reused for ``length`` steps, or batches
+    stacked on a leading axis (node_feat of rank 4): then one step per
+    entry of that axis, whatever ``length`` is."""
     step = make_train_step(cfg, mp_impl, mp_bf16)
 
     def run(state: TrainState, batches: GraphBatch):
@@ -239,6 +628,7 @@ def make_train_scan(cfg: GNNConfig, length: int,
                 state, metrics = step(state, batches)
         return state, metrics
 
+    run.step = step
     return run
 
 

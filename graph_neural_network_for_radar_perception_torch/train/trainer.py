@@ -7,7 +7,8 @@ sweep with paired train/val scalars, a checkpoint at every validation
 period and at the end (``utils/checkpoint.py``: params, optimiser and
 counters, so a restored run continues where it stopped), and the NaN skip
 inside the step.  Metrics
-are pulled to the host only at log boundaries.  ``train_chunked`` runs
+are pulled to the host only at log boundaries (on the card the step itself
+syncs nothing: a replay of its CUDA graph).  ``train_chunked`` runs
 ``make_train_scan`` over chunks of stacked batches; ``train_bucketed`` runs
 ``train`` over bucketed batches (``data/bucketing.py``) that
 ``data/prefetch.device_prefetch`` moves to the device ahead of the steps.

@@ -16,6 +16,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# The CUDA API calls by which the host launches work on the card,
+# as torch.profiler names them: a kernel each, or a whole CUDA graph.
+HOST_LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+    "cudaGraphLaunch", "cuGraphLaunch"))
+
 
 def event_ms(fn, reps: int = 50, inner: int = 20) -> float:
     """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
@@ -72,10 +78,11 @@ def kernel_breakdown(fn) -> list:
 
 def profile_run(fn) -> dict:
     """One call of ``fn`` under torch.profiler, after a warm call: device
-    kernels launched, device busy time (union of kernel intervals), host
-    wall time, the card's idle share of it, the kernels that take the most
-    device time, and the host time of the train step's named parts
-    (``train_step.*`` ranges) where it has them."""
+    kernels launched, launches the host issued (CUDA API calls that
+    launch a kernel or a CUDA graph), device busy time (union of
+    kernel intervals), host wall time, the card's idle share of it, the
+    kernels that take the most device time, and the host time of the train
+    step's named parts (``train_step.*`` ranges) where it has them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -93,6 +100,9 @@ def profile_run(fn) -> dict:
         and not e.name.startswith("train_step.")
     )
     ranges = {}  # host time of the train step's named parts
+    host_launches = sum(1 for e in prof.events()
+                        if e.device_type != torch.autograd.DeviceType.CUDA
+                        and e.name in HOST_LAUNCH_CALLS)
     for e in prof.events():
         if e.name.startswith("train_step.") and e.device_type != torch.autograd.DeviceType.CUDA:
             ranges[e.name] = ranges.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
@@ -106,6 +116,7 @@ def profile_run(fn) -> dict:
     return {
         "wall_ms": wall_us / 1e3,
         "device_kernels": len(spans),
+        "host_launches": host_launches,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "top_kernels_ms_launches": {name[:60]: [t / 1e3, count[name]]

@@ -7,6 +7,8 @@ Imports nothing of JAX, so that it runs on a machine without it:
 
 Every test skips without a CUDA card."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -222,7 +224,7 @@ def test_model_gradients_on_card_match_cpu(cuda_device):
         loss.backward()
         after = (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches)
         grads[str(device)] = {k: p.grad.cpu().numpy() for k, p in st.model.named_parameters()}
-    rounds = len(cfg.graph_convolution_stem_channels) * cfg.batch_size
+    rounds = len(cfg.graph_convolution_stem_channels)  # one launch a round for the batch
     assert after == (before[0] + rounds, before[1] + rounds)
     for k, want in grads["cpu"].items():
         np.testing.assert_allclose(grads["cuda"][k], want, rtol=1e-3,
@@ -244,6 +246,170 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for k, v in p_cpu.items():
         np.testing.assert_allclose(p_gpu[k].cpu().numpy(), v.numpy(),
                                    rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+def _batched_launches(launch, graphs, stacked):
+    """One C call over ``graphs`` graphs (``launch(None)``) against one call
+    a graph (``launch(g)``), each → (call, results): the first ``stacked``
+    results bitwise equal graph by graph, the rest (weight gradients)
+    within 1e-6 of the graphs' sum, relative to the largest element of the
+    graphs' summed magnitudes (the scale of a reassociated sum's rounding;
+    the sum itself may cancel, as the norm scalars' do)."""
+    call, results = launch(None)
+    assert call() == 0
+    each = []
+    for g in range(graphs):
+        c, r = launch(g)
+        assert c() == 0
+        each.append(r())
+    torch.cuda.synchronize()
+    got = results()
+    for i, t in enumerate(got):
+        if i < stacked:
+            for g in range(graphs):
+                assert torch.equal(t[g], each[g][i][0]), (i, g)
+        else:
+            want = each[0][i]
+            for e in each[1:]:
+                want = want + e[i]
+            scale = each[0][i].abs()
+            for e in each[1:]:
+                scale = scale + e[i].abs()
+            assert float((t - want).abs().max()) <= 1e-6 * float(scale.max()), i
+
+
+@pytest.mark.parametrize("shape", ["deploy", "tiny"])
+def test_batched_fused_launch_equals_one_graph_launches(cuda_device, shape):
+    """The fused round's forward (f32 and bf16) and backward over 8 graphs
+    in one C call equal 8 calls of one graph on the same inputs: agg,
+    msgs, gef, dxa and dxb bitwise, the weight gradients within 1e-6 of
+    their sum; the batch's layout is each graph's."""
+    probs = [_problem(30 + g, device=cuda_device, **FUSED_SHAPES[shape]) for g in range(8)]
+    x, ef, s, r = (torch.stack([p[i] for p in probs]) for i in range(4))
+    w1, b1, w2, b2 = probs[0][4:8]
+    scal = torch.tensor(probs[0][8:], device=cuda_device)
+    n, d = x.shape[1], x.shape[2]
+    layout = FM.fused_layout(s, r, n)
+    for g in range(8):
+        assert all(torch.equal(a[g], b) for a, b in zip(layout, FM.fused_layout(s[g], r[g], n)))
+    xa, xb = x @ w1[:d], x @ w1[d:2 * d]
+    gout = 1e-2 * torch.randn(8, n, w2.shape[1], device=cuda_device,
+                              generator=torch.Generator(cuda_device).manual_seed(3))
+
+    def sl(g):
+        return slice(None) if g is None else slice(g, g + 1)
+
+    def lay(g):
+        return layout if g is None else type(layout)(*(t[g:g + 1] for t in layout))
+
+    for bf16 in (False, True):
+        def fwd(g):
+            raw, outs = FM._forward_launch(x[sl(g)], ef[sl(g)], s[sl(g)], r[sl(g)], w1, b1, w2,
+                                           b2, scal, 0.01, lay(g), (xa[sl(g)], xb[sl(g)]))
+            # msgs: a scratch; only the rows of the edges that land are written
+            lands = ((r[sl(g)] >= 0) & (r[sl(g)] < n))[..., None]
+            return (lambda: FM._kernel(bf16)(*raw)), (
+                lambda: (torch.where(lands, outs[0], 0.0), outs[1]))
+        _batched_launches(fwd, 8, 2)
+
+    def bwd(g):
+        raw, results = FM._backward_launch(x[sl(g)], ef[sl(g)], s[sl(g)], r[sl(g)], lay(g), w1,
+                                           b1, w2, b2, scal, gout[sl(g)].contiguous(), 0.01,
+                                           (xa[sl(g)], xb[sl(g)]))
+        return (lambda: FM._bwd_kernel()(*raw)), results
+    _batched_launches(bwd, 8, 3)
+
+
+@pytest.mark.parametrize("case", ["knn", "tiny"])
+def test_batched_csr_launch_equals_one_graph_launches(cuda_device, case):
+    """The same for the CSR round: forward (f32 and bf16) and backward over
+    8 graphs in one C call against 8 calls of one graph; the batch's
+    layout is each graph's."""
+    probs = [_csr_case(case, 40 + g, cuda_device)[0] for g in range(8)]
+    tiling = _csr_case(case, 40, cuda_device)[1]
+    x, ef, src, dst = (torch.stack([p[i] for p in probs]) for i in range(4))
+    w1, b1, w2, b2 = probs[0][4:8]
+    scal = torch.cat(probs[0][8:])
+    n = x.shape[1]
+    layout = C.csr_layout(src, dst, n, *tiling)
+    for g in range(8):
+        one = C.csr_layout(src[g], dst[g], n, *tiling)
+        assert all(torch.equal(a[g], b) for a, b in zip(layout, one) if torch.is_tensor(b))
+    gout = 1e-2 * torch.randn(8, n, w2.shape[1], device=cuda_device,
+                              generator=torch.Generator(cuda_device).manual_seed(4))
+
+    def sl(g):
+        return slice(None) if g is None else slice(g, g + 1)
+
+    def lay(g):
+        return layout if g is None else type(layout)(
+            *(t[g:g + 1] if torch.is_tensor(t) else t for t in layout))
+
+    for bf16 in (False, True):
+        def fwd(g):
+            raw, outs = C._forward_launch(x[sl(g)], ef[sl(g)], lay(g), w1, b1, w2, b2, scal, 0.01)
+            lands = (lay(g).dst < n)[..., None]
+            return (lambda: C._kernel(bf16)(*raw)), (
+                lambda: (torch.where(lands, outs[0], 0.0), outs[1]))
+        _batched_launches(fwd, 8, 2)
+
+    def bwd(g):
+        raw, results = C._backward_launch(x[sl(g)], ef[sl(g)], lay(g), w1, b1, w2, b2, scal,
+                                          gout[sl(g)].contiguous(), 0.01)
+        return (lambda: C._bwd_kernel()(*raw)), results
+    _batched_launches(bwd, 8, 2)
+
+
+@pytest.mark.parametrize("mp_impl, bf16", [(None, False), ("csr", False), (None, True)],
+                         ids=["fused", "csr", "fused-bf16"])
+def test_captured_step_equals_eager_step(cuda_device, mp_impl, bf16):
+    """Three train steps replayed from one captured CUDA graph against the
+    same step run eagerly on the card from the same seed: metrics and
+    params within 1e-5 (the index_add_ sums of the heads' backward use
+    atomics; 1e-4 with bf16 operands, where two sums that differ in the
+    last bit can round to neighbouring bf16 values); one capture, three
+    replays, one launch of each kernel a round a step."""
+    tol = dict(rtol=1e-4, atol=1e-5) if bf16 else dict(rtol=1e-5, atol=1e-6)
+    cfg = tiny_test_config(csr_edge_tile=128, csr_window=64)
+    batches = [_tiny_batch(cfg, seed=s) for s in (4, 5, 6)]
+    step, loss_fn = S.make_train_step(cfg, mp_impl, bf16), S.make_loss_fn(cfg, mp_impl, bf16)
+    cap = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    eager = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    kernel = C.fused_message_pass_csr if mp_impl == "csr" else FM.fused_message_pass
+    counter = "launches_bf16" if bf16 else "launches"
+    before = getattr(kernel, counter)
+    for batch in batches:
+        cap, m_cap = step(cap, batch)
+        m_eager = S._train_body(eager, S.batch_on(batch, cuda_device), loss_fn, cfg)
+        for k, v in m_eager.items():
+            np.testing.assert_allclose(float(m_cap[k]), float(v), **tol, err_msg=k)
+    rounds = len(cfg.graph_convolution_stem_channels)
+    assert step.captured.replays == 3 and len(step.captured.graphs) == 1
+    # the eager steps launched 3 a round too
+    assert getattr(kernel, counter) - before == rounds * (3 + S.CapturedStep.WARMUP_RUNS + 3)
+    assert (cap.step, cap.updates) == (eager.step, eager.updates) == (3, 3)
+    want = eager.model.state_dict()
+    for k, v in cap.model.state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want[k].cpu().numpy(), **tol, err_msg=k)
+
+
+def test_captured_nan_skip_keeps_the_state(cuda_device):
+    """A NaN batch through a replay of the captured step: skipped, and the
+    parameters, the momentum and the update count bitwise unchanged."""
+    cfg = tiny_test_config()
+    batch = _tiny_batch(cfg, seed=4)
+    step = S.make_train_step(cfg)
+    st = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    st, _ = step(st, batch)
+    flat, mom = st.optimizer.flat.clone(), st.optimizer.moments["momentum_buffer"].clone()
+    node_feat = batch.graph.node_feat.copy()
+    node_feat[0, 0, 0] = np.nan
+    bad = dataclasses.replace(batch, graph=dataclasses.replace(batch.graph, node_feat=node_feat))
+    st, m = step(st, bad)
+    assert float(m["skipped"]) == 1.0 and step.captured.replays == 2
+    assert torch.equal(st.optimizer.flat, flat)
+    assert torch.equal(st.optimizer.moments["momentum_buffer"], mom)
+    assert (st.step, st.updates) == (2, 1)
 
 
 # ------------------------------------------------------------- the CSR round
@@ -405,7 +571,7 @@ def test_csr_model_gradients_on_card_match_cpu(cuda_device):
                  C.fused_message_pass_csr_backward.launches,
                  FM.fused_message_pass.launches)
         grads[str(device)] = {k: p.grad.cpu().numpy() for k, p in st.model.named_parameters()}
-    rounds = len(cfg.graph_convolution_stem_channels) * cfg.batch_size
+    rounds = len(cfg.graph_convolution_stem_channels)  # one launch a round for the batch
     assert after == (before[0] + rounds, before[1] + rounds, before[2])
     for k, want in grads["cpu"].items():
         np.testing.assert_allclose(grads["cuda"][k], want, rtol=1e-3,
@@ -501,7 +667,9 @@ def test_bf16_train_step_on_card_matches_cpu(cuda_device, mp_impl):
         st, m = S.make_train_step(cfg, mp_impl, mp_bf16=True)(st, batch)
         after = [(k.launches, k.launches_bf16) for k in kernels]
         out[str(device)] = {k: float(v) for k, v in m.items()}
-    rounds = len(cfg.graph_convolution_stem_channels) * cfg.batch_size
+    # On the card: one launch a round for the batch, in each of the capture's
+    # warm-up runs and in the replay.
+    rounds = len(cfg.graph_convolution_stem_channels) * (S.CapturedStep.WARMUP_RUNS + 1)
     used = 1 if mp_impl == "csr" else 0
     for i, (b, a) in enumerate(zip(before, after)):
         assert a == (b[0], b[1] + (rounds if i == used else 0))
