@@ -32,10 +32,14 @@ Phases, each reported on its own line:
    device kernels of one ``csr_mp_backward`` call (``torch.profiler``);
 6. [deploy] drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the
    shipped widths with random weights from a seeded ``torch.Generator`` —
-   over synthetic frames at the default capacities, count the forward
-   kernel's launches and every kernel of one deploy forward, and compare
-   logits and decisions with the same detector on the CPU (which runs the
-   plain version);
+   over synthetic frames at the default capacities, deploy and softmax one
+   captured CUDA graph replayed a frame (its capture's second warm-up under
+   sync debug "error"): count the forward kernel's launches (7 a replay
+   and 7 a warm-up run), hold the captured detections bit for bit to the
+   eager deploy's decisions on the same frames, profile one frame's
+   forward (one host launch and the copies) beside the eager deploy's, and
+   compare logits and decisions with the same detector on the CPU (which
+   runs the plain version);
 6b. [batched] the four round kernels and the bf16 forwards over 8
    graphs in one C call (the training batch, the main path's shapes)
    against one call a graph: per-graph outputs bitwise equal, the weight
@@ -52,8 +56,9 @@ Phases, each reported on its own line:
 8. [train-csr] the same with ``GNNConfig(mp_impl="csr")``, also against the
    default message pass on the card, and a window violation that the NaN
    guard turns into a skipped step;
-9. [deploy-csr] ``FrameDetector(GNNConfig(mp_impl="csr"))`` on 4 of the
-   deploy frames against the default message pass on the card;
+9. [deploy-csr] ``FrameDetector(GNNConfig(mp_impl="csr"))``, captured as in
+   [deploy], on 4 of the deploy frames against the default message pass on
+   the card and against its own eager deploy (decisions bit for bit);
 10. [kernel-bf16] the fused forward's bf16 instantiation against its plain
     bf16 version on the [kernel] problems, two launches bitwise equal, the
     f32 kernel's output shown to lie outside that tolerance, timing;
@@ -108,11 +113,13 @@ Phases, each reported on its own line:
     carried to a CPU copy, on 4 [deploy] frames: decisions under the
     [deploy] rule, logits within its tolerance, launches and ms per frame;
 19. [finetune] ``train/finetune.make_finetune_step(GNNConfig())`` at batch 8
-    for 3 steps: the frozen detector's deploy forward on every graph (the
-    forward kernel, never the backward), everything outside predict_class
-    bitwise unchanged, each step replayed on the CPU from the card's state
-    before it with the card's DBSCAN partitions (themselves held to the
-    CPU's under the [deploy] rule);
+    for 3 steps, each a replay of one captured CUDA graph: one deploy
+    forward of the frozen detector for the batch (the forward kernel once a
+    round, never the backward), everything outside predict_class bitwise
+    unchanged, each step against the same body run eagerly on the card and
+    its loss and head gradient against one deploy a graph, and replayed on
+    the CPU from the card's state before it with the card's DBSCAN
+    partitions (themselves held to the CPU's under the [deploy] rule);
 20. [classifier] ``models/classifier`` at ``ClassifierConfig()`` (512 points,
     64 objects, 8192 edges) and batch 8: 3 SGD steps, each replayed on the
     CPU;
@@ -126,12 +133,14 @@ Phases, each reported on its own line:
     version; then 4 ranks of the port's worker, started once on the card
     under gloo (CUDA tensors), run data parallelism 4 x 1, the edge-sharded
     step 2 x 2 with the fused and with the CSR round (the message kernels
-    on each rank's edge shard) and the halo step 2 x 2 on spatially sorted
-    frames (plain rounds: no kernel); then one rank under NCCL runs data
-    parallelism 1 x 1.  Each mode held to the single-process train step on
-    the card from the same weights and batch, its first step to the plain
-    rounds on the CPU, every rank's params bitwise equal, the launches per
-    rank exact, ms per step per rank;
+    on each rank's edge shard, one launch a round for the rank's graphs)
+    and the halo step 2 x 2 on spatially sorted frames (plain rounds: no
+    kernel); then one rank under NCCL runs data parallelism 1 x 1.  Each
+    mode held to the single-process train step on the card from the same
+    weights and batch, its first step to the plain rounds on the CPU, every
+    rank's params bitwise equal, the launches and the all-reduces per rank
+    and step exact, ms per step per rank and the host ms blocked in the
+    all-reduces;
 23. [examples] the user entry points, each through its ``main`` on the
     card at its shipped widths for 2 steps or frames, into a temporary
     directory: the 11 ``examples/`` (``visualize`` its detection half: this
@@ -158,6 +167,7 @@ nothing of JAX.
     python3 chip_smoke.py --phase parallel
     python3 chip_smoke.py --phase examples
     python3 chip_smoke.py --phase train       # [batched] and the train phases
+    python3 chip_smoke.py --phase deploy      # [deploy] and [deploy-csr]
 
 build the libraries a phase needs and run phase 3 (the fused backward),
 phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
@@ -213,6 +223,10 @@ EVAL_FRAMES = 16       # [eval]: synthetic windows through both eval drivers
 EVAL_WINDOW = 5        # [eval]: the fixture artifact's temporal window
 VARIANT_FRAMES = 4     # [variants]: the first [deploy] frames
 FINETUNE_STEPS = 3     # [finetune]: steps at batch 8, replayed on the CPU
+# [finetune]: the captured step against its body run eagerly on the card
+# (the head's backward sums with index_add_ atomics), and the batched loss
+# against the per-graph loop's (other matmul blockings).
+FINETUNE_RTOL, FINETUNE_ATOL = 1e-5, 1e-6
 CLASSIFIER_STEPS = 3   # [classifier]: steps, replayed on the CPU
 CLASSIFIER_BATCH = 8
 CNN_STEPS = 2          # [cnn]: steps; the first replayed on the CPU
@@ -1283,10 +1297,12 @@ def phase_deploy(torch, FM):
     det_gpu = FrameDetector(cfg, state, device="cuda")
     det_cpu = FrameDetector(cfg, state, device="cpu")
     frames = deploy_frames(cfg, NUM_FRAMES + 1)
-    det_gpu.detect(frames[-1])  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
 
     FM.fused_message_pass.launches = 0
+    # The first frame captures deploy + softmax (two warm-up runs, the
+    # second under sync debug "error") and replays it: warm-up, untimed.
+    det_gpu.detect(frames[-1])
+    torch.cuda.synchronize()
     gpu_dets, frame_ms = [], []
     for data in frames[:NUM_FRAMES]:
         t0 = time.perf_counter()
@@ -1297,14 +1313,20 @@ def phase_deploy(torch, FM):
     launches = FM.fused_message_pass.launches
     rounds = len(cfg.graph_convolution_stem_channels)
     n_run = sum(d is not None for d in gpu_dets)
-    log(f"[deploy] {n_run} frames, fused_message_pass launches={launches} "
-        f"(expected {rounds} x {n_run}); FrameDetector.detect (host preprocess "
-        f"+ pad + deploy + decode) ms/frame median "
+    runs = detector_runs(det_gpu)
+    log(f"[deploy] {n_run} frames (+1 warm-up) through the captured detector: "
+        f"{len(det_gpu.captured.graphs)} capture, {det_gpu.captured.replays} replays, "
+        f"{det_gpu.captured.warmups} warm-up runs; fused_message_pass launches={launches} "
+        f"(expected {rounds} x ({det_gpu.captured.replays} replays + "
+        f"{det_gpu.captured.warmups} warm-up runs) = {rounds * runs}); FrameDetector.detect "
+        f"(host preprocess + pad + copies + replay + decode) ms/frame median "
         f"{np.median(frame_ms):.3f} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f})")
-    if n_run < 4 or launches != rounds * n_run:
-        raise AssertionError("the deploy path did not run the kernel once per round")
+    if (n_run < 4 or launches != rounds * runs or len(det_gpu.captured.graphs) != 1
+            or det_gpu.captured.replays != n_run + 1):
+        raise AssertionError("the deploy path did not replay one captured graph a frame, "
+                             "the kernel once a round")
 
-    worst, deploy_ms = {}, []
+    worst, deploy_ms, captured_ms, eager_diff = {}, [], [], 0.0
     for i, (data, gdet) in enumerate(zip(frames, gpu_dets)):
         cdet = det_cpu.detect(data)
         if (gdet is None) != (cdet is None):
@@ -1320,6 +1342,10 @@ def phase_deploy(torch, FM):
             out_gpu = det_gpu.model.deploy(graph)
             torch.cuda.synchronize()
             deploy_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            det_gpu.forward(graph_np)
+            torch.cuda.synchronize()
+            captured_ms.append((time.perf_counter() - t0) * 1e3)
             outs = {"cuda": out_gpu,
                     "cpu": det_cpu.model.deploy(RadarGraph.from_numpy(graph_np, "cpu"))}
         nm = graph_np.node_mask
@@ -1337,23 +1363,84 @@ def phase_deploy(torch, FM):
         rep = compare_decisions(
             gdet, cdet, outs["cpu"].node_cls.numpy()[: fr.n],
             outs["cpu"].obj_cls.numpy(), det_gpu.eps)
+        eager_diff = max(eager_diff, captured_vs_eager(torch, det_gpu, graph_np, gdet,
+                                                       f"[deploy] frame {i}"))
         log(f"[deploy] frame {i}: n={fr.n} edges={fr.senders.shape[0]} "
             f"clusters={gdet.num_clusters} {json.dumps(rep)}")
     log(f"[deploy] card vs CPU max abs err: {json.dumps(worst)} "
         f"(rtol={DEPLOY_RTOL}, atol={DEPLOY_ATOL})")
-    log(f"[deploy] RadarGNN.deploy forward alone on the card: ms/frame median "
-        f"{np.median(deploy_ms):.3f} (min {min(deploy_ms):.3f}, max {max(deploy_ms):.3f})")
+    log(f"[deploy] the captured detector against the eager deploy on the card, every frame: "
+        f"node classes, DBSCAN partitions, cluster counts and object classes bit for bit; "
+        f"outputs max abs diff {eager_diff!r} ({'bitwise' if eager_diff == 0 else 'not bitwise'})")
+    log(f"[deploy] the deploy forward alone on the card, ms/frame median (min, max): captured "
+        f"(copies + replay) {np.median(captured_ms):.3f} ({min(captured_ms):.3f}, "
+        f"{max(captured_ms):.3f}); eager RadarGNN.deploy {np.median(deploy_ms):.3f} "
+        f"({min(deploy_ms):.3f}, {max(deploy_ms):.3f})")
+    log_captured_forward(torch, "[deploy]", det_gpu, graph_np, graph, rounds)
     with torch.no_grad():
-        prof = profile_run(lambda: det_gpu.model.deploy(graph))
         layout_kernels = len(kernel_breakdown(lambda: FM.fused_layout(
             graph.senders, graph.receivers, graph.node_feat.shape[0])))
-    log(f"[deploy] profile of one deploy forward (last frame): {json.dumps(prof)}")
-    log(f"[deploy] launches per frame: {prof['device_kernels']} device kernels in one "
-        f"deploy forward, {rounds} of them fused_message_pass and {layout_kernels} "
-        f"the graph's fused_layout (made once per frame)")
-    if not prof["device_kernels"]:
-        raise AssertionError("the profiler saw no kernel on the card")
+    log(f"[deploy] of them {layout_kernels} the graph's fused_layout (made once per frame, "
+        f"inside the graph)")
     return launches
+
+
+def detector_runs(det) -> int:
+    """How often a detector's deploy body ran on the card: each replay of
+    its CUDA graphs and each warm-up run of a capture."""
+    return det.captured.replays + det.captured.warmups
+
+
+def captured_vs_eager(torch, det, graph_np, gdet, tag: str) -> float:
+    """The detector's captured forward of one padded frame (a replay)
+    against the eager deploy of its model on the same graph, both on the
+    card, and ``gdet`` (its detections of that frame) against the
+    decisions of the eager forward: DBSCAN's partition, the cluster count,
+    the node classes and the object classes bit for bit, or raises.
+    Returns the max abs difference of the float outputs."""
+    from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
+
+    out, prob, _ = det.forward(graph_np)
+    cap = {k: v.clone() for k, v in out._asdict().items()}
+    prob = prob.clone()
+    with torch.no_grad():
+        ref = det.model.deploy(RadarGraph.from_numpy(graph_np, "cuda"), eps=det.eps,
+                               from_links=det.from_links)
+        ref_prob = torch.softmax(ref.node_cls, dim=-1)
+    n, k = gdet.node_class.shape[0], int(ref.num_clusters)
+    ref_cls = ref_prob[:n].argmax(-1).cpu().numpy()
+    same = (torch.equal(cap["node2cluster"], ref.node2cluster)
+            and torch.equal(cap["num_clusters"], ref.num_clusters)
+            and torch.equal(prob.argmax(-1), ref_prob.argmax(-1))
+            and torch.equal(cap["obj_cls"][:k].argmax(-1), ref.obj_cls[:k].argmax(-1))
+            and np.array_equal(gdet.node_class, ref_cls)
+            and np.array_equal(gdet.node2cluster, ref.node2cluster[:n].cpu().numpy())
+            and gdet.num_clusters == k
+            and np.array_equal(gdet.cluster_class[:k], ref.obj_cls[:k].argmax(-1).cpu().numpy()))
+    if not same:
+        raise AssertionError(f"{tag}: the captured detector's decisions differ from the eager "
+                             f"deploy's")
+    return max(float((cap[f] - getattr(ref, f)).abs().max())
+               for f in ("node_cls", "node_offsets", "edge_cls", "obj_cls", "centers"))
+
+
+def log_captured_forward(torch, tag: str, det, graph_np, graph, rounds: int) -> None:
+    """Profiles of one frame: the detector's forward (its arrays copied
+    into the graph's buffers, one replay: exactly one host launch), the
+    eager deploy of the same graph, and the whole ``detect`` path's."""
+    fwd = profile_run(lambda: det.forward(graph_np))
+    with torch.no_grad():
+        eager = profile_run(lambda: det.model.deploy(graph, eps=det.eps))
+    log(f"{tag} profile of the captured forward of one frame: {json.dumps(fwd)}")
+    log(f"{tag} profile of the eager deploy forward of the same frame: {json.dumps(eager)}")
+    log(f"{tag} a frame's forward: {fwd['host_launches']} host launch (the graph) and "
+        f"{fwd['host_copies']} host copies (the padded arrays), {fwd['device_kernels']} device "
+        f"kernels ({rounds} rounds), busy "
+        f"{fwd['device_busy_ms']:.3f} ms, idle {fwd['device_idle_share']:.3f}; eager: "
+        f"{eager['host_launches']} host launches, {eager['device_kernels']} kernels, idle "
+        f"{eager['device_idle_share']:.3f}")
+    if fwd["host_launches"] != 1 or not fwd["device_kernels"]:
+        raise AssertionError(f"{tag} the captured forward is not one host launch of device work")
 
 
 def check_nan_skip(torch, state, step, batch, tag: str) -> None:
@@ -1665,10 +1752,10 @@ def phase_deploy_csr(torch, FM, C):
     det = {"csr": FrameDetector(cfg_csr, state, device="cuda"),
            "onehot": FrameDetector(cfg, state, device="cuda")}
     frames = deploy_frames(cfg, NUM_CSR_FRAMES)  # the [deploy] phase's first frames
-    det["csr"].detect(frames[0])  # warm-up
-    torch.cuda.synchronize()
     for c in (FM.fused_message_pass, C.fused_message_pass_csr):
         c.launches = 0
+    det["csr"].detect(frames[0])  # capture (two warm-up runs) and a replay: untimed
+    torch.cuda.synchronize()
     dets, frame_ms = [], []
     for data in frames:
         t0 = time.perf_counter()
@@ -1678,14 +1765,20 @@ def phase_deploy_csr(torch, FM, C):
     launches, fused = C.fused_message_pass_csr.launches, FM.fused_message_pass.launches
     rounds = len(cfg.graph_convolution_stem_channels)
     n_run = sum(d is not None for d in dets)
-    log(f"[deploy-csr] {n_run} frames, fused_message_pass_csr launches={launches} "
-        f"(expected {rounds} x {n_run}), fused_message_pass launches={fused} "
+    cap = det["csr"].captured
+    want = rounds * detector_runs(det["csr"])
+    log(f"[deploy-csr] {n_run} frames (+1 warm-up) through the captured detector: "
+        f"{len(cap.graphs)} capture, {cap.replays} replays, {cap.warmups} warm-up runs; "
+        f"fused_message_pass_csr launches={launches} (expected {rounds} x ({cap.replays} + "
+        f"{cap.warmups}) = {want}), fused_message_pass launches={fused} "
         f"(expected 0); detect ms/frame median {np.median(frame_ms):.3f} "
         f"(min {min(frame_ms):.3f}, max {max(frame_ms):.3f})")
-    if n_run < 4 or launches != rounds * n_run or fused:
-        raise AssertionError("the CSR deploy path did not run its kernel once per round")
+    if (n_run < 4 or launches != want or fused or len(cap.graphs) != 1
+            or cap.replays != n_run + 1):
+        raise AssertionError("the CSR deploy path did not replay one captured graph a frame, "
+                             "its kernel once a round")
 
-    worst = {}
+    worst, eager_diff = {}, 0.0
     for i, (data, gdet) in enumerate(zip(frames, dets)):
         odet = det["onehot"].detect(data)
         fr = preprocess_frame(data, cfg_csr)
@@ -1707,10 +1800,17 @@ def phase_deploy_csr(torch, FM, C):
                 raise AssertionError(f"frame {i}: {field} csr vs onehot beyond tolerance")
         rep = compare_decisions(gdet, odet, outs["onehot"].node_cls.cpu().numpy()[: fr.n],
                                 outs["onehot"].obj_cls.cpu().numpy(), det["csr"].eps)
+        eager_diff = max(eager_diff, captured_vs_eager(torch, det["csr"], graph_np, gdet,
+                                                       f"[deploy-csr] frame {i}"))
         log(f"[deploy-csr] frame {i}: n={fr.n} edges={fr.senders.shape[0]} "
             f"clusters={gdet.num_clusters} csr vs onehot {json.dumps(rep)}")
     log(f"[deploy-csr] csr vs onehot max abs err: {json.dumps(worst)} "
         f"(rtol={DEPLOY_RTOL}, atol={DEPLOY_ATOL})")
+    log(f"[deploy-csr] the captured CSR detector against the eager CSR deploy on the card, "
+        f"every frame: decisions bit for bit; outputs max abs diff {eager_diff!r} "
+        f"({'bitwise' if eager_diff == 0 else 'not bitwise'})")
+    log_captured_forward(torch, "[deploy-csr]", det["csr"], graph_np,
+                         RadarGraph.from_numpy(graph_np, "cuda"), rounds)
     return launches
 
 
@@ -2485,14 +2585,16 @@ def phase_bench(torch):
     t0 = time.perf_counter()
     res = PB.run("cuda", warmup=1, steps=1)
     rows = dict(res["train_b8"]["rows"], stress_dense=res["stress_dense"],
-                deploy=res["deploy"], detect=res["deploy"]["detect"])
+                deploy=res["deploy"], deploy_eager=res["deploy"]["eager"],
+                detect=res["deploy"]["detect"])
     log(f"[bench] scripts/bench.run(warmup=1, steps=1) in {time.perf_counter() - t0:.1f} s: "
         f"{json.dumps(res)}")
     for name, row in rows.items():
         log(f"[bench] {name}: host ms median {row['host_ms']:.3f} (min {row['host_ms_min']:.3f}, "
             f"max {row['host_ms_max']:.3f}), event ms {row['event_ms']:.3f}, device busy "
             f"{row['device_busy_ms']:.3f} ms, idle {row['device_idle_share']:.3f}, "
-            f"{row['device_kernels']} kernels, mfu {row.get('mfu')}")
+            f"{row['device_kernels']} kernels and {row['host_launches']} host launches a call, "
+            f"mfu {row.get('mfu')}")
         if not (np.isfinite(row["host_ms"]) and row["host_ms"] > 0 and row["device_kernels"] > 0):
             raise AssertionError(f"[bench] {name}: no time or no kernel on the card")
     if any(r["skipped"] for r in res["train_b8"]["rows"].values()):
@@ -2765,66 +2867,129 @@ def phase_variants(torch, FM):
     return result
 
 
+def finetune_loop_loss(torch, FT, model, cfg, batch):
+    """The finetuning loss by the reference's loop: one deploy a graph, the
+    graphs' sums added in graph order, then divided (a 0-d tensor)."""
+    from graph_neural_network_for_radar_perception_torch.train.loss import cross_entropy, one_hot
+
+    total = count = 0.0
+    for b in range(batch.batch_size):
+        g, lbl = batch.graph.at(b), batch.labels.at(b)
+        out = model.deploy(g, eps=cfg.clustering_eps)
+        n = g.num_nodes
+        gt = FT.majority_vote_labels(lbl.node_class, out.node2cluster, g.node_mask, n,
+                                     cfg.num_classes)
+        cm = (torch.arange(n, device=gt.device) < out.num_clusters).float()
+        total = total + (cross_entropy(out.obj_cls, one_hot(gt, cfg.num_classes)) * cm).sum()
+        count = count + cm.sum()
+    return total / torch.clamp(count, min=1.0)
+
+
 def phase_finetune(torch, FM):
     """Phase 19: object-head finetuning (``train/finetune.py``) at
-    GNNConfig() full width, batch 8, 3 steps on synthetic frames: the
-    frozen detector's deploy forward (DBSCAN at clustering_eps) on every
-    graph through the fused forward kernel and never its backward;
-    everything outside predict_class bitwise unchanged; each step replayed
-    on the CPU from the card's state before it, with the card's DBSCAN
-    partition (itself held to the CPU's under the [deploy] rule), within
-    the train_bucketed replay's tolerance."""
+    GNNConfig() full width, batch 8, 3 steps on synthetic frames, each a
+    replay of one captured CUDA graph: one deploy forward for the batch
+    (DBSCAN at clustering_eps; the forward kernel once a round, never its
+    backward); everything outside predict_class bitwise unchanged; each
+    step against the same body run eagerly on the card from the same state
+    (metrics and the head within FINETUNE_RTOL/ATOL) and its loss and the
+    head's gradient against the reference's loop of one deploy a graph
+    (the per-graph step's); each step replayed on the
+    CPU from the card's state before it, with the card's DBSCAN partitions
+    (themselves held to the CPU's under the [deploy] rule), within the
+    train_bucketed replay's tolerance."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
     from graph_neural_network_for_radar_perception_torch.models import gnn as GN
+    from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.train import finetune as FT
-    from graph_neural_network_for_radar_perception_torch.train.steps import TrainState
+    from graph_neural_network_for_radar_perception_torch.train.steps import (
+        CapturedStep, TrainState, batch_on, batched_deploy)
 
     cfg = GNNConfig()
     rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
     gen = SyntheticRadarDataset(cfg, seed=13, num_objects=(6, 10)).batches(bsz)
     batches = [next(gen) for _ in range(FINETUNE_STEPS)]
-    build, _ = FT.make_finetune_step(cfg)
-    model = GN.RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).to("cuda")
-    step, opt = build(model)
-    state = TrainState(model, opt)
+    build, loss_fn = FT.make_finetune_step(cfg)
+    states, steps = [], []
+    for _ in range(2):  # the captured step's, and the eager body's
+        m = GN.RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).to("cuda")
+        st, o = build(m)
+        steps.append(st)
+        states.append(TrainState(m, o))
+    (state, eager), (step, eager_step) = states, steps
+    model, opt = state.model, state.optimizer
     frozen = {k: v.clone() for k, v in model.state_dict().items()
               if not k.startswith(FT.TRAINED + ".")}
 
-    real_dbscan, partitions = GN.dbscan_on_device, []
-
-    def recording_dbscan(centers, mask, eps, **kw):
-        ids, num = real_dbscan(centers, mask, eps, **kw)
-        partitions.append((ids.cpu(), num.cpu(), centers.cpu(), mask.cpu()))
-        return ids, num
-
-    records, step_ms = [], []
+    records, step_ms, eager_err, loop_err, grad_err = [], [], 0.0, 0.0, 0.0
     FM.fused_message_pass.launches = 0
     FM.fused_message_pass_backward.launches = 0
-    GN.dbscan_on_device = recording_dbscan
-    try:
-        for batch in batches:
-            before = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
-                      copy.deepcopy(opt.state_dict()), state.step, state.updates)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            records.append((batch, before, {k: float(v) for k, v in m.items()},
-                            {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
-                            partitions[-bsz:]))
-    finally:
-        GN.dbscan_on_device = real_dbscan
+    for batch in batches:
+        before = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                  copy.deepcopy(opt.state_dict()), state.step, state.updates)
+        saved = _counts(FM, C)  # comparisons: not the main path's launches
+        tb = batch_on(batch, "cuda")
+        with torch.no_grad():
+            out = batched_deploy(model, cfg)(tb.graph)
+            parts = (out.node2cluster.cpu(), out.num_clusters.cpu())
+        # The per-graph step's loss and head gradient against the batched
+        # step's, eagerly, at the state before the step.
+        head = list(getattr(model, FT.TRAINED).parameters())
+        loop = finetune_loop_loss(torch, FT, model, cfg, tb)
+        g_loop = torch.autograd.grad(loop, head)
+        g_batch = torch.autograd.grad(loss_fn(model, tb)[0], head)
+        for a, b in zip(g_loop, g_batch):
+            err = (a - b).abs()
+            grad_err = max(grad_err, float(err.max()))
+            if (err > FINETUNE_ATOL + FINETUNE_RTOL * b.abs()).any():
+                raise AssertionError("[finetune] the head's gradient differs from the per-graph "
+                                     "loop's beyond tolerance")
+        loop = float(loop.detach())
+        _restore_counts(FM, C, saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        saved = _counts(FM, C)
+        em = eager_step.captured.body(eager, batch_on(batch, "cuda"))
+        _restore_counts(FM, C, saved)
+        m = {k: float(v) for k, v in m.items()}
+        for k, v in em.items():
+            eager_err = max(eager_err, abs(m[k] - float(v)))
+            if abs(m[k] - float(v)) > FINETUNE_ATOL + FINETUNE_RTOL * abs(float(v)):
+                raise AssertionError(f"[finetune] {k}: captured {m[k]} eager {float(v)}")
+        want = eager.model.state_dict()
+        for k, v in model.state_dict().items():
+            if k.startswith(FT.TRAINED + "."):
+                err = (v - want[k]).abs()
+                eager_err = max(eager_err, float(err.max()))
+                if (err > FINETUNE_ATOL + FINETUNE_RTOL * want[k].abs()).any():
+                    raise AssertionError(f"[finetune] {k}: captured vs eager beyond tolerance")
+        loop_err = max(loop_err, abs(m["loss_obj_cls"] - loop))
+        if abs(m["loss_obj_cls"] - loop) > FINETUNE_ATOL + FINETUNE_RTOL * abs(loop):
+            raise AssertionError(f"[finetune] the batched loss {m['loss_obj_cls']} is not the "
+                                 f"per-graph loop's {loop}")
+        records.append((batch, before, m,
+                        {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                        parts))
     fwd, bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
-    want = rounds * bsz * FINETUNE_STEPS
+    cap = step.captured
+    want = rounds * (cap.replays + cap.warmups)
     changed = [k for k, v in model.state_dict().items()
                if k in frozen and not torch.equal(v, frozen[k])]
     log(f"[finetune] make_finetune_step(GNNConfig()) batch {bsz}, {FINETUNE_STEPS} steps on the "
-        f"card: fused_message_pass launches={fwd} (expected {want}), backward={bwd} (expected 0: "
-        f"the trunk is frozen); metrics {json.dumps([r[2] for r in records])}; ms/step "
-        f"{[round(t, 3) for t in step_ms]}; params outside predict_class changed: {changed}")
-    if fwd != want or bwd or changed or any(r[2]["skipped"] for r in records):
+        f"card, one captured CUDA graph ({len(cap.graphs)} capture, {cap.replays} replays, "
+        f"{cap.warmups} warm-up runs): fused_message_pass launches={fwd} (expected {rounds} x "
+        f"({cap.replays} + {cap.warmups}) = {want}: one a round for the batch), backward={bwd} "
+        f"(expected 0: the trunk is frozen); metrics {json.dumps([r[2] for r in records])}; "
+        f"ms/step {[round(t, 3) for t in step_ms]}; params outside predict_class changed: "
+        f"{changed}; captured vs the eager batched step on the card: max abs err {eager_err:.3e} "
+        f"(rtol={FINETUNE_RTOL}, atol={FINETUNE_ATOL}); vs the per-graph loop (one deploy a "
+        f"graph): loss {loop_err:.3e}, the head's gradient {grad_err:.3e}")
+    if (fwd != want or bwd or changed or any(r[2]["skipped"] for r in records)
+            or cap.replays != FINETUNE_STEPS or cap.warmups != CapturedStep.WARMUP_RUNS):
         raise AssertionError("[finetune] the kernels ran other than expected, a step was "
                              "skipped, or a frozen parameter moved")
     if not any(not torch.equal(records[-1][3][k], records[0][1][0][k]) for k in records[0][3]
@@ -2832,20 +2997,22 @@ def phase_finetune(torch, FM):
         raise AssertionError("[finetune] predict_class did not move")
 
     t0 = time.perf_counter()
-    m_err, p_err, borderline = 0.0, 0.0, 0
+    m_err, p_err = 0.0, 0.0
+    real_dbscan = GN.dbscan_on_device
     cpu_model = GN.RadarGNN(cfg)
     cpu_step, cpu_opt = build(cpu_model)
     for i, (batch, (params, optim, step_no, updates), card_m, card_p, parts) in enumerate(records):
         cpu_model.load_state_dict(params)
         cpu_opt.load_state_dict(optim)
         cpu = TrainState(cpu_model, cpu_opt, step_no, updates)
-        queue = list(parts)
 
         def card_partition(centers, mask, eps, **kw):
-            ids, num, card_centers, card_mask = queue.pop(0)
+            ids, num = parts
             own, _ = real_dbscan(centers, mask, eps, **kw)
-            n = int(mask.sum())
-            check_partition(ids.numpy()[:n], own.numpy()[:n], centers.numpy()[:n], eps)
+            for b in range(centers.shape[0]):
+                n = int(mask[b].sum())
+                check_partition(ids[b].numpy()[:n], own[b].numpy()[:n], centers[b].numpy()[:n],
+                                eps)
             return ids, num
 
         GN.dbscan_on_device = card_partition
@@ -3163,8 +3330,11 @@ def phase_parallel(torch, FM):
             f"{time.perf_counter() - t0:.1f} s from start to the last rank's exit")
         for name, kind, n_data, n_graph, mp_impl in grid:
             res = [r[name] for r in ranks]
-            # every rank runs each round once per graph of its rows
-            want = 0 if kind == "halo" else rounds * PARALLEL_BATCH // n_data * PARALLEL_STEPS
+            # every rank runs each round once a step for the graphs of its rows
+            want = 0 if kind == "halo" else rounds * PARALLEL_STEPS
+            # all-reduces a step: the rounds' psums forward and backward, the
+            # LossSums and the flat gradient (data parallel: the last two)
+            calls = {"dp": 2, "edge": 2 * rounds + 2}.get(kind)
             kernels = ("csr_mp_forward", "csr_mp_backward") if mp_impl == "csr" else (
                 "fused_mp_forward", "fused_mp_backward")
             for r, x in enumerate(res):
@@ -3174,6 +3344,10 @@ def phase_parallel(torch, FM):
                                          f"expected {want} of {kernels} and no other")
                 for k in totals:
                     totals[k] += got[k]
+                if calls is not None and any(rec["all_reduces"] != calls for rec in x["records"]):
+                    raise AssertionError(f"[parallel] {name} rank {r}: all-reduces a step "
+                                         f"{[rec['all_reduces'] for rec in x['records']]}, "
+                                         f"expected {calls}")
                 for i, rec in enumerate(x["records"]):
                     first = res[0]["records"][i]
                     if rec["metrics"] != first["metrics"] or any(
@@ -3218,7 +3392,11 @@ def phase_parallel(torch, FM):
                         for rec in x["records"]] for x in res]
             log(f"[parallel] {name} ({n_data} x {n_graph}, {backend}"
                 f"{', ' + mp_impl if mp_impl else ''}): launches per rank "
-                f"{json.dumps([x['launches'] for x in res])}; ranks' params bitwise equal "
+                f"{json.dumps([x['launches'] for x in res])} (expected {want} of each round "
+                f"kernel: {'the halo round is plain' if kind == 'halo' else 'one a round a step'} "
+                f"for the rank's {PARALLEL_BATCH // n_data} graphs); "
+                f"all-reduces a step {'(expected ' + str(calls) + ') ' if calls else ''}"
+                f"and the host ms blocked in them below; ranks' params bitwise equal "
                 f"after every step; vs the single-process step (ms/step "
                 f"{[round(t, 3) for t in ref_ms[name]]}): metrics max abs err {m_err:.3e}, "
                 f"params {p_err:.3e} (rtol={PARALLEL_RTOL}, atol={PARALLEL_ATOL}); step 1 vs "
@@ -3283,6 +3461,11 @@ def phase_examples(torch, FM):
         (its warm-up runs and a replay a step), whatever the batch."""
         return rounds * (steps + S.CapturedStep.WARMUP_RUNS)
 
+    def detected(frames):
+        """Round launches of ``frames`` frames through one captured detector
+        (its capture's warm-up runs and a replay a frame)."""
+        return rounds * (frames + S.CapturedGraphs.WARMUP_RUNS)
+
     def run(label, call, fwd, bwd):
         """``call()`` on the card with stdout to stderr; ``fwd``/``bwd``:
         the launches expected (an int) or a predicate of the count."""
@@ -3333,7 +3516,7 @@ def phase_examples(torch, FM):
 
         viz = entry("examples.visualize")
         run("visualize (detect)", lambda: viz.detect(viz.parse_args(
-            ["--frames", str(EXAMPLE_FRAMES)] + cuda)), rounds * EXAMPLE_FRAMES, 0)
+            ["--frames", str(EXAMPLE_FRAMES)] + cuda)), detected(EXAMPLE_FRAMES), 0)
 
         over = entry("examples.overfit_gnn")
         steps = run("overfit_gnn", lambda: over.main(["--steps", str(EXAMPLE_STEPS)] + cuda),
@@ -3376,7 +3559,7 @@ def phase_examples(torch, FM):
         ft = entry("examples.finetune_obj_classifier")
         run("finetune_obj_classifier", lambda: ft.main(
             ["--iters", str(EXAMPLE_STEPS), "--batch-size", "4"] + cuda),
-            rounds * 4 * EXAMPLE_STEPS, 0)
+            trained(EXAMPLE_STEPS), 0)
 
         tc = entry("examples.train_classifier")
         run("train_classifier --use-detector-proposals", lambda: tc.main(
@@ -3403,8 +3586,9 @@ def phase_examples(torch, FM):
                     lambda n: n > 0 and n % rounds == 0, 0)
         log(f"[examples] check_decision_equivalence: {n_cmp} frames, every decision of the "
             f"card equal to the CPU's")
-        if results["check_decision_equivalence (card, then CPU)"]["fwd"] != rounds * n_cmp:
-            raise AssertionError("[examples] check_decision_equivalence: launches != 7 a frame")
+        if results["check_decision_equivalence (card, then CPU)"]["fwd"] != detected(n_cmp):
+            raise AssertionError("[examples] check_decision_equivalence: launches != 7 a frame "
+                                 "and 7 a warm-up run of the detector's capture")
 
         fix = entry("scripts.train_fixture_artifact")
         run("train_fixture_artifact", lambda: fix.main(
@@ -3450,6 +3634,12 @@ def phase_training(torch, FM, C) -> dict:
             "train-bf16": bf16}
 
 
+def phase_serving(torch, FM, C) -> dict:
+    """``--phase deploy``: the captured detector with each message pass,
+    [deploy] and [deploy-csr]."""
+    return {"deploy": phase_deploy(torch, FM), "deploy-csr": phase_deploy_csr(torch, FM, C)}
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3482,7 +3672,8 @@ def main(argv) -> int:
               "cnn": (phase_cnn, "fused_mp"),
               "parallel": (phase_parallel, "fused_mp", "csr_mp"),
               "examples": (phase_examples, "fused_mp"),
-              "train": (lambda torch, _: phase_training(torch, FM, C), "fused_mp", "csr_mp")}
+              "train": (lambda torch, _: phase_training(torch, FM, C), "fused_mp", "csr_mp"),
+              "deploy": (lambda torch, _: phase_serving(torch, FM, C), "fused_mp", "csr_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
         print(f"usage: chip_smoke.py [--phase {'|'.join(phases)}]", file=sys.stderr)
         return 2

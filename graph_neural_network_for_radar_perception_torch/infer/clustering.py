@@ -20,31 +20,41 @@ import math
 import numpy as np
 import torch
 
+from ..ops import segment as S
+
 _BIG = (2**31 - 1) // 2
 
 
 def adjacency_from_centers(centers, mask, eps: float):
     """[N, 2] predicted centers → boolean adjacency: d² <= eps (sic),
-    diagonal cleared (clustering.py:31-40)."""
-    diff = centers[:, None, :] - centers[None, :, :]
+    diagonal cleared (clustering.py:31-40).  A batch: [B, N, 2] → [B, N, N]."""
+    diff = centers[..., :, None, :] - centers[..., None, :, :]
     d2 = (diff * diff).sum(-1)
     adj = d2 <= eps
-    eye = torch.eye(centers.shape[0], dtype=torch.bool, device=centers.device)
-    return adj & ~eye & (mask[:, None] & mask[None, :])
+    eye = torch.eye(centers.shape[-2], dtype=torch.bool, device=centers.device)
+    return adj & ~eye & (mask[..., :, None] & mask[..., None, :])
 
 
 def adjacency_from_links(und_senders, und_receivers, und_mask, pred_edges,
                          centers, mask, eps: float):
     """Adjacency from predicted links, dropping edges whose endpoint
-    distance >= eps (clustering.py:8-23; true L2 here, not squared)."""
-    n = centers.shape[0]
+    distance >= eps (clustering.py:8-23; true L2 here, not squared).  A
+    batch: every argument with a leading graph axis → [B, N, N]."""
+    n = centers.shape[-2]
     us, ur = und_senders.long(), und_receivers.long()
-    dist = torch.sqrt(((centers[us] - centers[ur]) ** 2).sum(-1))
+    cs, cr = S.gather_nodes(centers, us), S.gather_nodes(centers, ur)
+    dist = torch.sqrt(((cs - cr) ** 2).sum(-1))
     keep = (und_mask & (pred_edges == 1) & (dist < eps)).int()
-    adj = torch.zeros(n, n, dtype=torch.int32, device=centers.device)
-    adj.index_put_((us, ur), keep, accumulate=True)
-    adj.index_put_((ur, us), keep, accumulate=True)
-    return (adj > 0) & (mask[:, None] & mask[None, :])
+    # Each graph's [N, N] block of one flat count table: an index_add_ of
+    # the kept links both ways (no host sync, so a capture can hold it).
+    base = 0 if us.ndim == 1 else (
+        torch.arange(us.shape[0], device=us.device)[:, None] * (n * n))
+    counts = torch.zeros(us.shape[:-1] + (n * n,), dtype=torch.int32,
+                         device=centers.device).reshape(-1)
+    for a, b in ((us, ur), (ur, us)):
+        counts.index_add_(0, (base + a * n + b).reshape(-1), keep.reshape(-1))
+    adj = counts.reshape(us.shape[:-1] + (n, n)) > 0
+    return adj & (mask[..., :, None] & mask[..., None, :])
 
 
 def connected_components(adj, mask):
@@ -52,34 +62,39 @@ def connected_components(adj, mask):
 
     ``reach ← reach² > 0`` doubles the covered path length every round, so
     ⌈log2 N⌉ rounds give the full closure for any topology.  Each round is
-    one [N, N] × [N, N] f32 matrix product, exact: entries are 0/1 and row
-    sums ≤ N < 2²⁴.
+    one [N, N] × [N, N] f32 matrix product (a batched one for a batch),
+    exact: entries are 0/1 and row sums ≤ N < 2²⁴.  The trip count is
+    fixed and nothing is read on the host.
 
     Returns:
       node2cluster: [N] int32 — compacted cluster id per valid node (ids
                     ordered like the reference BFS); invalid nodes get N.
       num_clusters: int32 scalar.
+    A batch (adj [B, N, N], mask [B, N]) gives [B, N] and [B], each graph's
+    bit for bit as its own call's.
     """
-    n = adj.shape[0]
+    n = adj.shape[-1]
     idx = torch.arange(n, dtype=torch.int64, device=adj.device)
     reach = adj | torch.eye(n, dtype=torch.bool, device=adj.device)
     for _ in range(math.ceil(math.log2(max(n, 2)))):
         r = reach.float()
         reach = (r @ r) > 0
     big = torch.full_like(idx, _BIG)
-    labels = torch.where(reach & mask[None, :], idx[None, :], big[None, :])
+    labels = torch.where(reach & mask[..., None, :], idx, big)
     labels = torch.where(mask, labels.min(-1).values, big)
     is_root = mask & (labels == idx)
-    rank = torch.cumsum(is_root.int(), 0) - 1  # id at each root index
+    rank = torch.cumsum(is_root.int(), -1) - 1  # id at each root index
     safe = labels.clamp(0, n - 1)
-    node2cluster = torch.where(mask, rank[safe], torch.full_like(rank, n))
-    return node2cluster.int(), is_root.sum().int()
+    node2cluster = torch.where(mask, rank.gather(-1, safe), torch.full_like(rank, n))
+    return node2cluster.int(), is_root.sum(-1).int()
 
 
 def dbscan_on_device(centers, mask, eps: float, *, from_links: bool = False,
                      und_senders=None, und_receivers=None, und_mask=None,
                      pred_edges=None):
-    """Simple_DBSCAN.cluster_nodes equivalent on the tensors' device."""
+    """Simple_DBSCAN.cluster_nodes equivalent on the tensors' device, for
+    one graph or a batch with a leading graph axis (the JAX package's
+    ``jax.vmap`` of it)."""
     if from_links:
         adj = adjacency_from_links(und_senders, und_receivers, und_mask,
                                    pred_edges, centers, mask, eps)

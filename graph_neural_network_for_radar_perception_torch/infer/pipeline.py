@@ -2,10 +2,10 @@
 
 The JAX package's ``infer/pipeline.py`` (the reference's
 modules/inference/output.py:26-363): one deploy forward per padded frame
-(DBSCAN on the device), decoded to numpy detections with per-cluster
-statistics, object classes from the object head or by segmentation-majority
-vote (output.py:112-121), and the FALSE class filtered from the final
-detections (output.py:123-128).
+(DBSCAN on the device; on the card one CUDA graph, replayed), decoded to
+numpy detections with per-cluster statistics, object classes from the
+object head or by segmentation-majority vote (output.py:112-121), and the
+FALSE class filtered from the final detections (output.py:123-128).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..core.graph import RadarGraph, resolve_device
 from ..data.labels import ID_FALSE
 from ..data.pipeline import FrameArrays, pad_frame, preprocess_frame
 from ..models.gnn import RadarGNN
+from ..train.steps import CapturedGraphs, shape_key
 from .proposals import compute_proposals
 
 
@@ -62,7 +63,16 @@ class FrameDetector:
     ``state_dict`` holds the weights of a ``RadarGNN(cfg)`` (see
     ``utils.convert.state_dict_from_flax`` for weights trained by the JAX
     package).  The model runs on the card unless ``device="cpu"`` is
-    passed."""
+    passed.
+
+    On the card ``RadarGNN.deploy`` and the softmax run as one CUDA graph
+    per (frame shapes, eps, from_links, mp_impl) — the JAX package jits
+    them into one program (``_run``): each frame's padded arrays are copied
+    into the graph's static ``RadarGraph`` buffers and the graph replayed
+    (``train/steps.CapturedGraphs``: two warm-up runs, the second under
+    sync debug "error", then the capture; a failed capture raises).  The
+    decode and ``compute_proposals`` run after it, as JAX runs them
+    outside its jit.  On the CPU the forward runs eagerly."""
 
     def __init__(
         self,
@@ -82,14 +92,32 @@ class FrameDetector:
         model = RadarGNN(cfg)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
+        self.captured = CapturedGraphs()
+
+    def _run(self, graph: RadarGraph):
+        """(DeployOutputs, node class probabilities, graph) of one padded
+        graph on the detector's device."""
+        with torch.no_grad():
+            out = self.model.deploy(graph, eps=self.eps, from_links=self.from_links)
+            return out, torch.softmax(out.node_cls, dim=-1), graph
+
+    def forward(self, graph_np: RadarGraph):
+        """(DeployOutputs, node class probabilities, graph) of a padded
+        numpy graph (``pad_frame``'s): on the card its arrays copied into
+        the captured graph's buffers and one replay, whose outputs the next
+        replay overwrites; on the CPU the eager forward."""
+        if self.device.type == "cpu":
+            return self._run(RadarGraph.from_numpy(graph_np, self.device))
+        leaves = [getattr(graph_np, f) for f in RadarGraph.__dataclass_fields__]
+        key = (shape_key(leaves), self.eps, self.from_links, self.cfg.mp_impl)
+        return self.captured.run(key, leaves, lambda inputs: self._run(RadarGraph(*inputs)),
+                                 self.device, keep=self.model, label="detect.replay")
 
     def detect_frame_arrays(self, fr: FrameArrays) -> FrameDetections:
         graph_np, _ = pad_frame(fr, self.cfg)
-        graph = RadarGraph.from_numpy(graph_np, self.device)
-        with torch.no_grad():
-            out = self.model.deploy(graph, eps=self.eps,
-                                    from_links=self.from_links)
-            node_prob = torch.softmax(out.node_cls, dim=-1)
+        # On the card: the graph's outputs, overwritten by the next replay,
+        # are read below before it.
+        out, node_prob, graph = self.forward(graph_np)
 
         n = min(fr.n, self.cfg.max_nodes)  # pad_frame truncates oversize
         node_prob = node_prob[:n].cpu().numpy()

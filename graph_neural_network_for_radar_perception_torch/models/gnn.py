@@ -2,10 +2,10 @@
 
 The JAX package's ``models/gnn.py`` (the reference's
 modules/neural_net/gnn/gnn_detector.py:31-201): encoders → message-passing
-stack → four task heads, over ONE padded graph or, for ``forward``, a
-batch of them with a leading graph axis (every field of the RadarGraph and
-the labels [B, ...]): one call for the batch where the JAX package vmaps
-the one-graph model (train/steps.batched_forward), each message round one
+stack → four task heads, over ONE padded graph or a batch of them with a
+leading graph axis (every field of the RadarGraph and the labels [B, ...]):
+one call for the batch where the JAX package vmaps the one-graph model
+(train/steps.batched_forward, batched_deploy), each message round one
 kernel launch for all B graphs, layer/group norm statistics per graph.
 
 * ``forward`` — training path: cluster membership is ground truth.
@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from ..config.config import GNNConfig
-from ..core.graph import RadarGraph
+from ..core.graph import RadarGraph, device_constant
 from ..infer.clustering import dbscan_on_device
 from ..ops.csr_mp import reverse_edge_features
 from .blocks import (
@@ -58,7 +58,7 @@ class GNNOutputs(NamedTuple):  # a batch's: [B, ...]
     node_embed: torch.Tensor    # [N, D] final node embeddings
 
 
-class DeployOutputs(NamedTuple):
+class DeployOutputs(NamedTuple):  # a batch's: [B, ...]
     node_cls: torch.Tensor
     node_offsets: torch.Tensor
     edge_cls: torch.Tensor
@@ -71,10 +71,10 @@ class DeployOutputs(NamedTuple):
 def decode_cluster_centers(node_offsets, other_feat, cfg: GNNConfig):
     """Predicted centers = measurement xy + unnormalised offsets
     (gnn_detector.py:166-168)."""
-    sigma = torch.tensor(cfg.reg_sigma, dtype=node_offsets.dtype,
-                         device=node_offsets.device)
-    mu = torch.tensor(cfg.reg_mu, dtype=node_offsets.dtype,
-                      device=node_offsets.device)
+    sigma = device_constant(tuple(cfg.reg_sigma), node_offsets.dtype,
+                            node_offsets.device)
+    mu = device_constant(tuple(cfg.reg_mu), node_offsets.dtype,
+                         node_offsets.device)
     return other_feat[..., :2] + node_offsets * sigma + mu
 
 
@@ -174,7 +174,10 @@ class RadarGNN(nn.Module):
                extra_features=None) -> DeployOutputs:
         """Deployment forward with on-device DBSCAN proposals
         (gnn_detector.py:141-195, extract_proposals path; default eps=1.4
-        per Model_Inference.__init__)."""
+        per Model_Inference.__init__).  One graph, or a batch with a
+        leading graph axis (``train/steps.batched_deploy``): every output
+        then leads with it, ``num_clusters`` [B].  Nothing is read on the
+        host, so a CUDA graph can hold the whole forward."""
         nm = graph.node_mask
         n = graph.num_nodes
         x = self.trunk(graph, mp_impl, extra_features=extra_features)
@@ -183,9 +186,9 @@ class RadarGNN(nn.Module):
             x, graph.und_senders, graph.und_receivers, nm, graph.und_mask)
         zero = torch.zeros((), dtype=node_off.dtype, device=node_off.device)
         centers = decode_cluster_centers(
-            torch.where(nm[:, None], node_off, zero), graph.other_feat, self.cfg)
+            torch.where(nm[..., None], node_off, zero), graph.other_feat, self.cfg)
         # detach mirrors the reference's clone().detach() (gnn_detector.py:166)
-        centers_sg = torch.where(nm[:, None], centers, zero).detach()
+        centers_sg = torch.where(nm[..., None], centers, zero).detach()
         if from_links:
             node2cluster, num_clusters = dbscan_on_device(
                 centers_sg, nm, eps, from_links=True,
@@ -196,7 +199,7 @@ class RadarGNN(nn.Module):
             )
         else:
             node2cluster, num_clusters = dbscan_on_device(centers_sg, nm, eps)
-        cluster_mask = torch.arange(n, device=nm.device) < num_clusters
+        cluster_mask = torch.arange(n, device=nm.device) < num_clusters[..., None]
         obj_cls = self.predict_class(x, node2cluster, n, nm, cluster_mask)
         return DeployOutputs(
             node_cls=node_cls,

@@ -16,8 +16,10 @@ The JAX package's ``parallel/halo.py`` over a grid of processes.  Where
 Per message round each member then exchanges its first/last ``halo`` rows
 with its two neighbours (``collectives.ppermute``), gathers sources from
 ``[halo ‖ owned ‖ halo]``, runs the message MLP on its edges, sums into its
-owned rows, and runs the update MLP on them only.  The heads run on one
-all-gathered ``[N, D]``; the loss counts on graph member 0 only, so the
+owned rows, and runs the update MLP on them only.  A rank's graphs go
+through as one batch (a leading graph axis, the JAX step's ``jax.vmap``):
+two ppermutes a round for the batch.  The heads run on one all-gathered
+``[B, N, D]``; the loss counts on graph member 0 only, so the
 cotangents through the gather are counted once.  Every operation is local
 or a linear collective with an exact transpose, so the gradients equal
 the single-device step's.
@@ -180,15 +182,16 @@ def halo_width(batch: GraphBatch, n_shards: int) -> int:
 
 
 def _halo_exchange(x_local: torch.Tensor, halo: int, group) -> torch.Tensor:
-    """[nl, D] → [nl + 2·halo, D]: owned rows flanked by `halo` boundary
-    rows from each side's neighbours.
+    """[nl, D] → [nl + 2·halo, D] (a batch: [B, nl, D] → [B, nl + 2·halo,
+    D], the same ppermutes for every graph): owned rows flanked by `halo`
+    boundary rows from each side's neighbours.
 
     When halo exceeds the shard width nl, ⌈halo/nl⌉ hops pull whole
     blocks from farther members (comm stays ∝ halo).  Ends of the chain
     receive zeros (ppermute semantics), which build_halo_shards
     guarantees are never gathered."""
     g = dist.get_world_size(group)
-    nl = x_local.shape[0]
+    nl = x_local.shape[-2]
     hops = -(-halo // nl)
     left, right = [], []
     for hop in range(1, hops + 1):
@@ -196,27 +199,30 @@ def _halo_exchange(x_local: torch.Tensor, halo: int, group) -> torch.Tensor:
         bwd = [(i + hop, i) for i in range(g - hop)]
         left.insert(0, P.ppermute(x_local, fwd, group))
         right.append(P.ppermute(x_local, bwd, group))
-    from_left = torch.cat(left, dim=0)[-halo:]
-    from_right = torch.cat(right, dim=0)[:halo]
-    return torch.cat([from_left, x_local, from_right], dim=0)
+    from_left = torch.cat(left, dim=-2)[..., -halo:, :]
+    from_right = torch.cat(right, dim=-2)[..., :halo, :]
+    return torch.cat([from_left, x_local, from_right], dim=-2)
 
 
 def halo_forward(model, graph, shard: HaloShards, node2cluster,
                  num_clusters: int, cluster_mask, *, halo: int,
                  group) -> GNNOutputs:
-    """Owner-computes forward of ``model`` (a ``RadarGNN``) for ONE graph
-    on graph member ``dist.get_rank(group)``.
+    """Owner-computes forward of ``model`` (a ``RadarGNN``) on graph member
+    ``dist.get_rank(group)``, for ONE graph or a batch with a leading
+    graph axis (the JAX step's ``jax.vmap`` of it): every collective then
+    moves the batch at once — two ppermutes a round, one all_gather.
 
     ``graph`` arrives whole on every member; ``shard`` holds only this
-    member's owner-assigned edges ([Ec] shapes).  Returns GNNOutputs built
-    from the all-gathered node embeddings (identical on every member)."""
+    member's owner-assigned edges ([Ec] shapes; [B, Ec] for a batch).
+    Returns GNNOutputs built from the all-gathered node embeddings
+    (identical on every member)."""
     g_idx = dist.get_rank(group)
     nl = graph.num_nodes // dist.get_world_size(group)
     lo = g_idx * nl
 
     # Encode only the owned node rows.
-    x = model.encode_node_feat(graph.node_feat[lo:lo + nl])
-    mask = shard.mask[:, None]
+    x = model.encode_node_feat(graph.node_feat.narrow(-2, lo, nl))
+    mask = shard.mask[..., None]
     e = model.encode_edge_feat(shard.edge_feat)
     e = torch.where(mask, e, torch.zeros_like(e))
 
@@ -237,8 +243,8 @@ def halo_forward(model, graph, shard: HaloShards, node2cluster,
 
     # One gather for the (cheap) heads; member 0's loss copy is the one
     # that counts (make_halo_train_step masks the rest), so cotangents
-    # through this all_gather are exact.
-    x_full = P.all_gather(x, group, tiled=True)
+    # through this all_gather are exact.  [G, (B,) nl, D] → [(B,) N, D].
+    x_full = torch.movedim(P.all_gather(x, group), 0, -3).flatten(-3, -2)
 
     nm = graph.node_mask
     node_cls, node_off = model._node_heads(x_full, nm)
@@ -260,7 +266,8 @@ def make_halo_train_step(cfg: GNNConfig, mesh: ProcessMesh, halo: int) -> Callab
     The returned step takes (state, batch, shards): this rank's rows of
     'data' of the batch and its member's column of the HaloShards (build
     them with make_halo_batch on the host from spatially-sorted frames,
-    then ``member_shards``).
+    then ``member_shards``), and runs ONE ``halo_forward`` for the rows
+    (``sharded.make_grid_step``: one backward, the branchless skip).
     Every LossSums field counts on graph member 0 only: the heads run on the
     replicated all-gathered embeddings."""
     if not uses_fused_kernel(cfg.norm_layer, cfg.activation, cfg.aggregation):
@@ -271,13 +278,10 @@ def make_halo_train_step(cfg: GNNConfig, mesh: ProcessMesh, halo: int) -> Callab
         raise ValueError("the halo step needs a graph axis of 2 or more")
 
     def graph_sums(model, batch: GraphBatch, shards: HaloShards):
-        sums = []
-        for b in range(batch.batch_size):
-            graph, labels = batch.graph.at(b), batch.labels.at(b)
-            out = halo_forward(model, graph, shards.at(b), labels.node2cluster,
-                               cfg.max_clusters, labels.cluster_mask,
-                               halo=halo, group=group)
-            sums.append(graph_loss_sums(out, graph, labels, cfg))
-        return sums
+        labels = batch.labels
+        out = halo_forward(model, batch.graph, shards, labels.node2cluster,
+                           cfg.max_clusters, labels.cluster_mask,
+                           halo=halo, group=group)
+        return graph_loss_sums(out, batch.graph, labels, cfg)
 
     return make_grid_step(cfg, mesh, graph_sums, LossSums._fields)

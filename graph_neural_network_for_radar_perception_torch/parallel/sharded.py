@@ -16,37 +16,47 @@ Gradient accounting.  JAX differentiates outside shard_map, where the edge
 sums are psummed over ('data', 'graph') and the node and cluster sums over
 'data' only.  Here each rank runs its own backward, so the step is:
 
-1. the rank's per-graph ``LossSums``, those replicated across 'graph'
+1. ONE model call for the rank's graphs (``train/steps.batched_forward``
+   with the graph axis, JAX's ``jax.vmap`` inside shard_map): each round
+   one launch of its kernels for the rank's B graphs and, on an edge
+   shard, one psum of the [B, N, 64] partial aggregate (for "mean" one
+   more of the counts); then the rank's ``LossSums`` with the graph axis,
+   summed over its graphs in graph order, those replicated across 'graph'
    (node and cluster sums: every member of a data row computes them alike)
    multiplied by 1 on graph member 0 and by 0 elsewhere;
 2. their sum all-reduced over every rank, detached: the global sums give
    the metrics and the global counts;
-3. graph by graph, the backward of ``reduce_loss_sums(local sums, global
-   counts)``.  It is linear in the sums once the counts are fixed (they
-   are masks' sizes), so the ranks' surrogates add up to the loss; each
-   round's sum all-reduce hands every member the summed cotangent of its
-   aggregate.  One graph at a time, every rank runs its rounds'
-   collectives in one order;
+3. ONE backward of ``reduce_loss_sums(local sums, global counts)``.  It is
+   linear in the sums once the counts are fixed (they are masks' sizes),
+   so the ranks' surrogates add up to the loss; each round's psum backward
+   hands every member the summed cotangent of its aggregate.  Every rank
+   runs the same graph of operations, so autograd runs the rounds'
+   collectives in one order on every rank;
 4. every parameter gradient all-reduced over all ranks (one flat buffer),
-   then ``train/steps.py``'s update: the NaN skip decides from the reduced
-   gradients and the global loss, so every rank skips or steps together
-   and the parameters stay equal bit for bit.
+   then ``train/steps.py``'s update with its branchless NaN skip
+   (``all_finite``/``apply_if``) on the reduced gradient and the global
+   loss: every rank skips or steps together and the parameters stay equal
+   bit for bit.
+
+The step stays eager: gloo stages CUDA tensors through the host, and such
+a step cannot be captured as a CUDA graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
 from ..config.config import GNNConfig
 from ..core.graph import GraphBatch
-from ..train.loss import LossSums, reduce_loss_sums
+from ..train.loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 from ..train.steps import (
     TrainState,
     _apply_update,
+    all_finite,
     batch_on,
-    per_graph_loss_sums,
+    batched_forward,
 )
 from . import collectives as P
 from .mesh import BatchSharding, ProcessMesh
@@ -58,48 +68,40 @@ _COUNT_FIELDS = ("edge_cnt", "node_cnt", "reg_cnt", "obj_cnt")
 
 
 def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
-                   graph_sums: Callable[..., List[LossSums]],
+                   graph_sums: Callable[..., LossSums],
                    replicated: Iterable[str]) -> Callable:
     """(state, *local args) → (state, metrics) over the grid.
-    ``graph_sums(model, *local args)`` gives this rank's per-graph
-    LossSums; the fields named in ``replicated`` count on graph member 0
-    only.  Steps 1-4 of the module docstring.  ``step.loss(model, *local
-    args)`` → (loss, metrics, per-graph surrogates) is steps 1-2: the
-    global loss and metrics (detached, equal on every rank) and what step
-    3 backprops."""
+    ``graph_sums(model, *local args)`` gives this rank's LossSums with a
+    leading graph axis, from one model call for its graphs; the fields
+    named in ``replicated`` count on graph member 0 only.  Steps 1-4 of
+    the module docstring.  ``step.loss(model, *local args)`` → (loss,
+    metrics, surrogate) is steps 1-2: the global loss and metrics
+    (detached, equal on every rank) and what step 3 backprops."""
     keep = 1.0 if mesh.graph_index == 0 else 0.0
     replicated = frozenset(replicated)
 
     def loss_fn(model, *args):
-        per_graph = [LossSums(**{k: v * keep if k in replicated else v
-                                 for k, v in s._asdict().items()})
-                     for s in graph_sums(model, *args)]
-        total = P.all_reduce_(torch.stack([torch.stack(s) for s in per_graph]).sum(0).detach())
-        total = LossSums(*total)
+        local = LossSums(**{k: v * keep if k in replicated else v
+                            for k, v in tree_sum(graph_sums(model, *args))._asdict().items()})
+        total = LossSums(*P.all_reduce_(torch.stack(list(local)).detach()))
         loss, metrics = reduce_loss_sums(total, cfg)
         counts = {k: getattr(total, k) for k in _COUNT_FIELDS}
-        surrogates = [reduce_loss_sums(s._replace(**counts), cfg)[0] for s in per_graph]
-        return loss, metrics, surrogates
+        surrogate = reduce_loss_sums(local._replace(**counts), cfg)[0]
+        return loss, metrics, surrogate
 
     def train_step(state: TrainState, *args) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model = state.model
-        model.zero_grad(set_to_none=True)
-        loss, metrics, surrogates = loss_fn(model, *args)
-        for s in surrogates:
-            s.backward()
-        params = list(model.parameters())
-        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                          for p in params])
-        P.all_reduce_(flat)
-        ok = bool(torch.cat([loss.reshape(1), flat]).isfinite().all())
-        if ok:
-            grads = [g.view_as(p) for g, p in
-                     zip(flat.split([p.numel() for p in params]), params)]
-            _apply_update(state, grads, cfg)
-        model.zero_grad(set_to_none=True)
-        state.step += 1
+        params = state.optimizer.params
+        loss, metrics, surrogate = loss_fn(state.model, *args)
+        grads = torch.autograd.grad(surrogate, params, allow_unused=True)
+        with torch.no_grad():
+            flat = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                              for g, p in zip(grads, params)])
+            P.all_reduce_(flat)
+            ok = all_finite([loss, flat])
+            _apply_update(state, flat, cfg, ok)
+            state.counters[0].add_(1)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = loss.new_tensor(0.0 if ok else 1.0)
+        metrics["skipped"] = (~ok).to(torch.float32)
         return state, metrics
 
     train_step.loss = loss_fn
@@ -110,8 +112,11 @@ def _batch_step(cfg: GNNConfig, mesh: ProcessMesh, sharding: BatchSharding) -> C
     group = mesh.graph_group if sharding.edges else None
 
     def graph_sums(model, batch: GraphBatch):
-        return per_graph_loss_sums(model, batch_on(batch, mesh.device), cfg,
-                                   graph_group=group)
+        batch = batch_on(batch, mesh.device)
+        labels = batch.labels
+        out = batched_forward(model, cfg, graph_group=group)(
+            batch.graph, labels.node2cluster, labels.cluster_mask)
+        return graph_loss_sums(out, batch.graph, labels, cfg)
 
     step = make_grid_step(cfg, mesh, graph_sums,
                           [f for f in LossSums._fields if f not in _EDGE_FIELDS] if sharding.edges else ())

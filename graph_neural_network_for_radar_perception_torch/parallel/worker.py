@@ -24,8 +24,8 @@ synthetic stream: a ``torch.save``d dict whose ``"modes"`` list holds, per
 mode, ``name``, ``n_graph``, ``partition`` ("edge" | "halo"), ``cfg`` (a
 ``GNNConfig``; its ``mp_impl`` picks the round), ``weights`` (a state
 dict), ``batch`` (a numpy ``GraphBatch``, spatially sorted for "halo") and
-``steps``, and optionally ``loss_only`` (the grid's loss and metrics, no
-update) and ``profile`` (two more steps, rank 0's second under the
+``steps``, and optionally ``loss_only`` (the grid's loss and metrics and
+the all-reduce calls of that forward, no update) and ``profile`` (two more steps, rank 0's second under the
 profiler; on the card).  Each rank saves ``DIR/rank{r}.pt``: per mode the
 metrics and params after each step, its ms, its all-reduce calls and the
 host ms in them, and the hand-written kernels' launches over the mode's
@@ -136,6 +136,7 @@ def run_spec(spec: dict, device, out_dir: str) -> None:
 
     from ..train.steps import create_train_state
     from ..utils.timing import profile_run
+    from . import collectives as P
     from .distributed import assert_same_across_processes, multihost_train_setup
     from .halo import halo_width
 
@@ -151,8 +152,10 @@ def run_spec(spec: dict, device, out_dir: str) -> None:
         state.model.load_state_dict(mode["weights"])
         inputs = rank_inputs(cfg, mesh, full, halo)
         if mode.get("loss_only"):
+            calls = P.STATS["calls"]
             _, metrics, _ = step.loss(state.model, *inputs)
-            results[mode["name"]] = {"metrics": {k: float(v) for k, v in metrics.items()}}
+            results[mode["name"]] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                                     "all_reduces": P.STATS["calls"] - calls}
             continue
         counters = _launch_counters()
         for fn in counters.values():

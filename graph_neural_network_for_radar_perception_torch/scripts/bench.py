@@ -10,10 +10,13 @@
 * ``stress_dense`` (``bench.py:235-296``): radius-union graphs (~10x the
   kNN fan-out, ``edge_capacity_factor=10``) through 14 rounds of 64, an
   unpacked batch of 2;
-* ``deploy`` (``bench.py:299-369``): one frame through
-  ``RadarGNN.deploy(eps=1.4)``, and ``FrameDetector.detect`` from the raw
-  frame (host preprocessing with the native graph builder, as root
-  ``bench.py``'s detector, copy, deploy forward, decode) p50/p99.
+* ``deploy`` (``bench.py:299-369``): one padded frame through
+  ``FrameDetector.forward`` (``RadarGNN.deploy(eps=1.4)`` and the softmax;
+  on the card the arrays' copies and one replay of the captured graph),
+  the same frame through the eager ``RadarGNN.deploy`` (``eager``), and
+  ``FrameDetector.detect`` from the raw frame (host preprocessing with
+  the native graph builder, as root ``bench.py``'s detector, copy, deploy
+  forward, decode) p50/p99.
 
 The shipped widths, with random weights from a seeded ``torch.Generator``;
 the batches are root ``bench.py``'s (``host_batch``: the same numpy arrays).
@@ -22,8 +25,9 @@ frames for ``detect``), each timed by the host clock around work that ends
 in ``torch.cuda.synchronize()`` (numpy batch in) and by CUDA events;
 median and spread.  Then one call under ``torch.profiler``
 (``utils/timing.profile_run``): the card's busy share, its kernel count
-and the launches the host issued (on the card a train step is one replay
-of its captured CUDA graph, the first warm-up call its capture).
+and the launches the host issued (on the card a train step and the
+detector's forward are one replay of a captured CUDA graph each, the first
+warm-up call its capture).
 Training rows also report the analytic TFLOP/s
 (``utils/profiling.flops_per_train_step``) and MFU against the card's dense
 bf16 peak.  ``bench.py``'s two-K scan slope is not copied: it works around
@@ -143,7 +147,7 @@ def _timed(fn, device: torch.device, warmup: int, reps: int) -> dict:
         prof = profile_run(fn)
         row.update(event_ms=float(np.median(dev)), event_ms_min=float(min(dev)),
                    event_ms_max=float(max(dev)), device_kernels=prof["device_kernels"],
-                   host_launches=prof["host_launches"],
+                   host_launches=prof["host_launches"], host_copies=prof["host_copies"],
                    device_busy_ms=prof["device_busy_ms"],
                    device_idle_share=prof["device_idle_share"],
                    profiled_wall_ms=prof["wall_ms"])
@@ -206,17 +210,28 @@ def bench_stress_dense(device, warmup: int, steps: int) -> dict:
 def bench_deploy(device, warmup: int, steps: int) -> dict:
     cfg = deploy_config()
     model = RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).to(device).eval()
-    graph = RadarGraph.from_numpy(deploy_graph(cfg), device)
-    with torch.no_grad():
-        row = _timed(lambda: model.deploy(graph, eps=1.4), device, warmup, steps)
     det = FrameDetector(cfg, model.state_dict(), eps=1.4, device=device)
+    graph_np = deploy_graph(cfg)
+    # The detector's forward of a padded frame: on the card the arrays'
+    # copies and one replay of the captured deploy + softmax.
+    row = _timed(lambda: det.forward(graph_np), device, warmup, steps)
+    graph = RadarGraph.from_numpy(graph_np, device)
+    with torch.no_grad():
+        row["eager"] = _timed(lambda: model.deploy(graph, eps=1.4), device, warmup, steps)
     raw = deploy_raw_frame(cfg)
     detect = _timed(lambda: det.detect(raw), device, warmup, 5 * steps)
     row["detect"] = detect
     row["frames_per_s"] = 1e3 / row["host_ms"]
-    log(f"deploy: {row['host_ms']:.3f} ms/frame (RadarGNN.deploy, incl. on-device DBSCAN; "
-        f"idle {row.get('device_idle_share')}, kernels {row.get('device_kernels')}); "
-        f"FrameDetector.detect p50 {detect['host_ms']:.3f} p99 {detect['host_ms_p99']:.3f} ms")
+    eager = row["eager"]
+    log(f"deploy: {row['host_ms']:.3f} ms/frame (FrameDetector's deploy forward, incl. "
+        f"on-device DBSCAN; idle {row.get('device_idle_share')}, kernels "
+        f"{row.get('device_kernels')}, host launches {row.get('host_launches')} and copies "
+        f"{row.get('host_copies')} a frame); "
+        f"RadarGNN.deploy eager {eager['host_ms']:.3f} ms/frame (kernels "
+        f"{eager.get('device_kernels')}, host launches {eager.get('host_launches')}); "
+        f"FrameDetector.detect p50 {detect['host_ms']:.3f} p99 {detect['host_ms_p99']:.3f} ms "
+        f"(kernels {detect.get('device_kernels')}, host launches {detect.get('host_launches')} "
+        f"a frame)")
     return row
 
 

@@ -296,18 +296,35 @@ def batch_on(batch: GraphBatch, device) -> GraphBatch:
 
 def batched_forward(model: RadarGNN, cfg: GNNConfig,
                     mp_impl: Optional[str] = None,
-                    mp_bf16: bool = False) -> Callable:
+                    mp_bf16: bool = False, graph_group=None) -> Callable:
     """fn(graph batch, node2cluster [B, N], cluster_mask [B, C]) → GNNOutputs
     with a leading graph axis: ONE model call for the B graphs (the JAX
     package vmaps the one-graph model).  Layer/group norm statistics stay
     per graph; each message round is one kernel launch for all of them.
-    ``mp_impl``/``mp_bf16`` as in ``make_loss_fn``."""
+    ``mp_impl``/``mp_bf16`` as in ``make_loss_fn``; with a ``graph_group``
+    the edge fields are this rank's shard (``parallel/sharded.py``) and
+    each round combines the batch's partial aggregates in one collective."""
 
     def forward(graph: RadarGraph, node2cluster, cluster_mask):
         return model(graph, node2cluster, cfg.max_clusters, cluster_mask,
-                     mp_impl=mp_impl, mp_bf16=mp_bf16)
+                     mp_impl=mp_impl, mp_bf16=mp_bf16, graph_group=graph_group)
 
     return forward
+
+
+def batched_deploy(model: RadarGNN, cfg: GNNConfig, eps: Optional[float] = None,
+                   from_links: bool = False,
+                   mp_impl: Optional[str] = None) -> Callable:
+    """fn(graph batch) → DeployOutputs with a leading graph axis: ONE
+    ``RadarGNN.deploy`` call for the B graphs (the JAX package vmaps the
+    one-graph deploy), DBSCAN included; each message round one kernel
+    launch for all of them.  ``eps`` defaults to ``cfg.clustering_eps``."""
+    eps = cfg.clustering_eps if eps is None else eps
+
+    def deploy(graph: RadarGraph):
+        return model.deploy(graph, eps=eps, from_links=from_links, mp_impl=mp_impl)
+
+    return deploy
 
 
 def make_loss_fn(cfg: GNNConfig, mp_impl: Optional[str] = None,
@@ -333,7 +350,8 @@ def per_graph_loss_sums(model: RadarGNN, batch: GraphBatch, cfg: GNNConfig,
                         **model_kwargs) -> List[LossSums]:
     """One model call per graph of the batch (``model_kwargs`` passed on)
     and its ``graph_loss_sums``, in batch order: the reference's per-graph
-    loop, which the grid steps of ``parallel/`` keep."""
+    loop, the yardstick of the batched step (``chip_smoke.py``'s [train],
+    tests/test_torch_batched_step.py)."""
     sums = []
     for b in range(batch.batch_size):
         graph, labels = batch.graph.at(b), batch.labels.at(b)
@@ -446,9 +464,10 @@ _POOLS: Dict[torch.device, tuple] = {}
 
 
 def _pool(device: torch.device):
-    """The one CUDA-graph memory pool of this process's train steps on
-    ``device`` (each bucket's step included): their graphs replay one at a
-    time, so they share it.  A pool whose graphs are all gone cannot take
+    """The one CUDA-graph memory pool of this process's captured graphs on
+    ``device`` (every train step, each bucket's included, every detector's
+    deploy and finetuning's step): they replay one at a time, so they
+    share it.  A pool whose graphs are all gone cannot take
     another capture, so a graph of one allocation holds it for the
     process."""
     if device not in _POOLS:
@@ -484,27 +503,37 @@ def _batch_leaves(batch) -> list:
             + [getattr(batch.labels, f) for f in GraphLabels.__dataclass_fields__])
 
 
+def _static_batch(inputs: list) -> GraphBatch:
+    """The batch whose fields are ``inputs``, in ``_batch_leaves`` order."""
+    names = list(RadarGraph.__dataclass_fields__)
+    return GraphBatch(
+        RadarGraph(**dict(zip(names, inputs[:len(names)]))),
+        GraphLabels(**dict(zip(GraphLabels.__dataclass_fields__, inputs[len(names):]))))
+
+
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    inputs: list                # static input buffers, in _batch_leaves order
-    outputs: Dict[str, torch.Tensor]
+    inputs: list                # static input buffers, in the leaves' order
+    outputs: Any
     launches: List[int]         # each launch counter's advance per replay
-    state: TrainState           # kept alive: the graph writes its tensors
+    keep: Any                   # kept alive: the graph reads or writes it
 
 
-class CapturedStep:
-    """``body(state, batch)`` on a CUDA device, captured as one CUDA graph
-    per state and batch shape (and per binding of the state's tensors) and
-    replayed: the batch is copied into the graph's static input buffers,
-    the graph replayed, and its metrics cloned before the next replay can
-    overwrite them.
+class CapturedGraphs:
+    """``body(inputs)`` on a CUDA device, where ``inputs`` is a list of
+    static device buffers, captured as one CUDA graph per key and replayed
+    (the counterpart of ``jax.jit``): ``run`` copies the arrays it is given
+    into the key's buffers, replays its graph and returns the graph's
+    outputs, which the next replay of that graph overwrites.
 
     Capture: on a side stream the body runs once eagerly (libraries,
     constants and other first-use work) and once more under
     ``torch.cuda.set_sync_debug_mode("error")`` — a device→host sync there
-    raises — then the state is restored to its values before the two, and
-    the body is captured into the process's one graph pool.  A capture that
-    fails raises: the step never falls back to eager work on the card.
+    raises — then the tensors in ``restore`` get back their values from
+    before the two, and the body is captured into the process's one graph
+    pool (``_pool``: the train steps', the detectors' and finetuning's
+    graphs replay one at a time, so they share it).  A capture that fails
+    raises: nothing falls back to eager work on the card.
 
     The launch counters of the message rounds advance by what a replay
     launches: the capture itself launches nothing, so its advance is taken
@@ -513,61 +542,84 @@ class CapturedStep:
 
     WARMUP_RUNS = 2
 
-    def __init__(self, body: Callable):
-        self.body = body
+    def __init__(self):
         self.graphs: Dict[tuple, _Captured] = {}
         self.warmups = 0
         self.replays = 0
 
-    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        leaves = _batch_leaves(batch)
-        binding = tuple(t.data_ptr() for t in state.tensors())
-        key = (id(state), binding, tuple((tuple(a.shape), str(a.dtype)) for a in leaves))
+    def run(self, key: tuple, leaves: Sequence, body: Callable[[list], Any],
+            device: torch.device, restore: Sequence[torch.Tensor] = (),
+            keep: Any = None, label: str = "captured.replay") -> Any:
+        """Replay the graph of ``key`` on ``leaves`` (numpy arrays or
+        tensors), capturing ``body`` first if the key is new; ``keep`` is
+        held as long as the graph (what it reads or writes)."""
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture(state, leaves)
+            entry = self.graphs[key] = self._capture(leaves, body, device, restore, keep)
         else:
             _copy_into(entry.inputs, leaves)
-        with record_function("train_step.replay"):
+        with record_function(label):
             entry.graph.replay()
         _add_counters(entry.launches)
         self.replays += 1
-        return {k: v.clone() for k, v in entry.outputs.items()}
+        return entry.outputs
 
-    def _capture(self, state: TrainState, leaves) -> _Captured:
-        device = state.device
+    def _capture(self, leaves, body, device, restore, keep) -> _Captured:
         inputs = [torch.empty(tuple(a.shape), device=device,
                               dtype=a.dtype if torch.is_tensor(a)
                               else torch.from_numpy(np.asarray(a[:0])).dtype)
                   for a in leaves]
         _copy_into(inputs, leaves)
-        names = list(RadarGraph.__dataclass_fields__)
-        static = GraphBatch(
-            RadarGraph(**dict(zip(names, inputs[:len(names)]))),
-            GraphLabels(**dict(zip(GraphLabels.__dataclass_fields__, inputs[len(names):]))))
-        saved = [t.clone() for t in state.tensors()]
+        saved = [t.clone() for t in restore]
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.body(state, static)  # first use
+            body(inputs)  # first use
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self.body(state, static)  # as it will be captured
+                body(inputs)  # as it will be captured
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         current.wait_stream(side)
         self.warmups += self.WARMUP_RUNS
-        for t, v in zip(state.tensors(), saved):
+        for t, v in zip(restore, saved):
             t.copy_(v)
         graph = torch.cuda.CUDAGraph()
         before = _read_counters()
         with torch.cuda.graph(graph, pool=_pool(device)):
-            outputs = self.body(state, static)
+            outputs = body(inputs)
         launches = [a - b for a, b in zip(_read_counters(), before)]
         _add_counters([-d for d in launches])  # the capture launched nothing
-        return _Captured(graph, inputs, outputs, launches, state)
+        return _Captured(graph, inputs, outputs, launches, keep)
+
+
+def shape_key(leaves) -> tuple:
+    """The shapes and dtypes of ``leaves``: part of a capture's key."""
+    return tuple((tuple(a.shape), str(a.dtype)) for a in leaves)
+
+
+class CapturedStep(CapturedGraphs):
+    """``body(state, batch)`` on a CUDA device, captured as one CUDA graph
+    per state and batch shape (and per binding of the state's tensors) and
+    replayed (``CapturedGraphs``): the batch is copied into the graph's
+    static input buffers, the graph replayed, and its metrics cloned
+    before the next replay can overwrite them.  The warm-up runs write the
+    state; it is restored before the capture."""
+
+    def __init__(self, body: Callable):
+        super().__init__()
+        self.body = body
+
+    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        leaves = _batch_leaves(batch)
+        binding = tuple(t.data_ptr() for t in state.tensors())
+        outputs = self.run(
+            (id(state), binding, shape_key(leaves)), leaves,
+            lambda inputs: self.body(state, _static_batch(inputs)), state.device,
+            restore=state.tensors(), keep=state, label="train_step.replay")
+        return {k: v.clone() for k, v in outputs.items()}
 
 
 def _copy_into(buffers: List[torch.Tensor], arrays) -> None:

@@ -21,6 +21,12 @@ PEAK_BYTES_PER_S = 3.35e12
 HOST_LAUNCH_CALLS = frozenset((
     "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
     "cudaGraphLaunch", "cuGraphLaunch"))
+HOST_COPY_CALLS = frozenset(("cudaMemcpyAsync", "cudaMemcpy", "cuMemcpyAsync",
+                             "cuMemcpyHtoDAsync_v2", "cuMemcpyDtoHAsync_v2"))
+# The port's profiler ranges (a train step's parts and replay, a
+# detector's and any other capture's replay): on the device timeline they are annotations that
+# span kernels, not kernels.
+RANGE_PREFIXES = ("train_step.", "detect.", "captured.")
 
 
 def event_ms(fn, reps: int = 50, inner: int = 20) -> float:
@@ -79,7 +85,7 @@ def kernel_breakdown(fn) -> list:
 def profile_run(fn) -> dict:
     """One call of ``fn`` under torch.profiler, after a warm call: device
     kernels launched, launches the host issued (CUDA API calls that
-    launch a kernel or a CUDA graph), device busy time (union of
+    launch a kernel or a CUDA graph) and its memory copies, device busy time (union of
     kernel intervals), host wall time, the card's idle share of it, the
     kernels that take the most device time, and the host time of the train
     step's named parts (``train_step.*`` ranges) where it has them."""
@@ -97,12 +103,13 @@ def profile_run(fn) -> dict:
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.name.startswith("train_step.")
+        and not e.name.startswith(RANGE_PREFIXES)
     )
     ranges = {}  # host time of the train step's named parts
-    host_launches = sum(1 for e in prof.events()
-                        if e.device_type != torch.autograd.DeviceType.CUDA
-                        and e.name in HOST_LAUNCH_CALLS)
+    host_calls = [e.name for e in prof.events()
+                  if e.device_type != torch.autograd.DeviceType.CUDA]
+    host_launches = sum(1 for name in host_calls if name in HOST_LAUNCH_CALLS)
+    host_copies = sum(1 for name in host_calls if name in HOST_COPY_CALLS)
     for e in prof.events():
         if e.name.startswith("train_step.") and e.device_type != torch.autograd.DeviceType.CUDA:
             ranges[e.name] = ranges.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
@@ -117,6 +124,7 @@ def profile_run(fn) -> dict:
         "wall_ms": wall_us / 1e3,
         "device_kernels": len(spans),
         "host_launches": host_launches,
+        "host_copies": host_copies,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "top_kernels_ms_launches": {name[:60]: [t / 1e3, count[name]]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card, against their plain PyTorch versions,
-and the training step on the card against the same on the CPU.
+the training step on the card against the same on the CPU, and the captured
+steps and detector against the same work run eagerly.
 
 Imports nothing of JAX, so that it runs on a machine without it:
 
@@ -29,12 +30,14 @@ from graph_neural_network_for_radar_perception_torch.data.pipeline import (
     SyntheticRadarDataset,
     pad_frame,
 )
+from graph_neural_network_for_radar_perception_torch.infer.pipeline import FrameDetector
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
 from graph_neural_network_for_radar_perception_torch.scripts import (
     microbench_gather as MB,
 )
+from graph_neural_network_for_radar_perception_torch.train import finetune as FT
 from graph_neural_network_for_radar_perception_torch.train import steps as S
 
 pytestmark = pytest.mark.cuda
@@ -410,6 +413,115 @@ def test_captured_nan_skip_keeps_the_state(cuda_device):
     assert torch.equal(st.optimizer.flat, flat)
     assert torch.equal(st.optimizer.moments["momentum_buffer"], mom)
     assert (st.step, st.updates) == (2, 1)
+
+
+@pytest.mark.parametrize("mp_impl, from_links", [(None, False), ("csr", False), (None, True)],
+                         ids=["fused", "csr", "fused-links"])
+def test_captured_detector_equals_eager_deploy(cuda_device, mp_impl, from_links):
+    """``FrameDetector`` on the card (deploy and softmax one captured CUDA
+    graph) over 3 frames, DBSCAN over centers or over predicted links,
+    against the eager ``RadarGNN.deploy`` of the same weights on the card: node classes, DBSCAN partitions, cluster counts
+    and object classes bit for bit (the same kernels in the same order),
+    the logits within 1e-6; one capture, its 2 warm-up runs, one replay a
+    call, one launch of the round kernel a round a replay."""
+    cfg = tiny_test_config(csr_edge_tile=128, csr_window=64, mp_impl=mp_impl)
+    weights = RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    det = FrameDetector(cfg, weights, from_links=from_links, device=cuda_device)
+    eager = RadarGNN(cfg)
+    eager.load_state_dict(weights)
+    eager = eager.to(cuda_device).eval()
+    ds = SyntheticRadarDataset(cfg, seed=11, num_objects=3)
+    kernel = C.fused_message_pass_csr if mp_impl == "csr" else FM.fused_message_pass
+    before = kernel.launches
+    for _ in range(3):
+        fr = ds.sample_frame()
+        graph_np, _ = pad_frame(fr, cfg)
+        out, prob, _ = det.forward(graph_np)
+        got = {k: v.clone() for k, v in out._asdict().items()}
+        prob = prob.clone()
+        with torch.no_grad():
+            want = eager.deploy(RadarGraph.from_numpy(graph_np, cuda_device), det.eps,
+                                from_links)
+        for k in ("node2cluster", "num_clusters"):
+            assert torch.equal(got[k], getattr(want, k)), k
+        for k in ("node_cls", "node_offsets", "edge_cls", "obj_cls", "centers"):
+            torch.testing.assert_close(got[k], getattr(want, k), rtol=1e-6, atol=1e-7)
+        assert torch.equal(prob.argmax(-1), want.node_cls.argmax(-1))
+        k = int(want.num_clusters)
+        assert torch.equal(got["obj_cls"][:k].argmax(-1), want.obj_cls[:k].argmax(-1))
+        d = det.detect_frame_arrays(fr)
+        n = min(fr.n, cfg.max_nodes)
+        np.testing.assert_array_equal(d.node_class, want.node_cls[:n].argmax(-1).cpu().numpy())
+        np.testing.assert_array_equal(d.node2cluster, want.node2cluster[:n].cpu().numpy())
+        assert d.num_clusters == k
+    rounds = len(cfg.graph_convolution_stem_channels)
+    assert len(det.captured.graphs) == 1 and det.captured.replays == 6
+    assert det.captured.warmups == S.CapturedGraphs.WARMUP_RUNS
+    assert kernel.launches - before == rounds * (6 + S.CapturedGraphs.WARMUP_RUNS + 3)
+
+
+def test_failed_capture_raises_and_runs_nothing_eagerly(cuda_device, monkeypatch):
+    """A body that reads the device on the host fails its second warm-up
+    (sync debug "error"): the capture raises, keeps no graph and replays
+    nothing; a detector whose forward syncs raises the same from
+    ``detect_frame_arrays``, with no eager result in its place."""
+    cap = S.CapturedGraphs()
+
+    def body(inputs):
+        x = inputs[0] * 2
+        return x + 1 if bool(x.sum() > 0) else x
+
+    with pytest.raises(RuntimeError):
+        cap.run(("k",), [np.ones(4, np.float32)], body, cuda_device)
+    assert not cap.graphs and cap.replays == 0
+    cfg = tiny_test_config()
+    det = FrameDetector(cfg, RadarGNN(cfg).state_dict(), device=cuda_device)
+    real = det.model.deploy
+    monkeypatch.setattr(det.model, "deploy", lambda *a, **k: (
+        real(*a, **k) if int(a[0].node_mask.sum()) >= 0 else None))
+    with pytest.raises(RuntimeError):
+        det.detect_frame_arrays(SyntheticRadarDataset(cfg, seed=3, num_objects=2).sample_frame())
+    assert not det.captured.graphs and det.captured.replays == 0
+
+
+def test_captured_finetune_equals_eager_step(cuda_device):
+    """Three finetuning steps replayed from one captured CUDA graph against
+    the same body run eagerly on the card from the same weights: metrics
+    and the head's parameters within 1e-5 (index_add_ atomics in the head's
+    backward), the trunk unchanged; the forward kernel one launch a round a
+    replay for the batch, the backward never."""
+    cfg = tiny_test_config(batch_size=4)
+    build, _ = FT.make_finetune_step(cfg)
+    states, steps = [], []
+    for _ in range(2):
+        model = RadarGNN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+        step, opt = build(model)
+        states.append(S.TrainState(model, opt))
+        steps.append(step)
+    (cap, eager), step = states, steps[0]
+    trunk = {k: v.clone() for k, v in cap.model.state_dict().items()
+             if not k.startswith(FT.TRAINED + ".")}
+    fwd, bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
+    for seed in (4, 5, 6):
+        batch = _tiny_batch(cfg, seed=seed)
+        cap, m_cap = step(cap, batch)
+        m_eager = step.captured.body(eager, S.batch_on(batch, cuda_device))
+        assert float(m_cap["skipped"]) == float(m_eager["skipped"]) == 0.0
+        for k, v in m_eager.items():
+            np.testing.assert_allclose(float(m_cap[k]), float(v), rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+    rounds = len(cfg.graph_convolution_stem_channels)
+    assert step.captured.replays == 3 and len(step.captured.graphs) == 1
+    assert FM.fused_message_pass.launches - fwd == rounds * (3 + S.CapturedStep.WARMUP_RUNS + 3)
+    assert FM.fused_message_pass_backward.launches == bwd
+    assert (cap.step, cap.updates) == (eager.step, eager.updates) == (3, 3)
+    want = eager.model.state_dict()
+    for k, v in cap.model.state_dict().items():
+        if k in trunk:
+            assert torch.equal(v, trunk[k]), k
+        else:
+            np.testing.assert_allclose(v.cpu().numpy(), want[k].cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
 
 
 # ------------------------------------------------------------- the CSR round

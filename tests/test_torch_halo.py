@@ -119,10 +119,11 @@ def runs():
     weights = state_dict_from_flax(jax.tree.map(np.asarray, js0.params))
     tbatch = port_batch(batch)
     halos = {name: TH.halo_width(tbatch, shape[1]) for name, shape in SHAPES.items()}
-    grid = start_grid([
-        {"name": name, "partition": "halo", "n_graph": shape[1], "steps": STEPS,
-         "cfg": cfg, "weights": weights, "batch": tbatch}
-        for name, shape in SHAPES.items()], world=4)
+    modes = [{"name": name, "partition": "halo", "n_graph": shape[1], "steps": STEPS,
+              "cfg": cfg, "weights": weights, "batch": tbatch}
+             for name, shape in SHAPES.items()]
+    grid = start_grid(modes + [dict(m, name=m["name"] + "-calls", loss_only=True)
+                               for m in modes], world=4)
 
     def jax_steps(shape, halo):
         mesh = make_mesh(*shape)
@@ -147,8 +148,10 @@ def runs():
                            {k: v.numpy().copy() for k, v in st.model.state_dict().items()}))
         jax_out = {name: f.result() for name, f in jax_runs.items()}
     ranks = grid.result()
-    return {name: {"jax": jax_out[name], "single": single,
-                   "ranks": [r[name] for r in ranks]} for name in SHAPES}
+    return {name: {"jax": jax_out[name], "single": single, "halo": halos[name],
+                   "ranks": [r[name] for r in ranks],
+                   "calls": [r[name + "-calls"]["all_reduces"] for r in ranks]}
+            for name in SHAPES}
 
 
 def _close(got, want, tol, what):
@@ -183,6 +186,19 @@ def test_halo_ranks_hold_identical_params(runs, shape):
             assert r[i]["metrics"] == ranks[0][i]["metrics"]
             for k, v in ranks[0][i]["params"].items():
                 assert np.array_equal(r[i]["params"][k], v), (shape, i, k)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_halo_collectives_are_one_set_a_round_for_the_batch(runs, shape):
+    """The halo forward takes a rank's graphs as one batch: each round's
+    exchange is two ppermutes a hop for the batch, then one all_gather of
+    the [B, N, D] embeddings and one all-reduce of the LossSums (every
+    collective one all-reduce, ``collectives.STATS``)."""
+    cfg = tiny_test_config()
+    g = SHAPES[shape][1]
+    hops = -(-runs[shape]["halo"] // (cfg.max_nodes // g))
+    rounds = len(cfg.graph_convolution_stem_channels)
+    assert runs[shape]["calls"] == [rounds * 2 * hops + 2] * 4
 
 
 def test_halo_step_refuses_other_rounds():

@@ -49,6 +49,10 @@ JAX_METRIC_TOL = dict(rtol=2e-3, atol=1e-5)   # tests/test_parallel.py
 JAX_PARAM_TOL = dict(rtol=2e-4, atol=1e-6)
 STEP_TOL = dict(rtol=1e-4, atol=1e-6)         # tests/test_torch_train.py
 WORLD = 4
+# Edge-sharded modes whose forward's all-reduces are counted, and the psums
+# a message round makes for the rank's whole batch: the partial aggregates,
+# for "mean" also the edge counts.
+CALL_MODES = {"edge": 1, "edge-mean": 2}
 
 # name: (kind, (n_data, n_graph), steps, cfg overrides, mp_impl)
 MODES = {
@@ -85,6 +89,9 @@ def runs(tmp_path_factory):
         tbatch.graph, node_feat=tbatch.graph.node_feat.copy()))
     poisoned.graph.node_feat[0, 0, 0] = np.nan  # in one graph of rank 0's rows
     modes += [dict(max_mode, loss_only=True), dict(modes[0], name="nan", steps=1, batch=poisoned)]
+    # One forward of the edge-sharded loss a mode: its all-reduce calls.
+    modes += [dict(m, name=m["name"] + "-calls", loss_only=True) for m in modes
+              if m["name"] in CALL_MODES]
     grid = start_grid(modes, WORLD)
     # The max round's step on a 1 x 2 grid: its backward must fail the run.
     max_step = start_grid([dict(max_mode, steps=1)], 2)
@@ -154,6 +161,8 @@ def runs(tmp_path_factory):
     out["collectives"] = [torch.load(tmp / f"c{r}.pt", weights_only=False)
                           for r in range(WORLD)]
     out["nan"] = {"ranks": [r["nan"] for r in ranks], "weights": weights}
+    for name in CALL_MODES:
+        out[name]["calls"] = [r[name + "-calls"]["all_reduces"] for r in ranks]
     with pytest.raises(RuntimeError) as err:
         max_step.result()
     out["max"]["step_error"] = str(err.value)
@@ -193,6 +202,16 @@ def test_ranks_hold_identical_params(runs, mode):
             assert r[i]["metrics"] == ranks[0][i]["metrics"]
             for k, v in ranks[0][i]["params"].items():
                 assert np.array_equal(r[i]["params"][k], v), (mode, i, k)
+
+
+@pytest.mark.parametrize("mode", list(CALL_MODES))
+def test_round_psums_are_one_a_round_for_the_batch(runs, mode):
+    """The edge-sharded forward runs ONE model call for a rank's 2 graphs:
+    each message round all-reduces the batch's [B, N, D] partial once (and,
+    for "mean", its counts once), then one all-reduce of the LossSums
+    (``collectives.STATS``; one a round a graph before)."""
+    rounds = len(tiny_test_config().graph_convolution_stem_channels)
+    assert runs[mode]["calls"] == [rounds * CALL_MODES[mode] + 1] * WORLD
 
 
 def test_max_forward_matches_jax_and_backward_raises(runs):
