@@ -115,18 +115,32 @@ Phases, each reported on its own line:
 19. [finetune] ``train/finetune.make_finetune_step(GNNConfig())`` at batch 8
     for 3 steps, each a replay of one captured CUDA graph: one deploy
     forward of the frozen detector for the batch (the forward kernel once a
-    round, never the backward), everything outside predict_class bitwise
-    unchanged, each step against the same body run eagerly on the card and
-    its loss and head gradient against one deploy a graph, and replayed on
-    the CPU from the card's state before it with the card's DBSCAN
-    partitions (themselves held to the CPU's under the [deploy] rule);
+    round) and the trunk's gradient for the finiteness check (the backward
+    kernel once a round), everything outside predict_class bitwise
+    unchanged after every step and after a NaN-poisoned batch (skipped,
+    the head and its momentum bitwise), each step against the same body
+    run eagerly on the card and its loss and head gradient against one
+    deploy a graph, and replayed on the CPU from the card's state before it
+    with the card's DBSCAN partitions (themselves held to the CPU's under
+    the [deploy] rule);
 20. [classifier] ``models/classifier`` at ``ClassifierConfig()`` (512 points,
-    64 objects, 8192 edges) and batch 8: 3 SGD steps, each replayed on the
-    CPU;
+    64 objects, 8192 edges) and batch 8: 3 SGD steps, each a replay of one
+    captured CUDA graph (one model call for the batch) held to the eager
+    body on the card (bit for bit where two eager runs agree bit for bit,
+    else within the CPU replay's tolerance; the case printed), one host
+    launch a step, each replayed on the CPU;
 21. [cnn] ``models/cnn.GridDetector(CNNConfig())`` on the default
     ``GridSpec`` (200 × 200 cells), batch 2, TF32 off: grid samples built
-    on the card against the CPU's, 2 SGD steps (ms per step), the first
-    replayed on the CPU;
+    on the card against the CPU's, 2 SGD steps, captured and held to the
+    eager body as in [classifier] (ms per step), the first replayed on the
+    CPU;
+21b. [eval-step] the trainer's eval step at ``GNNConfig()``, batch 8, fused
+    and CSR: ``trainer.train`` for 2 steps with a validation of 2 batches
+    after each, the eval step one captured CUDA graph replayed a batch (7
+    round-kernel launches a replay, one host launch), bit for bit the
+    eager eval step (where two eager runs agree bit for bit), the
+    second validation seeing the weights the train step changed in place;
+    ms a validation batch, captured and eager;
 22. [parallel] ``parallel/`` at ``GNNConfig()`` full width, batch 8, 2
     steps a mode from seeded weights: first each round kernel, forward and
     backward, on the inputs of an edge shard (E/2 edges) against its plain
@@ -163,7 +177,7 @@ nothing of JAX.
     python3 chip_smoke.py --phase checkpoint
     python3 chip_smoke.py --phase data-plane
     python3 chip_smoke.py --phase eval        # also variants, finetune,
-    python3 chip_smoke.py --phase cnn         # classifier
+    python3 chip_smoke.py --phase cnn         # classifier, eval-step
     python3 chip_smoke.py --phase parallel
     python3 chip_smoke.py --phase examples
     python3 chip_smoke.py --phase train       # [batched] and the train phases
@@ -171,7 +185,7 @@ nothing of JAX.
 
 build the libraries a phase needs and run phase 3 (the fused backward),
 phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
-plane) or one of phases 17-23 alone, or only a
+plane) or one of phases 17-23 (21b included) alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -232,6 +246,17 @@ CLASSIFIER_BATCH = 8
 CNN_STEPS = 2          # [cnn]: steps; the first replayed on the CPU
 CNN_BATCH = 2
 CNN_MAX_MEAS = 1024    # preprocess_frame_hybrid's default capacity
+# [classifier], [cnn]: the captured step's momentum (a step's gradient)
+# against the eager step's where two eager runs differ (index_add_ atomics,
+# cuDNN's weight gradients): within this share of its largest element.  A
+# sum's rounding grows with the magnitudes summed, which the largest
+# element stands for; elementwise tolerances fail on elements that cancel.
+# Both phases print how far two eager runs' momentum lie apart in this
+# measure, the margin this bound keeps.
+MOMENTUM_SCALE = 1e-4
+EVAL_STEP_TRAIN = 2    # [eval-step]: train steps, a validation after each
+EVAL_STEP_VAL = 2      # [eval-step]: validation batches a validation
+EVAL_STEP_TIMED = 20   # [eval-step]: timed calls, captured and eager
 EXAMPLE_STEPS = 2      # [examples]: train steps of each entry point that trains
 EXAMPLE_FRAMES = 2     # [examples]: frames of each evaluation
 # [eval]: eigenvectors are compared one by one only where the eigenvalues
@@ -2889,8 +2914,11 @@ def phase_finetune(torch, FM):
     """Phase 19: object-head finetuning (``train/finetune.py``) at
     GNNConfig() full width, batch 8, 3 steps on synthetic frames, each a
     replay of one captured CUDA graph: one deploy forward for the batch
-    (DBSCAN at clustering_eps; the forward kernel once a round, never its
-    backward); everything outside predict_class bitwise unchanged; each
+    (DBSCAN at clustering_eps; the forward kernel once a round) and the
+    trunk's gradient for the finiteness check (the backward kernel once a
+    round, ROADMAP C6); everything outside predict_class bitwise unchanged
+    after every step; a NaN-poisoned batch skipped with the head, its
+    momentum and the trunk bitwise kept; each
     step against the same body run eagerly on the card from the same state
     (metrics and the head within FINETUNE_RTOL/ATOL) and its loss and the
     head's gradient against the reference's loop of one deploy a graph
@@ -2974,27 +3002,37 @@ def phase_finetune(torch, FM):
         records.append((batch, before, m,
                         {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
                         parts))
+        changed = [k for k, v in model.state_dict().items()
+                   if k in frozen and not torch.equal(v, frozen[k])]
+        if changed:
+            raise AssertionError(f"[finetune] frozen parameters moved: {changed}")
     fwd, bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
     cap = step.captured
     want = rounds * (cap.replays + cap.warmups)
-    changed = [k for k, v in model.state_dict().items()
-               if k in frozen and not torch.equal(v, frozen[k])]
     log(f"[finetune] make_finetune_step(GNNConfig()) batch {bsz}, {FINETUNE_STEPS} steps on the "
         f"card, one captured CUDA graph ({len(cap.graphs)} capture, {cap.replays} replays, "
         f"{cap.warmups} warm-up runs): fused_message_pass launches={fwd} (expected {rounds} x "
         f"({cap.replays} + {cap.warmups}) = {want}: one a round for the batch), backward={bwd} "
-        f"(expected 0: the trunk is frozen); metrics {json.dumps([r[2] for r in records])}; "
+        f"(expected {want}: the trunk's gradient, checked for finiteness only); metrics "
+        f"{json.dumps([r[2] for r in records])}; "
         f"ms/step {[round(t, 3) for t in step_ms]}; params outside predict_class changed: "
         f"{changed}; captured vs the eager batched step on the card: max abs err {eager_err:.3e} "
         f"(rtol={FINETUNE_RTOL}, atol={FINETUNE_ATOL}); vs the per-graph loop (one deploy a "
         f"graph): loss {loop_err:.3e}, the head's gradient {grad_err:.3e}")
-    if (fwd != want or bwd or changed or any(r[2]["skipped"] for r in records)
+    if (fwd != want or bwd != want or any(r[2]["skipped"] for r in records)
             or cap.replays != FINETUNE_STEPS or cap.warmups != CapturedStep.WARMUP_RUNS):
-        raise AssertionError("[finetune] the kernels ran other than expected, a step was "
-                             "skipped, or a frozen parameter moved")
+        raise AssertionError("[finetune] the kernels ran other than expected or a step was "
+                             "skipped")
     if not any(not torch.equal(records[-1][3][k], records[0][1][0][k]) for k in records[0][3]
                if k.startswith(FT.TRAINED + ".")):
         raise AssertionError("[finetune] predict_class did not move")
+    saved = _counts(FM, C)
+    check_nan_skip(torch, state, step, batches[0], "finetune")
+    _restore_counts(FM, C, saved)
+    changed = [k for k, v in model.state_dict().items()
+               if k in frozen and not torch.equal(v, frozen[k])]
+    if changed:
+        raise AssertionError(f"[finetune] the NaN skip moved frozen parameters: {changed}")
 
     t0 = time.perf_counter()
     m_err, p_err = 0.0, 0.0
@@ -3069,28 +3107,115 @@ def _replay(torch, records, make_state, step, what: str):
     return m_err, p_err
 
 
-def _recorded_steps(torch, state, step, arg_lists):
+def _recorded_steps(torch, state, step, arg_lists, eager=None):
     """Run ``step`` on the card over ``arg_lists``, recording for each the
-    state before it, the metrics and the params after, and its time."""
-    records, ms = [], []
+    state before it, the metrics and the params after, and its time.  With
+    ``eager`` = (body, on_card, states, tag): after each step the eager body
+    runs on each of two more states, each given the captured state's values
+    from before the step, on the same arguments on the card, and the
+    captured step is held to them (``_same_or_close``): bit for bit where
+    the two eager runs agree bit for bit in every output (metrics,
+    parameters, moments), else within tolerance.  Its cases and largest
+    errors are returned as ``verdicts`` (empty without ``eager``)."""
+    records, ms, verdicts = [], [], []
     for args in arg_lists:
         before = ({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
                   copy.deepcopy(state.optimizer.state_dict()), state.step, state.updates)
+        pre = [t.clone() for t in state.tensors()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, *args)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if eager is not None:
+            body, on_card, (first, second), tag = eager
+            dev = on_card(args)
+            outs = []
+            for other in (first, second):
+                for dst, src in zip(other.tensors(), pre):
+                    dst.copy_(src)
+                outs.append({**body(other, dev), **_state_tensors(other)})
+            bitwise = all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+            opts = [s.optimizer for s in (state, first, second)]
+            verdicts.append((
+                _same_or_close(torch, m, *({k: o[k] for k in m} for o in outs), METRIC_RTOL,
+                               METRIC_ATOL, f"{tag} metrics", bitwise=bitwise),
+                _same_or_close(torch, *({"params": o.flat} for o in opts), PARAM_RTOL,
+                               PARAM_ATOL, f"{tag} params", bitwise=bitwise),
+                _same_or_close(torch, *(dict(o.moments) for o in opts), 0.0, 0.0,
+                               f"{tag} momentum", scale=MOMENTUM_SCALE, bitwise=bitwise),
+                max(float((outs[0][k] - outs[1][k]).abs().max()) for k in outs[0]),
+                max(float((outs[0][k] - outs[1][k]).abs().max() / outs[0][k].abs().max())
+                    for k in first.optimizer.moments)))
         records.append((args, before, {k: float(v) for k, v in m.items()},
                         {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}))
-    return state, records, ms
+    return state, records, ms, verdicts
+
+
+def _state_tensors(state) -> dict:
+    """A flat-optimiser state's parameters and moments, by name."""
+    return {"params": state.optimizer.flat, **state.optimizer.moments}
+
+
+def _same_or_close(torch, got: dict, want: dict, again: dict, rtol: float, atol: float,
+                   what: str, scale: float = 0.0, bitwise=None):
+    """A captured result ``got`` against the eager ``want`` (dicts of
+    tensors), where ``again`` is a second eager run of the same work: bit
+    for bit if the two eager runs agree bit for bit ("bitwise"; or as
+    ``bitwise`` says, where the caller judged more outputs of the same
+    runs), else within atol + rtol·|want| + scale·max|want| ("tolerance");
+    raises otherwise.  Returns (case, max abs err)."""
+    if bitwise is None:
+        bitwise = all(torch.equal(want[k], again[k]) for k in want)
+    case, err = ("bitwise" if bitwise else "tolerance"), 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        bound = atol + rtol * w.abs() + (scale * w.abs().max() if w.numel() else 0.0)
+        if (not torch.equal(g, w)) if bitwise else bool((diff > bound).any()):
+            raise AssertionError(f"{what}: {k} captured vs eager ({case}) max abs err {err:.3e}")
+    return case, err
+
+
+def _verdict_cases(verdicts) -> list:
+    return sorted({c for v in verdicts for c, _ in v[:3]})
+
+
+def _verdict_text(verdicts) -> str:
+    """The cases and largest errors of ``_recorded_steps``' comparisons."""
+    errs = [max(v[i][1] for v in verdicts) for i in range(3)]
+    cases = [sorted({v[i][0] for v in verdicts}) for i in range(3)]
+    spread = max(v[3] for v in verdicts)
+    share = max(v[4] for v in verdicts)
+    return (f"bit for bit where two eager runs agree bit for bit, else within tolerance: "
+            f"metrics {'/'.join(cases[0])} (rtol={METRIC_RTOL}, atol={METRIC_ATOL}) max abs "
+            f"err {errs[0]:.3e}, params {'/'.join(cases[1])} (rtol={PARAM_RTOL}, "
+            f"atol={PARAM_ATOL}) {errs[1]:.3e}, momentum {'/'.join(cases[2])} "
+            f"({MOMENTUM_SCALE} x its largest element) {errs[2]:.3e}; two eager runs apart by "
+            f"{spread:.3e} at most, their momentum by {share:.3e} of its largest element")
+
+
+def _captured_step_profile(torch, tag: str, state, step, args) -> dict:
+    """One more captured step under the profiler: it must be one host
+    launch (the replay)."""
+    prof = profile_run(lambda: step(state, *args))
+    log(f"{tag} profile of one captured step: {json.dumps(prof)}")
+    if prof["host_launches"] != 1:
+        raise AssertionError(f"{tag} a captured step made {prof['host_launches']} host "
+                             f"launches, not 1")
+    return prof
 
 
 def phase_classifier(torch, FM):
     """Phase 20: the stage-2 object classifier at ClassifierConfig()
     capacities (512 points, 64 objects, 8192 edges) and widths, batch 8:
-    3 SGD steps on the card, each replayed on the CPU from the card's state
-    before it."""
+    3 SGD steps on the card, each a replay of one captured CUDA graph (one
+    model call for the batch), held to the eager body on the card (bit for
+    bit where the eager step repeats itself bit for bit, else within the
+    CPU replay's tolerances, the momentum, a step's gradient, within
+    MOMENTUM_SCALE of its largest element), one host launch a step, and
+    each replayed on the CPU from the card's state before it."""
     from graph_neural_network_for_radar_perception_torch.models import classifier as CL
 
     del FM
@@ -3099,29 +3224,47 @@ def phase_classifier(torch, FM):
     occupancy = [(int(b.point_mask.sum()), int(b.edge_mask.sum()), int(b.object_mask.sum()))
                  for b in batches]
     init, step, _ = CL.make_classifier_train_step(ccfg)
-    state = init(torch.Generator().manual_seed(0), device="cuda")
-    state, records, ms = _recorded_steps(torch, state, step, [(b,) for b in batches])
+    state, first, second = (init(torch.Generator().manual_seed(0), device="cuda")
+                            for _ in range(3))
+    state, records, ms, verdicts = _recorded_steps(
+        torch, state, step, [(b,) for b in batches],
+        eager=(step.captured.body, lambda args: args[0].to("cuda"), (first, second),
+               "[classifier]"))
     metrics = [r[2] for r in records]
+    cap = step.captured
     log(f"[classifier] ObjectClassifierGNN(ClassifierConfig()) batch {CLASSIFIER_BATCH}, "
-        f"{CLASSIFIER_STEPS} steps on the card: (points, edges, objects) per batch {occupancy}; "
-        f"metrics {json.dumps(metrics)}; ms/step {[round(t, 3) for t in ms]}")
+        f"{CLASSIFIER_STEPS} steps on the card, one captured CUDA graph ({len(cap.graphs)} "
+        f"capture, {cap.replays} replays, {cap.warmups} warm-up runs): (points, edges, "
+        f"objects) per batch {occupancy}; metrics {json.dumps(metrics)}; ms/step "
+        f"{[round(t, 3) for t in ms]}; captured vs the eager body on the card: "
+        f"{_verdict_text(verdicts)}")
     if any(m["skipped"] for m in metrics) or not all(np.isfinite(m["loss_obj_cls"])
                                                      for m in metrics):
         raise AssertionError("[classifier] a step was skipped or its loss is not finite")
+    if cap.replays != CLASSIFIER_STEPS or len(cap.graphs) != 1:
+        raise AssertionError("[classifier] the step was not one captured graph replayed a step")
     t0 = time.perf_counter()
     m_err, p_err = _replay(torch, records, lambda: init(device="cpu"), step, "[classifier]")
     log(f"[classifier] CPU replay of each step from the card's state before it "
         f"({time.perf_counter() - t0:.1f} s): metrics max abs err {m_err:.3e} "
         f"(rtol={METRIC_RTOL}, atol={METRIC_ATOL}), params {p_err:.3e} (rtol={PARAM_RTOL}, "
         f"atol={PARAM_ATOL})")
-    return {"ms": ms}
+    prof = _captured_step_profile(torch, "[classifier]", state, step, (batches[0],))
+    return {"ms": ms, "kernels": prof["device_kernels"], "host_launches": prof["host_launches"],
+            "cases": _verdict_cases(verdicts)}
 
 
 def phase_cnn(torch, FM):
     """Phase 21: the BEV-grid CNN at CNNConfig() full width on the default
     GridSpec (200 × 200 cells), batch 2, TF32 off: grid samples built on the
     card (``data/grid.build_grid_sample``) against the CPU's, 2 SGD steps on
-    the card, the first replayed on the CPU from the card's state before it."""
+    the card, each a replay of one captured CUDA graph held to the eager
+    body on the card (bit for bit where the eager step repeats itself bit
+    for bit, else within the CPU replay's tolerances and the momentum
+    within MOMENTUM_SCALE of its largest element: cuDNN's weight-gradient
+    algorithms need not repeat themselves), one host
+    launch a step, the first replayed on the CPU from the card's state
+    before it."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.data import features as F
     from graph_neural_network_for_radar_perception_torch.data import groundtruth as G
@@ -3153,22 +3296,167 @@ def phase_cnn(torch, FM):
     log(f"[cnn] build_grid_sample on the card (200 x 200 cells, {CNN_MAX_MEAS} measurements): "
         f"grids equal to the CPU's, image max abs err {worst:.3e}; occupied cells {cells}")
     init, step, _ = CNN.make_grid_train_step(ccfg)
-    state = init(torch.Generator().manual_seed(0), device="cuda")
+    state, first, second = (init(torch.Generator().manual_seed(0), device="cuda")
+                            for _ in range(3))
     n_params = sum(p.numel() for p in state.model.parameters())
-    state, records, ms = _recorded_steps(torch, state, step, [batch] * CNN_STEPS)
+    state, records, ms, verdicts = _recorded_steps(
+        torch, state, step, [batch] * CNN_STEPS,
+        eager=(step.captured.body, lambda args: [torch.from_numpy(a).cuda() for a in args],
+               (first, second), "[cnn]"))
     metrics = [r[2] for r in records]
+    cap = step.captured
     log(f"[cnn] GridDetector(CNNConfig()) ({n_params} parameters) batch {CNN_BATCH}, "
-        f"{CNN_STEPS} steps on the card, TF32 off: metrics {json.dumps(metrics)}; ms/step "
-        f"{[round(t, 3) for t in ms]} (the first with cuDNN's set-up)")
+        f"{CNN_STEPS} steps on the card, TF32 off, one captured CUDA graph ({len(cap.graphs)} "
+        f"capture, {cap.replays} replays, {cap.warmups} warm-up runs): metrics "
+        f"{json.dumps(metrics)}; ms/step {[round(t, 3) for t in ms]} (the first with the "
+        f"capture); captured vs the eager body on the card: {_verdict_text(verdicts)}")
     if any(m["skipped"] or not np.isfinite(m["loss_total"]) for m in metrics):
         raise AssertionError("[cnn] a step was skipped or its loss is not finite")
+    if cap.replays != CNN_STEPS or len(cap.graphs) != 1:
+        raise AssertionError("[cnn] the step was not one captured graph replayed a step")
     t0 = time.perf_counter()
     m_err, p_err = _replay(torch, records[:1], lambda: init(device="cpu"), step, "[cnn]")
     log(f"[cnn] CPU replay of step 1 from the card's state before it "
         f"({time.perf_counter() - t0:.1f} s): metrics max abs err {m_err:.3e} "
         f"(rtol={METRIC_RTOL}, atol={METRIC_ATOL}), params {p_err:.3e} (rtol={PARAM_RTOL}, "
         f"atol={PARAM_ATOL})")
-    return {"ms": ms}
+    prof = _captured_step_profile(torch, "[cnn]", state, step, batch)
+    return {"ms": ms, "kernels": prof["device_kernels"], "host_launches": prof["host_launches"],
+            "cases": _verdict_cases(verdicts)}
+
+
+def phase_eval_step(torch, FM):
+    """Phase 21b: the trainer's eval step (``train/steps.make_eval_step``)
+    at GNNConfig() full width, batch 8, with each message pass:
+    ``trainer.train`` for EVAL_STEP_TRAIN steps with a validation of
+    EVAL_STEP_VAL batches after each, so that the eval step is captured at
+    the first validation and replayed at the second, after a train step
+    changed the weights in place.  Checks: one capture, its replays, 7
+    round-kernel launches a replay; the means the trainer wrote at the last
+    validation against the eager body's on the final weights, and each
+    replay against the eager body, bit for bit where two eager runs agree
+    bit for bit (else within METRIC_*); the weights' change seen; one host
+    launch a validation batch; ms a validation batch, captured and eager."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train import trainer as TR
+    from graph_neural_network_for_radar_perception_torch.utils.metrics_writer import RunningMeans
+
+    out = {}
+    for mp_impl in (None, "csr"):
+        tag = "[eval-step]" if mp_impl is None else "[eval-step-csr]"
+        cfg = GNNConfig() if mp_impl is None else GNNConfig(mp_impl=mp_impl)
+        rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
+        kernel = C.fused_message_pass_csr if mp_impl else FM.fused_message_pass
+        gen = SyntheticRadarDataset(cfg, seed=19, num_objects=(6, 10)).batches(bsz)
+        train_batches = [next(gen) for _ in range(EVAL_STEP_TRAIN)]
+        val = [next(gen) for _ in range(EVAL_STEP_VAL)]
+        made, written, real = [], [], TR.make_eval_step
+
+        class Writer:
+            def write_train_val(self, step, train, val_means):
+                written.append((step, val_means))
+
+        def recorded(c):
+            made.append(real(c))
+            return made[-1]
+
+        state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+        _restore_counts(FM, C, dict.fromkeys(_counts(FM, C), 0))
+        TR.make_eval_step = recorded
+        try:
+            state = TR.train(cfg, iter(train_batches), lambda: iter(val),
+                             hooks=TR.TrainHooks(log_period=10**9, val_period=1,
+                                                 num_val_batches=EVAL_STEP_VAL, writer=Writer(),
+                                                 print_fn=lambda line: None),
+                             state=state, max_iters=EVAL_STEP_TRAIN)
+            torch.cuda.synchronize()
+        finally:
+            TR.make_eval_step = real
+        launches = _counts(FM, C)
+        ev, cap = made[0], made[0].captured
+        replays = EVAL_STEP_TRAIN * EVAL_STEP_VAL
+        key = "csr_mp_forward" if mp_impl else "fused_mp_forward"
+        want = rounds * (S.CapturedStep.WARMUP_RUNS + EVAL_STEP_TRAIN) + rounds * (
+            S.CapturedGraphs.WARMUP_RUNS + replays)
+        if (len(cap.graphs) != 1 or cap.replays != replays
+                or cap.warmups != S.CapturedGraphs.WARMUP_RUNS or launches[key] != want):
+            raise AssertionError(f"{tag} the eval step ran other than one capture and "
+                                 f"{replays} replays ({key} launches {launches[key]}, "
+                                 f"expected {want})")
+        n_replays = cap.replays
+        # The last validation's means (replays on the weights after the last
+        # train step) against the eager body on those weights.
+        saved = _counts(FM, C)
+        first, second = RunningMeans(), RunningMeans()
+        eager = [ev.body(state.model, S.batch_on(vb, "cuda")) for vb in val]
+        again = [ev.body(state.model, S.batch_on(vb, "cuda")) for vb in val]
+        for m, rm in ((eager, first), (again, second)):
+            for x in m:
+                rm.update({k: float(v) for k, v in x.items()})
+        to_t = lambda d: {k: torch.tensor(v, dtype=torch.float64) for k, v in d.items()}  # noqa: E731
+        means_case, means_err = _same_or_close(torch, to_t(written[-1][1]), to_t(first.means()),
+                                               to_t(second.means()), METRIC_RTOL, METRIC_ATOL,
+                                               f"{tag} the trainer's validation means")
+        _restore_counts(FM, C, saved)
+        moved = written[0][1]["loss_total"] != written[-1][1]["loss_total"]
+        # One replay a validation batch: launches, host launches, bits.
+        cases, err = set(), 0.0
+        for i, vb in enumerate(val):
+            before = kernel.launches
+            got = ev(state.model, vb)
+            per_replay = kernel.launches - before
+            if per_replay != rounds:
+                raise AssertionError(f"{tag} a replay launched {per_replay} round kernels")
+            saved = _counts(FM, C)
+            case, e = _same_or_close(torch, got, eager[i], again[i], METRIC_RTOL, METRIC_ATOL,
+                                     f"{tag} batch {i}")
+            _restore_counts(FM, C, saved)
+            cases.add(case)
+            err = max(err, e)
+        prof = profile_run(lambda: ev(state.model, val[0]))
+        saved = _counts(FM, C)
+        dev = S.batch_on(val[0], "cuda")
+        times = {}
+        for name, fn in (("captured", lambda: ev(state.model, val[0])),
+                         ("eager", lambda: ev.body(state.model, dev))):
+            ts = []
+            for _ in range(EVAL_STEP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[name] = float(np.median(ts))
+        eager_prof = profile_run(lambda: ev.body(state.model, dev))
+        _restore_counts(FM, C, saved)
+        log(f"{tag} trainer.train(GNNConfig({'' if mp_impl is None else 'mp_impl=csr'})) batch "
+            f"{bsz}, {EVAL_STEP_TRAIN} steps, a validation of {EVAL_STEP_VAL} batches after each: "
+            f"the eval step one capture ({cap.warmups} warm-up runs), {n_replays} replays; "
+            f"{key} launches {launches[key]} (expected {rounds} x ({S.CapturedStep.WARMUP_RUNS} "
+            f"+ {EVAL_STEP_TRAIN}) for the train step + {rounds} x "
+            f"({S.CapturedGraphs.WARMUP_RUNS} + {replays}) for the eval step = {want}), "
+            f"{rounds} a replay; the trainer's last validation means vs the eager body on the "
+            f"final weights: {means_case} (max abs err {means_err:.3e}), loss_total moved "
+            f"between the validations {moved} ({written[0][1]['loss_total']!r} -> "
+            f"{written[-1][1]['loss_total']!r}); each replay vs the eager body: "
+            f"{'/'.join(sorted(cases))} (max abs err {err:.3e}); ms a validation batch (host "
+            f"clock, synchronised, median of {EVAL_STEP_TIMED}): captured {times['captured']:.3f}, "
+            f"eager {times['eager']:.3f}; one captured call: {prof['host_launches']} host "
+            f"launches, {prof['device_kernels']} device kernels, busy "
+            f"{prof['device_busy_ms']:.3f} ms; eager: {eager_prof['host_launches']} host "
+            f"launches, {eager_prof['device_kernels']} device kernels")
+        if prof["host_launches"] != 1 or not moved:
+            raise AssertionError(f"{tag} a validation batch made {prof['host_launches']} host "
+                                 f"launches, or the new weights were not seen")
+        out["csr" if mp_impl else "fused"] = dict(launches, ms=times["captured"],
+                                                  eager_ms=times["eager"],
+                                                  kernels=prof["device_kernels"],
+                                                  host_launches=prof["host_launches"],
+                                                  cases=sorted(cases | {means_case}))
+    return out
 
 
 def _counts(FM, C) -> dict:
@@ -3309,8 +3597,8 @@ def phase_parallel(torch, FM):
         mode = mode_of(name, kind, n_graph, mp_impl)
         st = S.create_train_state(mode["cfg"], device="cuda")
         st.model.load_state_dict(weights)
-        st, recs, ms = _recorded_steps(torch, st, S.make_train_step(mode["cfg"]),
-                                       [(mode["batch"],)] * PARALLEL_STEPS)
+        st, recs, ms, _ = _recorded_steps(torch, st, S.make_train_step(mode["cfg"]),
+                                          [(mode["batch"],)] * PARALLEL_STEPS)
         refs[name], ref_ms[name] = [(r[2], r[3]) for r in recs], ms
     _restore_counts(FM, C, saved)
 
@@ -3424,9 +3712,31 @@ def _parsed(path: str) -> int:
             json.load(f)
     elif path.endswith(".pt"):
         torch.load(path, map_location="cpu", weights_only=True)
+    elif path.endswith(".msgpack"):
+        from graph_neural_network_for_radar_perception_torch.utils.checkpoint import (
+            load_params_msgpack,
+        )
+
+        load_params_msgpack(path)
     elif os.path.getsize(path) == 0:
         raise AssertionError(f"{path} is empty")
     return 1
+
+
+def msgpack_holds_state_dict(torch, msgpack_path: str, pt_path: str) -> bool:
+    """Does the flax msgpack file hold the ``torch.save``d state_dict bit
+    for bit (the same keys, shapes and bytes), read back through the port's
+    ``load_params_msgpack`` and ``state_dict_from_flax``?"""
+    from graph_neural_network_for_radar_perception_torch.utils.checkpoint import (
+        load_params_msgpack,
+    )
+    from graph_neural_network_for_radar_perception_torch.utils.convert import (
+        state_dict_from_flax,
+    )
+
+    got = state_dict_from_flax(load_params_msgpack(msgpack_path))
+    want = torch.load(pt_path, map_location="cpu", weights_only=True)
+    return set(got) == set(want) and all(torch.equal(got[k], want[k].cpu()) for k in want)
 
 
 def phase_examples(torch, FM):
@@ -3547,8 +3857,10 @@ def phase_examples(torch, FM):
             trained(EXAMPLE_STEPS))
 
         lr = entry("examples.long_training_run")
+        # a validation (4 batches through the captured eval step) at step 2
         lr_argv = ["--max-iters", str(EXAMPLE_STEPS + 1), "--pool-batches", "2",
-                   "--eval-frames", str(EXAMPLE_FRAMES), "--run-dir", out("long_run")] + cuda
+                   "--eval-frames", str(EXAMPLE_FRAMES), "--val-period", str(EXAMPLE_STEPS),
+                   "--run-dir", out("long_run")] + cuda
         run("long_training_run --stop-at", lambda: lr.main(
             lr_argv + ["--stop-at", str(EXAMPLE_STEPS)]), rounds_of(1), rounds_of(1))
         state = run("long_training_run (resume, eval trend)", lambda: lr.main(lr_argv),
@@ -3557,9 +3869,10 @@ def phase_examples(torch, FM):
             raise AssertionError(f"[examples] long_training_run resumed to step {state.step}")
 
         ft = entry("examples.finetune_obj_classifier")
+        # the trunk's backward runs for the finiteness check (ROADMAP C6)
         run("finetune_obj_classifier", lambda: ft.main(
             ["--iters", str(EXAMPLE_STEPS), "--batch-size", "4"] + cuda),
-            trained(EXAMPLE_STEPS), 0)
+            trained(EXAMPLE_STEPS), trained(EXAMPLE_STEPS))
 
         tc = entry("examples.train_classifier")
         run("train_classifier --use-detector-proposals", lambda: tc.main(
@@ -3604,10 +3917,12 @@ def phase_examples(torch, FM):
                 written[os.path.relpath(path, tmp)] = _parsed(path)
         want = {"eval/sequence_synthetic.json", "gnn/ckpt/2.pt", "gnn/ckpt/3.pt",
                 "gnn/logs/metrics.jsonl", "demo/eval_before.json", "demo/eval_after.json",
-                "demo/metrics.jsonl", "demo/params.pt", "long_run/eval_trend.jsonl",
+                "demo/metrics.jsonl", "demo/params.pt", "demo/params.msgpack",
+                "long_run/eval_trend.jsonl",
                 "long_run/ckpt/2.pt", "long_run/ckpt/3.pt", "classifier_chain/summary.json",
                 "pointwise/predictions_semseg.json", "pointwise/predictions_instseg.json",
-                "fixture_artifact/weights.pt", "fixture_artifact/config.json",
+                "fixture_artifact/weights.pt", "fixture_artifact/weights.msgpack",
+                "fixture_artifact/config.json",
                 "fixture_artifact/README.md"}
         want |= {f"fixture_artifact/eval/{kind}/sequence_{i}.json" for i in range(1, 7)
                  for kind in ("semantic_segmentation", "object_classification")}
@@ -3615,8 +3930,15 @@ def phase_examples(torch, FM):
         if missing or written["long_run/eval_trend.jsonl"] != 3:
             raise AssertionError(f"[examples] files missing {sorted(missing)} or an eval trend "
                                  f"of {written.get('long_run/eval_trend.jsonl')} lines")
-        log(f"[examples] {len(written)} files written and parsed (JSON, JSON lines, torch.save); "
-            f"eval_trend.jsonl has steps 0, {EXAMPLE_STEPS}, {EXAMPLE_STEPS + 1}")
+        log(f"[examples] {len(written)} files written and parsed (JSON, JSON lines, torch.save, "
+            f"flax msgpack); eval_trend.jsonl has steps 0, {EXAMPLE_STEPS}, {EXAMPLE_STEPS + 1}")
+        for pt, mp in (("demo/params.pt", "demo/params.msgpack"),
+                       ("fixture_artifact/weights.pt", "fixture_artifact/weights.msgpack")):
+            same = msgpack_holds_state_dict(torch, os.path.join(tmp, mp), os.path.join(tmp, pt))
+            log(f"[examples] {mp}, read by the port's load_params_msgpack and "
+                f"state_dict_from_flax: the state_dict of {pt} bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"[examples] {mp} does not hold {pt}'s weights")
     total = {key: sum(r[key] for r in results.values()) for key in ("fwd", "bwd")}
     log(f"[examples] wall s per entry point on {card()}: "
         f"{json.dumps({k: r['s'] for k, r in results.items()})}")
@@ -3670,6 +3992,7 @@ def main(argv) -> int:
               "finetune": (phase_finetune, "fused_mp"),
               "classifier": (phase_classifier, "fused_mp"),
               "cnn": (phase_cnn, "fused_mp"),
+              "eval-step": (phase_eval_step, "fused_mp", "csr_mp"),
               "parallel": (phase_parallel, "fused_mp", "csr_mp"),
               "examples": (phase_examples, "fused_mp"),
               "train": (lambda torch, _: phase_training(torch, FM, C), "fused_mp", "csr_mp"),
@@ -3752,6 +4075,7 @@ def main(argv) -> int:
     finetune = phase_finetune(torch, FM)
     phase_classifier(torch, FM)
     phase_cnn(torch, FM)
+    eval_step = phase_eval_step(torch, FM)
     par = phase_parallel(torch, FM)
     examples = phase_examples(torch, FM)
     v1_fused = variants["v1"]["launches"]["fused_mp_forward"]
@@ -3761,8 +4085,9 @@ def main(argv) -> int:
     fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd,
                                    "data-plane": data_plane["fwd"], "eval": evaluation["fwd"],
                                    "variants (v1)": v1_fused, "finetune": finetune["fwd"]}
-    bwd_row["launches"] = train_bwd + data_plane["bwd"]
-    bwd_row["launches_by_path"] = {"train": train_bwd, "data-plane": data_plane["bwd"]}
+    bwd_row["launches"] = train_bwd + data_plane["bwd"] + finetune["bwd"]
+    bwd_row["launches_by_path"] = {"train": train_bwd, "data-plane": data_plane["bwd"],
+                                   "finetune": finetune["bwd"]}
     csr_row["launches"] = csr_deploy + csr_train_fwd + v1_csr
     csr_row["launches_by_path"] = {"deploy-csr": csr_deploy, "train-csr": csr_train_fwd,
                                    "variants (v1, csr)": v1_csr}
@@ -3783,6 +4108,12 @@ def main(argv) -> int:
     for row, key in ((fwd_row, "fwd"), (bwd_row, "bwd")):
         row["launches"] += examples[key]
         row["launches_by_path"]["examples"] = examples[key]
+    for row, key in ((fwd_row, "fused_mp_forward"), (bwd_row, "fused_mp_backward"),
+                     (csr_row, "csr_mp_forward"), (csr_bwd_row, "csr_mp_backward")):
+        for mp, label in (("fused", "eval-step"), ("csr", "eval-step (csr)")):
+            if eval_step[mp][key]:
+                row["launches"] += eval_step[mp][key]
+                row["launches_by_path"][label] = eval_step[mp][key]
     for row in (gather_row, scatter_row):
         row["launches_by_path"] = {"microbenchmark": row["launches"]}
     log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,

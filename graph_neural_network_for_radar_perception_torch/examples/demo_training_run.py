@@ -3,8 +3,10 @@ scenes and report before/after segmentation+detection metrics.
 
 The port of the JAX package's ``examples/demo_training_run.py``: writes
 ``<out>/metrics.jsonl``, ``eval_before.json``, ``eval_after.json`` and the
-trained weights as ``params.pt`` (``utils/checkpoint.save_params``; the JAX
-example writes flax msgpack).  Training runs the fused message-pass
+trained weights as ``params.pt`` (``utils/checkpoint.save_params``) and,
+as the JAX example writes them, as flax msgpack in ``params.msgpack``
+(``utils/checkpoint.save_params_msgpack``: the JAX package's
+``load_params_msgpack`` reads it).  Training runs the fused message-pass
 kernels, forward and backward, on the card; the evaluations the forward.
 
 Run: python -m graph_neural_network_for_radar_perception_torch.examples.demo_training_run --iters 10000
@@ -27,7 +29,8 @@ from ..eval.metrics import precision_recall
 from ..infer.pipeline import FrameDetector
 from ..train.steps import create_train_state
 from ..train.trainer import TrainHooks, train
-from ..utils.checkpoint import save_params
+from ..utils.checkpoint import save_params, save_params_msgpack
+from ..utils.convert import flax_from_state_dict
 from ..utils.metrics_writer import MetricsWriter
 
 
@@ -125,6 +128,8 @@ def main(argv=None):
         )
 
     save_params(state.model, os.path.join(args.out, "params.pt"))
+    save_params_msgpack(flax_from_state_dict(state.model.state_dict()),
+                        os.path.join(args.out, "params.msgpack"))
     return after
 
 

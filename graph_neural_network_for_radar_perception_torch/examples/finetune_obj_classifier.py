@@ -4,7 +4,8 @@ and clustering runs inside the forward.
 
 The port of the JAX package's ``examples/finetune_obj_classifier.py``: the
 frozen trunk's deploy forward runs the fused message-pass kernel on the
-card (forward only: no trunk gradient is taken).
+card, and its backward runs for the trunk's gradient, which the step only
+checks for finiteness, as JAX does (ROADMAP C6).
 
 Run: python -m graph_neural_network_for_radar_perception_torch.examples.finetune_obj_classifier --iters 500
 """

@@ -29,7 +29,10 @@ def main(argv=None):
                    help="cells per side (reference uses 200)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(args.device).type == "cuda":
+        # f32 convolutions on the card; the flag is cuDNN's alone (on a
+        # CPU-only build, setting it corrupted the heap in conv backward)
+        torch.backends.cudnn.allow_tf32 = False
 
     cfg = GNNConfig()
     g = args.grid

@@ -14,16 +14,23 @@ head stem (classifier/blocks.py:170-176), and classified with focal loss
 
 The sample builder is host numpy, as in the JAX package (``np.linalg.eigh``
 on both sides, so the features are equal there).  The model reaches no
-Pallas kernel in the JAX package and is plain PyTorch here; it runs on
-one sample, and the train step loops over a batch's samples where the JAX
-step vmaps.
+Pallas kernel in the JAX package and is plain PyTorch here.  It takes one
+sample, or a batch of them with a leading sample axis, which is the JAX
+step's ``jax.vmap`` over the model and the loss: per-row products are
+shared, gathers, segment sums and the max-pool stay per sample
+(``ops/segment.py``).  The train step is one model call for the batch,
+optax's chain(add_decayed_weights, sgd) on flat buffers
+(``train/steps.Optimizer``) and the branchless NaN skip
+(``train/steps.update_if_finite``); on a CUDA device it is captured as one
+CUDA graph per state and batch shape and replayed
+(``train/steps.CapturedStep``), on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +39,7 @@ from torch import nn
 from ..core.graph import resolve_device
 from ..ops import segment as S
 from ..train.loss import one_hot, sigmoid_focal_loss
-from ..train.steps import TrainState, finite_update
+from ..train.steps import CapturedStep, Optimizer, TrainState, update_if_finite
 from .blocks import Linear, MLPStack, ScalarNorm, TaskSpecificHead, init_parameters
 
 SEED = 1234  # GNNConfig.seed's default
@@ -188,7 +195,7 @@ class NormFreeConvBlock(nn.Module):
 
     def forward(self, x, senders, receivers, point_mask, edge_mask):
         del point_mask
-        n = x.shape[0]
+        n = x.shape[-2]
         identity = x if self.identity is None else self.identity_norm(self.identity(x))
         m = torch.cat([S.gather_nodes(x, receivers), S.gather_nodes(x, senders)],
                       dim=-1)
@@ -198,7 +205,8 @@ class NormFreeConvBlock(nn.Module):
 
 class ObjectClassifierGNN(nn.Module):
     """classifier/classifier.py Model_Inference over one ClassifierSample:
-    [max_objects, num_classes] logits.  Parameters from ``generator``
+    [max_objects, num_classes] logits (a batch with a leading sample axis:
+    [B, max_objects, num_classes]).  Parameters from ``generator``
     (default: seeded with SEED)."""
 
     def __init__(self, ccfg: ClassifierConfig, *,
@@ -236,13 +244,14 @@ class ObjectClassifierGNN(nn.Module):
 
 def classifier_loss(logits, sample: ClassifierSample, num_classes: int):
     """Focal(α=−1) summed over classes, mean over valid objects
-    (classifier/loss.py:5-15); also the object accuracy."""
+    (classifier/loss.py:5-15); also the object accuracy.  One sample, or
+    a batch with a leading sample axis: then one value a sample."""
     per_obj = sigmoid_focal_loss(logits, one_hot(sample.object_class, num_classes),
                                  alpha=-1.0).sum(-1)
     mask = sample.object_mask.float()
-    cnt = torch.clamp(mask.sum(), min=1.0)
-    loss = (per_obj * mask).sum() / cnt
-    acc = ((logits.argmax(-1) == sample.object_class.long()).float() * mask).sum() / cnt
+    cnt = torch.clamp(mask.sum(-1), min=1.0)
+    loss = (per_obj * mask).sum(-1) / cnt
+    acc = ((logits.argmax(-1) == sample.object_class.long()).float() * mask).sum(-1) / cnt
     return loss, acc
 
 
@@ -251,30 +260,35 @@ def make_classifier_train_step(ccfg: ClassifierConfig
     """(init, step, loss_fn), as the JAX package's (its model is the state's
     here).  ``init(generator=None, device="cuda")`` → TrainState with SGD
     (momentum, coupled weight decay: optax's chain(add_decayed_weights,
-    sgd)); ``step(state, batch)`` → (state, metrics), a batch being a
-    ClassifierSample with a leading axis (numpy or tensors), skipped whole
-    (``skipped`` = 1.0, nothing changes) where the loss or a gradient is not
-    finite; ``loss_fn(model, batch)`` → (mean loss, mean accuracy)."""
+    sgd)) over one flat buffer of the parameters; ``step(state, batch)`` →
+    (state, metrics), a batch being a ClassifierSample with a leading axis
+    (numpy or tensors), skipped whole (``skipped`` = 1.0, nothing changes,
+    the step is counted) where the loss or a gradient is not finite;
+    ``loss_fn(model, batch)`` → (mean loss, mean accuracy), one model call
+    for the batch.  On the card ``step.captured`` is the step's
+    ``CapturedStep``."""
 
     def init(generator: Optional[torch.Generator] = None, device="cuda"):
         model = ObjectClassifierGNN(ccfg, generator=generator).to(resolve_device(device))
-        opt = torch.optim.SGD(model.parameters(), lr=ccfg.learning_rate,
-                              momentum=ccfg.momentum, dampening=0, nesterov=False,
-                              weight_decay=ccfg.weight_decay)
-        return TrainState(model, opt)
+        return TrainState(model, Optimizer(model.parameters(), "sgd", ccfg.learning_rate,
+                                           ccfg.weight_decay, momentum=ccfg.momentum))
 
     def loss_fn(model: ObjectClassifierGNN, batch: ClassifierSample):
-        losses, accs = zip(*(classifier_loss(model(batch.at(b)), batch.at(b),
-                                             ccfg.num_classes)
-                             for b in range(batch.point_feat.shape[0])))
-        return torch.stack(losses).mean(), torch.stack(accs).mean()
+        losses, accs = classifier_loss(model(batch), batch, ccfg.num_classes)
+        return losses.mean(), accs.mean()
+
+    def body(state: TrainState, batch: ClassifierSample) -> Dict[str, torch.Tensor]:
+        loss, acc = loss_fn(state.model, batch)
+        ok = update_if_finite(state, loss)
+        return {"loss_obj_cls": loss.detach(), "object_accuracy": acc.detach(),
+                "skipped": (~ok).to(torch.float32)}
+
+    captured = CapturedStep(body, leaves=list, rebuild=lambda inputs: ClassifierSample(*inputs))
 
     def step(state: TrainState, batch: ClassifierSample):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, acc = loss_fn(state.model, batch.to(state.device))
-        loss.backward()
-        ok = finite_update(state, loss, state.model.parameters())
-        return state, {"loss_obj_cls": loss.detach(), "object_accuracy": acc.detach(),
-                       "skipped": (~ok).to(torch.float32)}
+        if state.device.type == "cpu":
+            return state, body(state, batch.to(state.device))
+        return state, captured(state, batch)
 
+    step.captured = captured
     return init, step, loss_fn

@@ -27,21 +27,27 @@ outputs [B, X, Y, C].  Inside, the maps are NCHW for cuDNN's convolutions
 
 On the card the path needs TF32 off (``torch.backends.cudnn.allow_tf32 =
 False``, cuDNN's default is on) for f32 results.
+
+The train step is the JAX package's jitted one: optax's
+chain(add_decayed_weights, sgd) on flat buffers (``train/steps.Optimizer``)
+and the branchless NaN skip (``train/steps.update_if_finite``); on a CUDA
+device it is captured as one CUDA graph per state and batch shape and
+replayed (``train/steps.CapturedStep``), on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.graph import resolve_device
+from ..core.graph import device_constant, resolve_device
 from ..data.labels import INVALID_NUM
-from ..train.steps import TrainState, finite_update
+from ..train.steps import CapturedStep, Optimizer, TrainState, update_if_finite
 from .blocks import CLS_BIAS, HEAD_STD, Linear, activation_fn
 
 _NUM_GROUPS = 16  # constants.py:11
@@ -351,7 +357,7 @@ def grid_loss(out: GridOutputs, gt_label_grid, gt_offset_grid, cfg: CNNConfig,
     """Loss_Grid (cnn/loss.py:11-68): weighted CE over valid cells, 0.5·MSE
     over valid dynamic-object cells, weights 1.0/10.0."""
     dev = out.cls.device
-    cw = torch.tensor(cfg.class_weights, dtype=torch.float32, device=dev)
+    cw = device_constant(tuple(cfg.class_weights), torch.float32, dev)
     valid_cell = gt_label_grid != INVALID_NUM
     labels = torch.where(valid_cell, gt_label_grid, 0.0).to(torch.int32)
     valid_obj = valid_cell & (labels != static_id) & (labels != false_id)
@@ -364,8 +370,8 @@ def grid_loss(out: GridOutputs, gt_label_grid, gt_offset_grid, cfg: CNNConfig,
     cls_loss = torch.where(n_cell > 0, torch.where(valid_cell, nll, zero).sum()
                            / torch.clamp(n_cell, min=1), zero)
 
-    mu = torch.tensor(cfg.reg_mu, dtype=torch.float32, device=dev)
-    sigma = torch.tensor(cfg.reg_sigma, dtype=torch.float32, device=dev)
+    mu = device_constant(tuple(cfg.reg_mu), torch.float32, dev)
+    sigma = device_constant(tuple(cfg.reg_sigma), torch.float32, dev)
     gt_norm = (gt_offset_grid - mu) / sigma
     se = 0.5 * ((out.reg - gt_norm) ** 2).sum(-1)
     n_obj = valid_obj.sum()
@@ -383,28 +389,33 @@ def make_grid_train_step(cfg: CNNConfig) -> Tuple[Callable, Callable, Callable]:
     """(init, step, loss_fn), as the JAX package's (its model is the state's
     here).  ``init(generator=None, device="cuda")`` → TrainState with SGD
     (momentum, coupled weight decay: optax's chain(add_decayed_weights,
-    sgd)); ``step(state, image, vr, rcs, label_grid, offset_grid)`` →
-    (state, metrics), numpy or tensors in, skipped whole (``skipped`` =
-    1.0, nothing changes) where the loss or a gradient is not finite."""
+    sgd)) over one flat buffer of the parameters; ``step(state, image, vr,
+    rcs, label_grid, offset_grid)`` → (state, metrics), numpy or tensors
+    in, skipped whole (``skipped`` = 1.0, nothing changes, the step is
+    counted) where the loss or a gradient is not finite.  On the card
+    ``step.captured`` is the step's ``CapturedStep``."""
 
     def init(generator: Optional[torch.Generator] = None, device="cuda"):
         model = GridDetector(cfg, generator=generator).to(resolve_device(device))
-        opt = torch.optim.SGD(model.parameters(), lr=cfg.learning_rate,
-                              momentum=cfg.momentum, dampening=0, nesterov=False,
-                              weight_decay=cfg.weight_decay)
-        return TrainState(model, opt)
+        return TrainState(model, Optimizer(model.parameters(), "sgd", cfg.learning_rate,
+                                           cfg.weight_decay, momentum=cfg.momentum))
 
     def loss_fn(model: GridDetector, image, vr, rcs, label_grid, offset_grid):
         return grid_loss(model(image, vr, rcs), label_grid, offset_grid, cfg)
 
-    def step(state: TrainState, *arrays):
-        arrays = [torch.as_tensor(a).to(state.device) for a in arrays]
-        state.optimizer.zero_grad(set_to_none=True)
+    def body(state: TrainState, arrays) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(state.model, *arrays)
-        loss.backward()
-        ok = finite_update(state, loss, state.model.parameters())
+        ok = update_if_finite(state, loss)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["skipped"] = (~ok).to(torch.float32)
-        return state, metrics
+        return metrics
 
+    captured = CapturedStep(body, leaves=list, rebuild=list)
+
+    def step(state: TrainState, *arrays):
+        if state.device.type == "cpu":
+            return state, body(state, [torch.as_tensor(a).to(state.device) for a in arrays])
+        return state, captured(state, arrays)
+
+    step.captured = captured
     return init, step, loss_fn

@@ -3,6 +3,8 @@ write the artifact corpus:
 
     <out>/
       weights.pt                          trained state_dict
+      weights.msgpack                     the same weights as flax msgpack
+                                          (the JAX package's format)
       config.json                         exact training configuration
       eval/semantic_segmentation/*.json   per-sequence confusion JSONs in
                                           the reference schema
@@ -40,7 +42,8 @@ from ..data.radarscenes import RadarScenesDataset, build_metadata
 from ..eval import drivers as D
 from ..infer.pipeline import FrameDetector
 from ..train.trainer import TrainHooks, train
-from ..utils.checkpoint import save_params
+from ..utils.checkpoint import save_params, save_params_msgpack
+from ..utils.convert import flax_from_state_dict
 
 TRAIN_SEQS = [f"sequence_{i}" for i in (1, 2, 3, 4)]
 HELDOUT_SEQS = ["sequence_5", "sequence_6"]
@@ -85,6 +88,8 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
     weights = state.model.state_dict()
     save_params(weights, os.path.join(args.out, "weights.pt"))
+    save_params_msgpack(flax_from_state_dict(weights),
+                        os.path.join(args.out, "weights.msgpack"))
     with open(os.path.join(args.out, "config.json"), "w") as f:
         json.dump(
             {k: v for k, v in dataclasses.asdict(cfg).items()
@@ -150,8 +155,9 @@ reference's MultiStep schedule; sequences 1-4 train, 5-6 held out).
 Per-sequence confusion matrices: `eval/semantic_segmentation/*.json`,
 `eval/object_classification/*.json` (reference schema:
 performance/semantic_segmentation/sequence_108.json).
-Weights: `weights.pt` (load with `utils.checkpoint.load_params`); exact
-config: `config.json`.
+Weights: `weights.pt` (load with `utils.checkpoint.load_params`) and
+`weights.msgpack` (flax msgpack: `utils.checkpoint.load_params_msgpack` in
+either package); exact config: `config.json`.
 """
     with open(os.path.join(args.out, "README.md"), "w") as f:
         f.write(readme)

@@ -14,17 +14,19 @@ one kernel launch for the B graphs), the majority vote and the
 cross-entropy with the graph axis, the per-graph sums added in graph
 order; optax's chain(add_decayed_weights(wd_ft), sgd(lr_ft, momentum)) on
 the object head's flat parameters (``steps.Optimizer``) and the
-branchless NaN skip (``all_finite``/``apply_if``).  On a CUDA device the
+branchless NaN skip (``steps.update_if_finite``).  On a CUDA device the
 step is captured as one CUDA graph per state and batch shape and replayed
 (``steps.CapturedStep``); on the CPU it runs eagerly.
 
-Freezing is ``requires_grad_(False)`` on everything outside
-``predict_class``, which stands in for optax's ``set_to_zero``: no gradient
-is computed for the trunk, so on the card this path runs the message
-rounds' forward kernel and never their backward.  One standing difference
-follows (ROADMAP.md C6): the JAX step's finiteness check covers the frozen
-trunk's gradients too, so a batch whose trunk gradient alone overflows is
-skipped there and not here.
+Freezing lives in the optimiser, as optax's ``multi_transform`` with
+``set_to_zero`` does: every parameter keeps ``requires_grad``, the step
+takes the gradient of the loss with respect to all of them, skips the
+batch unless the loss and every gradient, the frozen trunk's included,
+are finite (JAX ``train/finetune.py:105``), and updates ``predict_class``
+alone.  So on the card the step runs the message rounds' forward kernel
+and, for the trunk's gradient, their backward kernel once a round for the
+batch.  The deploy forward detaches the DBSCAN centres and the predicted
+links, so the node and link heads get a zero gradient, as in JAX.
 """
 
 from __future__ import annotations
@@ -42,9 +44,9 @@ from .steps import (
     CapturedStep,
     Optimizer,
     TrainState,
-    all_finite,
     batch_on,
     batched_deploy,
+    update_if_finite,
 )
 
 TRAINED = "predict_class"
@@ -65,22 +67,24 @@ def make_finetune_optimizer(cfg: GNNConfig, model: RadarGNN) -> Optimizer:
     """SGD (momentum, coupled weight decay ``weight_decay_finetuning``:
     optax's chain(add_decayed_weights, sgd)) on the object head only, its
     parameters views of one flat buffer; every other parameter is frozen
-    in place (set_param_for_finetuning_obj_classifier.py +
-    gnn_detector.py:127-133)."""
-    for name, p in model.named_parameters():
-        p.requires_grad_(name.split(".")[0] == TRAINED)
+    by not being the optimiser's (set_param_for_finetuning_obj_classifier.py
+    + gnn_detector.py:127-133) and keeps ``requires_grad``, so that the
+    step can check its gradient."""
+    for p in model.parameters():
+        p.requires_grad_(True)
     return Optimizer(getattr(model, TRAINED).parameters(), "sgd",
                      cfg.learning_rate_finetuning, cfg.weight_decay_finetuning,
                      momentum=cfg.momentum)
 
 
 def make_finetune_step(cfg: GNNConfig) -> Tuple[Callable, Callable]:
-    """(build, loss_fn), as the JAX package's: ``build(model)`` freezes the
-    model outside ``predict_class`` and returns ``(step, optimizer)``;
+    """(build, loss_fn), as the JAX package's: ``build(model)`` returns
+    ``(step, optimizer)``, the optimiser over ``predict_class`` alone;
     ``step(state, batch)`` → (state, metrics) with ``skipped`` = 1.0 for a
-    batch whose loss or head gradient is not finite (nothing changes then;
-    the step is counted).  ``loss_fn(model, batch)`` → (loss, metrics).
-    On the card ``step.captured`` is the step's ``CapturedStep``."""
+    batch whose loss or any gradient (the frozen trunk's included) is not
+    finite (nothing changes then; the step is counted).  ``loss_fn(model,
+    batch)`` → (loss, metrics).  On the card ``step.captured`` is the
+    step's ``CapturedStep``."""
 
     def loss_fn(model: RadarGNN, batch: GraphBatch):
         graph = batch.graph
@@ -98,19 +102,10 @@ def make_finetune_step(cfg: GNNConfig) -> Tuple[Callable, Callable]:
         return loss, {"loss_obj_cls": loss, "object_accuracy": corr / cnt}
 
     def body(state: TrainState, batch: GraphBatch) -> Dict[str, torch.Tensor]:
-        opt = state.optimizer
+        head = {id(p) for p in state.optimizer.params}
+        frozen = [p for p in state.model.parameters() if id(p) not in head]
         loss, metrics = loss_fn(state.model, batch)
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
-        with torch.no_grad():
-            grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
-                              for g, p in zip(grads, opt.params)])
-            ok = all_finite([loss.detach(), grad])
-            lr = torch.full((), opt.param_groups[0]["lr"], dtype=torch.float32,
-                            device=grad.device)
-            count = state.counters[1]
-            opt.commit(ok, *opt.propose(grad, lr, count))
-            count.add_(ok.to(count.dtype))
-            state.counters[0].add_(1)
+        ok = update_if_finite(state, loss, frozen)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["skipped"] = (~ok).to(torch.float32)
         return metrics

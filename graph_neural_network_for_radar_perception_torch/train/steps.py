@@ -17,8 +17,9 @@ were (reference training.py:40-45).
 On a CUDA device ``make_train_step`` captures the step as one CUDA graph
 per state and batch shape (the counterpart of ``jax.jit``) and replays it:
 one host launch a step, no device→host sync inside.  ``make_train_scan``
-replays it once per batch, as ``lax.scan`` repeats its body.  On the CPU
-the same code runs eagerly.
+replays it once per batch, as ``lax.scan`` repeats its body;
+``make_eval_step`` captures the eval step per model and batch shape.  On
+the CPU the same code runs eagerly.
 
 The port updates in place: the optimiser keeps the parameters in one flat
 buffer (each parameter a view of it) with its moments and the accumulation
@@ -404,34 +405,35 @@ def _apply_update(state: TrainState, grad, cfg: GNNConfig,
     count.add_(take.to(count.dtype))
 
 
-def finite_update(state: TrainState, loss: torch.Tensor, params) -> torch.Tensor:
-    """After ``loss.backward()``: step ``state.optimizer`` (a torch.optim
-    optimiser over ``params``; a zero gradient where none reached one) and
-    keep its result only if the loss and every gradient are finite (the JAX
-    finetuning and grid-CNN steps' ``all_finite``/``apply_if``): no branch,
-    no host sync.  SGD's momentum buffers are made at zero first (optax's
-    init), so that a skipped first step keeps them.  Then clear the
-    gradients and count the step.  Returns ok, a 0-d bool device tensor.
-    The finetuning, classifier and grid-CNN steps share it."""
-    params = list(params)
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    ok = all_finite([loss.detach(), *grads])
+def update_if_finite(state: TrainState, loss: torch.Tensor,
+                     frozen: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """The JAX finetuning, classifier and grid-CNN steps' update after the
+    loss: the gradient of ``loss`` with respect to the optimiser's
+    parameters (zero where none reaches one) and, for the finiteness check
+    only, with respect to ``frozen`` (optax's ``set_to_zero`` zeroes their
+    update after ``all_finite`` saw the whole tree); then optax's update
+    at the constant rate ``param_groups[0]["lr"]`` where the loss and every
+    gradient are finite, else nothing changes (``all_finite``,
+    ``Optimizer.commit``): no branch, no host sync.  Counts the step and,
+    if taken, the update.  Returns ok, a 0-d bool device tensor."""
     opt = state.optimizer
-    for group in opt.param_groups:
-        if group.get("momentum", 0):
-            for p in group["params"]:
-                opt.state[p].setdefault("momentum_buffer", torch.zeros_like(p))
-    live = [p.detach() for p in params] + [
-        v for s in opt.state.values() for v in s.values() if torch.is_tensor(v)]
-    before = [t.clone() for t in live]
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
-    for t, v in zip(live, apply_if(ok, live, before)):
-        t.copy_(v)
-    opt.zero_grad(set_to_none=True)
-    state.counters[0].add_(1)
-    state.counters[1].add_(ok.to(torch.int64))
+    opt.bind()
+    params = opt.params
+    grads = torch.autograd.grad(loss, [*params, *frozen], allow_unused=True)
+    with torch.no_grad():
+        grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                          for g, p in zip(grads, params)])
+        checked = [loss.detach(), grad]
+        rest = [g.reshape(-1) for g in grads[len(params):] if g is not None]
+        if rest:
+            checked.append(torch.cat(rest))
+        ok = all_finite(checked)
+        lr = torch.full((), opt.param_groups[0]["lr"], dtype=torch.float32,
+                        device=grad.device)
+        count = state.counters[1]
+        opt.commit(ok, *opt.propose(grad, lr, count))
+        count.add_(ok.to(count.dtype))
+        state.counters[0].add_(1)
     return ok
 
 
@@ -466,10 +468,10 @@ _POOLS: Dict[torch.device, tuple] = {}
 def _pool(device: torch.device):
     """The one CUDA-graph memory pool of this process's captured graphs on
     ``device`` (every train step, each bucket's included, every detector's
-    deploy and finetuning's step): they replay one at a time, so they
-    share it.  A pool whose graphs are all gone cannot take
-    another capture, so a graph of one allocation holds it for the
-    process."""
+    deploy, the eval steps and the finetuning, classifier and grid-CNN
+    steps): they replay one at a time, so they share it.  A pool whose
+    graphs are all gone cannot take another capture, so a graph of one
+    allocation holds it for the process."""
     if device not in _POOLS:
         keeper = torch.cuda.CUDAGraph()
         with torch.cuda.device(device), torch.cuda.graph(keeper):
@@ -531,9 +533,10 @@ class CapturedGraphs:
     ``torch.cuda.set_sync_debug_mode("error")`` — a device→host sync there
     raises — then the tensors in ``restore`` get back their values from
     before the two, and the body is captured into the process's one graph
-    pool (``_pool``: the train steps', the detectors' and finetuning's
-    graphs replay one at a time, so they share it).  A capture that fails
-    raises: nothing falls back to eager work on the card.
+    pool (``_pool``: the process's captured graphs replay one at a time,
+    so they share it).  A capture that fails raises, with ``restore``'s
+    tensors given back their values: nothing falls back to eager work on
+    the card.
 
     The launch counters of the message rounds advance by what a replay
     launches: the capture itself launches nothing, so its advance is taken
@@ -574,18 +577,20 @@ class CapturedGraphs:
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
-            body(inputs)  # first use
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                body(inputs)  # as it will be captured
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        current.wait_stream(side)
+        try:
+            with torch.cuda.stream(side):
+                body(inputs)  # first use
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    body(inputs)  # as it will be captured
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        finally:  # a failed capture leaves no trace of its warm-ups either
+            current.wait_stream(side)
+            for t, v in zip(restore, saved):
+                t.copy_(v)
         self.warmups += self.WARMUP_RUNS
-        for t, v in zip(restore, saved):
-            t.copy_(v)
         graph = torch.cuda.CUDAGraph()
         before = _read_counters()
         with torch.cuda.graph(graph, pool=_pool(device)):
@@ -606,18 +611,22 @@ class CapturedStep(CapturedGraphs):
     replayed (``CapturedGraphs``): the batch is copied into the graph's
     static input buffers, the graph replayed, and its metrics cloned
     before the next replay can overwrite them.  The warm-up runs write the
-    state; it is restored before the capture."""
+    state; it is restored before the capture.  ``leaves(batch)`` gives a
+    batch's arrays and ``rebuild(inputs)`` the batch of static buffers
+    (default: a ``GraphBatch``'s fields)."""
 
-    def __init__(self, body: Callable):
+    def __init__(self, body: Callable, leaves: Callable = None, rebuild: Callable = None):
         super().__init__()
         self.body = body
+        self.leaves = leaves or _batch_leaves
+        self.rebuild = rebuild or _static_batch
 
     def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        leaves = _batch_leaves(batch)
+        leaves = self.leaves(batch)
         binding = tuple(t.data_ptr() for t in state.tensors())
         outputs = self.run(
             (id(state), binding, shape_key(leaves)), leaves,
-            lambda inputs: self.body(state, _static_batch(inputs)), state.device,
+            lambda inputs: self.body(state, self.rebuild(inputs)), state.device,
             restore=state.tensors(), keep=state, label="train_step.replay")
         return {k: v.clone() for k, v in outputs.items()}
 
@@ -685,14 +694,36 @@ def make_train_scan(cfg: GNNConfig, length: int,
 
 
 def make_eval_step(cfg: GNNConfig) -> Callable:
-    """(model, batch) → metrics, without gradients."""
+    """(model, batch) → metrics, without gradients: the loss's metrics over
+    the batch (JAX ``make_eval_step``).  On the CPU it runs eagerly.  On a
+    CUDA device it is captured once per model, binding of the model's
+    parameters (their ``data_ptr``s) and batch shape (``CapturedGraphs``,
+    ``eval_step.captured``; nothing to restore) and replayed: one host
+    launch a batch.  A replay reads the parameters where they are, so it
+    sees the updates a train step makes in place.  The metrics are cloned
+    at once, before another replay overwrites them.  ``eval_step.body`` is
+    the eager body (``body(model, batch)`` on tensors on the model's
+    device)."""
     loss_fn = make_loss_fn(cfg)
+    captured = CapturedGraphs()
+
+    def body(model: RadarGNN, batch: GraphBatch) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return loss_fn(model, batch)[1]
 
     def eval_step(model: RadarGNN, batch: GraphBatch
                   ) -> Dict[str, torch.Tensor]:
         device = next(model.parameters()).device
-        with torch.no_grad():
-            _, metrics = loss_fn(model, batch_on(batch, device))
-        return metrics
+        if device.type == "cpu":
+            return body(model, batch_on(batch, device))
+        leaves = _batch_leaves(batch)
+        binding = tuple(p.data_ptr() for p in model.parameters())
+        outputs = captured.run(
+            (id(model), binding, shape_key(leaves)), leaves,
+            lambda inputs: body(model, _static_batch(inputs)), device,
+            keep=model, label="eval_step.replay")
+        return {k: v.clone() for k, v in outputs.items()}
 
+    eval_step.captured = captured
+    eval_step.body = body
     return eval_step

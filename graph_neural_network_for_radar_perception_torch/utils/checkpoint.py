@@ -21,7 +21,7 @@ import os
 import re
 import tempfile
 import time
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -38,12 +38,13 @@ def run_dir(base_dir: str) -> str:
     return d
 
 
-def _save_atomic(obj: Any, path: str) -> None:
-    """torch.save to a temporary name beside ``path``, then rename."""
+def _save_atomic(obj: Any, path: str, write: Callable = torch.save) -> None:
+    """``write(obj, name)`` (torch.save) to a temporary name beside
+    ``path``, then rename."""
     fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=os.path.dirname(path))
     os.close(fd)
     try:
-        torch.save(obj, tmp)
+        write(obj, tmp)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -120,7 +121,8 @@ class CheckpointManager:
 def save_params(params, path: str):
     """Single-file params dump, the analog of the reference's state_dict
     file: a module's state_dict (or a state_dict) written with
-    ``torch.save`` (the JAX package's ``save_params_msgpack``)."""
+    ``torch.save`` (``save_params_msgpack`` writes the JAX package's
+    format)."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     path = os.path.abspath(path)
@@ -140,6 +142,31 @@ def load_params(template, path: str):
         template.load_state_dict(params)
         return template
     return params
+
+
+def save_params_msgpack(params, path: str):
+    """The JAX package's ``save_params_msgpack``, without JAX: a params
+    tree in the flax layout (nested dicts of numpy arrays or tensors, e.g.
+    ``utils/convert.flax_from_state_dict(model.state_dict())``) written
+    as flax msgpack (``serialization.to_bytes``'s bytes), which the JAX
+    package's ``load_params_msgpack`` reads.  Written to a temporary name
+    beside ``path``, then renamed."""
+    from .flax_msgpack import msgpack_serialize
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu().numpy()
+        return tree
+
+    def write(data: bytes, name: str) -> None:
+        with open(name, "wb") as f:
+            f.write(data)
+
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _save_atomic(msgpack_serialize(host(params)), path, write)
 
 
 def load_params_msgpack(path: str):

@@ -1,4 +1,4 @@
-"""Weights trained by the JAX package → the port's ``state_dict``.
+"""Weights trained by the JAX package → the port's ``state_dict``, and back.
 
 ``state_dict_from_flax`` takes the parameter tree of a JAX ``RadarGNN``,
 ``RadarGNNv1`` or ``RadarGNNv2`` as nested dicts of numpy arrays (e.g.
@@ -22,6 +22,15 @@ v1's fused node head ``predict_node_fused``: MLPStack_0 → stem,
 TaskSpecificHead_0/_1 → head_cls/head_reg.  v2's attention blocks
 (``ResidualGraphAttnBlock_b``): GATv2Conv_0 → gat (lin_l, lin_r, lin_edge,
 att [1, H, C] and bias as they are), FFNBlock_j → upd_mlp.blocks.j.
+
+Each converter has an inverse (``flax_from_state_dict``,
+``classifier_flax_from_state_dict``, ``cnn_flax_from_state_dict``,
+``ws_conv_flax_from_state_dict``): a state_dict (tensors or arrays) back to
+the flax tree of float32 numpy arrays, with the keys, nesting and shapes of
+the JAX model's parameters and every dict's keys sorted, as the tree that
+the JAX package saves (``jax.device_get`` rebuilds dicts in sorted key
+order) and ``load_params_msgpack`` returns.  ``utils/checkpoint.
+save_params_msgpack`` writes such a tree as flax msgpack.
 """
 
 from __future__ import annotations
@@ -206,3 +215,165 @@ def ws_conv_state_dict_from_flax(params: Mapping) -> "OrderedDict[str, torch.Ten
     out["gn_scale"] = np.asarray(params["GroupNorm_0"]["scale"])
     out["gn_bias"] = np.asarray(params["GroupNorm_0"]["bias"])
     return _tensors(out)
+
+
+# ------------------------------------------------------- state_dict → flax
+def _array(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.float32)
+
+
+def _sorted(tree):
+    """Every dict of the tree with its keys sorted, as ``jax.tree.map``
+    rebuilds it."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _dense_inv(sd, prefix):
+    return {"kernel": np.ascontiguousarray(_array(sd[prefix + "weight"]).T),
+            "bias": _array(sd[prefix + "bias"])}
+
+
+def _norm_inv(sd, prefix):
+    return {"gamma": _array(sd[prefix + "gamma"]), "beta": _array(sd[prefix + "beta"])}
+
+
+def _ffn_inv(sd, prefix):
+    p = {"Linear_0": {"Dense_0": _dense_inv(sd, prefix + "linear.")}}
+    if prefix + "norm.gamma" in sd:
+        p["ScalarNorm_0"] = _norm_inv(sd, prefix + "norm.")
+    return p
+
+
+def _count(sd, fmt):
+    """How many j have a key starting ``fmt.format(j)``."""
+    j = 0
+    while any(k.startswith(fmt.format(j)) for k in sd):
+        j += 1
+    return j
+
+
+def _stack_inv(sd, prefix):
+    return {f"FFNBlock_{j}": _ffn_inv(sd, f"{prefix}blocks.{j}.")
+            for j in range(_count(sd, prefix + "blocks.{}."))}
+
+
+def _head_inv(sd, prefix):
+    return {"FFNBlock_0": _ffn_inv(sd, prefix + "ffn."),
+            "Dense_0": _dense_inv(sd, prefix + "out.")}
+
+
+def _stem_and_head_inv(sd, prefix):
+    return {"MLPStack_0": _stack_inv(sd, prefix + "stem."),
+            "TaskSpecificHead_0": _head_inv(sd, prefix + "head.")}
+
+
+def _projector_inv(sd, prefix):
+    if prefix + "identity.weight" not in sd:
+        return {}
+    return {"Linear_0": {"Dense_0": _dense_inv(sd, prefix + "identity.")},
+            "ScalarNorm_0": _norm_inv(sd, prefix + "identity_norm.")}
+
+
+def _conv_block_inv(sd, prefix):
+    return dict(_projector_inv(sd, prefix), MLPStack_0=_stack_inv(sd, prefix + "msg_mlp."),
+                MLPStack_1=_stack_inv(sd, prefix + "upd_mlp."))
+
+
+def _attn_block_inv(sd, prefix):
+    g = {lin: {"Dense_0": _dense_inv(sd, f"{prefix}gat.{lin}.")}
+         for lin in ("lin_l", "lin_r", "lin_edge")}
+    g["att"], g["bias"] = _array(sd[prefix + "gat.att"]), _array(sd[prefix + "gat.bias"])
+    return dict(_projector_inv(sd, prefix), GATv2Conv_0=g,
+                **_stack_inv(sd, prefix + "upd_mlp."))
+
+
+def flax_from_state_dict(sd: Mapping) -> dict:
+    """The inverse of ``state_dict_from_flax``: a ``RadarGNN``/``RadarGNNv1``/
+    ``RadarGNNv2`` state_dict → the JAX model's params tree (the family
+    read off the keys)."""
+    out = {"encode_node_feat": {"MLPStack_0": _stack_inv(sd, "encode_node_feat.")},
+           "encode_edge_feat": {"MLPStack_0": _stack_inv(sd, "encode_edge_feat.")}}
+    neck = {}
+    for b in range(_count(sd, "pass_messages.blocks.{}.")):
+        prefix = f"pass_messages.blocks.{b}."
+        if prefix + "gat.att" in sd:
+            neck[f"ResidualGraphAttnBlock_{b}"] = _attn_block_inv(sd, prefix)
+        else:
+            neck[f"ResidualGraphConvBlock_{b}"] = _conv_block_inv(sd, prefix)
+    out["pass_messages"] = neck
+    link = _stem_and_head_inv(sd, "predict_link.")
+    for j in range(_count(sd, "predict_link.edge_formation.{}.")):
+        link[f"FFNBlock_{j}"] = _ffn_inv(sd, f"predict_link.edge_formation.{j}.")
+    out["predict_link"] = link
+    out["predict_class"] = _stem_and_head_inv(sd, "predict_class.")
+    if any(k.startswith("predict_node_fused.") for k in sd):
+        out["predict_node_fused"] = {
+            "MLPStack_0": _stack_inv(sd, "predict_node_fused.stem."),
+            "TaskSpecificHead_0": _head_inv(sd, "predict_node_fused.head_cls."),
+            "TaskSpecificHead_1": _head_inv(sd, "predict_node_fused.head_reg.")}
+    else:
+        for name in ("predict_node", "predict_offset"):
+            out[name] = _stem_and_head_inv(sd, name + ".")
+    return _sorted(out)
+
+
+def classifier_flax_from_state_dict(sd: Mapping) -> dict:
+    """The inverse of ``classifier_state_dict_from_flax``."""
+    out = {"encode_node_feat": _stack_inv(sd, "encode_node_feat."),
+           "stem": _stack_inv(sd, "stem."), "pred_cls": _head_inv(sd, "pred_cls.")}
+    for i in range(_count(sd, "convs.{}.")):
+        out[f"conv_{i}"] = _conv_block_inv(sd, f"convs.{i}.")
+    return _sorted(out)
+
+
+def _conv_inv(sd, prefix):
+    """``models/cnn.Conv`` (weight OIHW) → flax Conv (kernel HWIO)."""
+    return {"kernel": np.ascontiguousarray(np.transpose(_array(sd[prefix + "weight"]),
+                                                        (2, 3, 1, 0))),
+            "bias": _array(sd[prefix + "bias"])}
+
+
+def _conv_block2d_inv(sd, prefix):
+    p = {"Conv_0": _conv_inv(sd, prefix + "conv.")}
+    if prefix + "gamma" in sd:
+        p["gamma"], p["beta"] = _array(sd[prefix + "gamma"]), _array(sd[prefix + "beta"])
+    return p
+
+
+def cnn_flax_from_state_dict(sd: Mapping, cfg) -> dict:
+    """The inverse of ``cnn_state_dict_from_flax`` (``cfg``: its CNNConfig)."""
+    bb = {f"ConvBlock_{i}": _conv_block2d_inv(sd, f"backbone.base.{i}.")
+          for i in range(len(cfg.base_stem_channels))}
+    k = 0
+    for stage, nblk in enumerate(cfg.bottleneck_number_of_blocks):
+        for b in range(nblk):
+            prefix = f"backbone.stages.{stage}.{b}."
+            p = {f"ConvBlock_{j}": _conv_block2d_inv(sd, f"{prefix}blocks.{j}.")
+                 for j in range(3)}
+            if prefix + "proj.weight" in sd:
+                p["Conv_0"] = _conv_inv(sd, prefix + "proj.")
+                p["proj_gamma"] = _array(sd[prefix + "proj_gamma"])
+                p["proj_beta"] = _array(sd[prefix + "proj_beta"])
+            bb[f"Bottleneck_{k}"] = p
+            k += 1
+    neck = {"fuse_image": _conv_block2d_inv(sd, "neck.fuse_image.")}
+    for i in range(_count(sd, "neck.reduce.{}.")):
+        neck[f"reduce_c{i}"] = _conv_block2d_inv(sd, f"neck.reduce.{i}.")
+        neck[f"fuse_c{i}"] = _conv_block2d_inv(sd, f"neck.fuse.{i}.")
+    head = {f"ConvBlock_{j}": _conv_block2d_inv(sd, f"head.stem.{j}.")
+            for j in range(_count(sd, "head.stem.{}."))}
+    names = ([f"ffn.{j}" for j in range(_count(sd, "head.ffn.{}."))]
+             + ["cls_in", "cls", "reg_in", "reg"])
+    for j, name in enumerate(names):
+        head[f"Dense_{j}"] = _dense_inv(sd, f"head.{name}.")
+    return _sorted({"Backbone_0": bb, "Neck_0": neck, "HeadV2_0": head})
+
+
+def ws_conv_flax_from_state_dict(sd: Mapping) -> dict:
+    """The inverse of ``ws_conv_state_dict_from_flax``."""
+    return _sorted(dict(_conv_inv(sd, "conv."), GroupNorm_0={
+        "scale": _array(sd["gn_scale"]), "bias": _array(sd["gn_bias"])}))

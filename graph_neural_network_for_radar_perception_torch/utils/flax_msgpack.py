@@ -1,10 +1,10 @@
-"""A decoder for the msgpack files that flax's ``serialization.to_bytes``
-writes, in the standard library and numpy alone.
+"""A decoder and an encoder for the msgpack files that flax's
+``serialization.to_bytes`` writes, in the standard library and numpy alone.
 
 The JAX package saves parameters with ``utils/checkpoint.save_params_msgpack``
 (flax ``serialization.to_bytes``) and reads them with ``from_bytes``.  This
-module reads the same bytes without JAX, flax or the ``msgpack`` package,
-for the subset flax writes:
+module reads and writes the same bytes without JAX, flax or the ``msgpack``
+package, for the subset flax writes:
 
 * nil, bool, integers, floats, str, bin, arrays and maps (arrays decode to
   lists, maps to dicts);
@@ -19,7 +19,14 @@ for the subset flax writes:
 
 ``msgpack_restore(data)`` is flax's ``serialization.msgpack_restore``: the
 nested dict of numpy arrays that ``utils/convert.state_dict_from_flax``
-takes.
+takes.  ``msgpack_serialize(tree)`` is its inverse, flax's
+``serialization.msgpack_serialize`` as ``to_bytes`` calls it (in place):
+the same bytes as flax for a tree of dicts (keys in the tree's order),
+lists, Python scalars and numpy arrays, the msgpack package's shortest
+encoding of each value, arrays above ``MAX_CHUNK_SIZE`` bytes split into
+chunks as flax splits them.  (Called on its own, flax first copies the
+tree with ``jax.tree_util``, which rebuilds every dict in sorted key
+order; the params trees the JAX package saves have that order already.)
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2**30  # flax's: an array of more bytes is written in chunks
 
 
 class MsgpackError(ValueError):
@@ -170,3 +178,127 @@ def msgpack_restore(data: bytes) -> Any:
     """flax ``serialization.msgpack_restore``: the tree that ``to_bytes``
     wrote, as nested dicts of numpy arrays."""
     return _unchunk(unpackb(data))
+
+
+# ------------------------------------------------------------------ writing
+def _header(out: list, n: int, fix: int, fix_max: int, wide: Tuple[int, int, int]) -> None:
+    """A length header: the fix form below ``fix_max``, else the 8-, 16- or
+    32-bit form (``wide[0]`` 0 where the type has no 8-bit form)."""
+    if n < fix_max:
+        out.append(struct.pack("B", fix + n))
+    elif wide[0] and n <= 0xFF:
+        out.append(struct.pack(">BB", wide[0], n))
+    elif n <= 0xFFFF:
+        out.append(struct.pack(">BH", wide[1], n))
+    elif n <= 0xFFFFFFFF:
+        out.append(struct.pack(">BI", wide[2], n))
+    else:
+        raise MsgpackError(f"a length of {n} does not fit msgpack")
+
+
+def _pack_int(out: list, v: int) -> None:
+    if 0 <= v < 0x80 or -0x20 <= v < 0:
+        out.append(struct.pack("b" if v < 0 else "B", v))
+        return
+    for lo, hi, code, fmt in ((0, 0xFF, 0xCC, "B"), (-0x80, -1, 0xD0, "b"),
+                              (0, 0xFFFF, 0xCD, "H"), (-0x8000, -1, 0xD1, "h"),
+                              (0, 0xFFFFFFFF, 0xCE, "I"), (-0x80000000, -1, 0xD2, "i"),
+                              (0, 0xFFFFFFFFFFFFFFFF, 0xCF, "Q"),
+                              (-0x8000000000000000, -1, 0xD3, "q")):
+        if lo <= v <= hi:
+            out.append(struct.pack(">B" + fmt, code, v))
+            return
+    raise MsgpackError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(out: list, code: int, data: bytes) -> None:
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(struct.pack("B", fixed[n]))
+    else:
+        _header(out, n, 0, 0, (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack("b", code))
+    out.append(data)
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    """flax's ``_ndarray_to_bytes``: the msgpack triple (shape, dtype name,
+    C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise MsgpackError("object and structured dtypes are not written")
+    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _pack(out: list, v: Any) -> None:
+    """One value, as msgpack's packer with ``strict_types=True`` and flax's
+    ``default`` writes it: exact Python types by their msgpack type, numpy
+    arrays and numpy scalars as ext types."""
+    t = type(v)
+    if v is None:
+        out.append(b"\xc0")
+    elif t is bool:
+        out.append(b"\xc3" if v else b"\xc2")
+    elif t is int:
+        _pack_int(out, v)
+    elif t is float:
+        out.append(struct.pack(">Bd", 0xCB, v))
+    elif t is str:
+        data = v.encode("utf-8")
+        _header(out, len(data), 0xA0, 0x20, (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif t in (bytes, bytearray):
+        _header(out, len(v), 0, 0, (0xC4, 0xC5, 0xC6))
+        out.append(bytes(v))
+    elif t in (list, tuple):
+        _header(out, len(v), 0x90, 0x10, (0, 0xDC, 0xDD))
+        for item in v:
+            _pack(out, item)
+    elif t is dict:
+        _header(out, len(v), 0x80, 0x10, (0, 0xDE, 0xDF))
+        for key, item in v.items():
+            _pack(out, key)
+            _pack(out, item)
+    elif isinstance(v, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+    elif t is complex:
+        _pack_ext(out, _EXT_COMPLEX, packb([v.real, v.imag]))
+    else:
+        raise MsgpackError(f"cannot write a {t.__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """``obj`` as msgpack bytes (the inverse of ``unpackb``)."""
+    out: list = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    """flax's ``_chunk``: an array as its flat chunks of at most
+    ``MAX_CHUNK_SIZE`` bytes, tuples written as dicts keyed "0", "1", ..."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    return {_CHUNKED: True,
+            "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _chunked(tree: Any) -> Any:
+    """The tree with every array above ``MAX_CHUNK_SIZE`` bytes in chunks
+    (flax ``_chunk_array_leaves_in_place``, on a copy)."""
+    if isinstance(tree, dict):
+        return {k: _chunked(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """flax ``serialization.msgpack_serialize``: the bytes ``to_bytes``
+    writes for ``tree`` (nested dicts of numpy arrays, as
+    ``msgpack_restore`` gives them)."""
+    return packb(_chunked(tree))

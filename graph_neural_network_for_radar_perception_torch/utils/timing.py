@@ -23,10 +23,10 @@ HOST_LAUNCH_CALLS = frozenset((
     "cudaGraphLaunch", "cuGraphLaunch"))
 HOST_COPY_CALLS = frozenset(("cudaMemcpyAsync", "cudaMemcpy", "cuMemcpyAsync",
                              "cuMemcpyHtoDAsync_v2", "cuMemcpyDtoHAsync_v2"))
-# The port's profiler ranges (a train step's parts and replay, a
-# detector's and any other capture's replay): on the device timeline they are annotations that
-# span kernels, not kernels.
-RANGE_PREFIXES = ("train_step.", "detect.", "captured.")
+# The port's profiler ranges (a train step's parts and replay, an eval
+# step's, a detector's and any other capture's replay): on the device
+# timeline they are annotations that span kernels, not kernels.
+RANGE_PREFIXES = ("train_step.", "eval_step.", "detect.", "captured.")
 
 
 def event_ms(fn, reps: int = 50, inner: int = 20) -> float:

@@ -19,7 +19,7 @@ from graph_neural_network_for_radar_perception_torch.config.config import (
 from graph_neural_network_for_radar_perception_torch.models import classifier as TCL
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.train import finetune as TFT
-from graph_neural_network_for_radar_perception_torch.train.steps import TrainState
+from graph_neural_network_for_radar_perception_torch.train.steps import Optimizer, TrainState
 from graph_neural_network_for_radar_perception_torch.utils.convert import (
     classifier_state_dict_from_flax,
     state_dict_from_flax,
@@ -168,6 +168,70 @@ def test_train_steps_match_jax(samples):
     assert state.updates == STEPS and state.step == STEPS + 1
 
 
+def test_batched_loss_is_one_model_call_and_matches_jax(samples):
+    """``loss_fn`` over a batch: one model call (a leading sample axis, the
+    JAX step's vmap), the loss and accuracy of JAX's vmapped ``loss_fn``,
+    and the mean of one call a sample."""
+    tc, jc, ts, js = samples
+    _, params, model = _models(tc, jc, js)
+    _, _, _, jloss = JCL.make_classifier_train_step(jc)
+    _, _, loss_fn = TCL.make_classifier_train_step(tc)
+    batch = TCL.stack_samples(ts).to("cpu")
+    calls = []
+    hook = model.register_forward_hook(lambda m, i, o: calls.append(o.shape))
+    with torch.no_grad():
+        loss, acc = loss_fn(model, batch)
+    hook.remove()
+    assert calls == [(len(ts), tc.max_objects, tc.num_classes)]
+    want_loss, want_acc = jloss(params, _jbatch(js))
+    np.testing.assert_allclose(float(loss), float(want_loss), **TOL)
+    np.testing.assert_allclose(float(acc), float(want_acc), **TOL)
+    with torch.no_grad():
+        one = [TCL.classifier_loss(model(batch.at(b)), batch.at(b), tc.num_classes)
+               for b in range(len(ts))]
+    np.testing.assert_allclose(float(loss), float(torch.stack([o[0] for o in one]).mean()),
+                               **TOL)
+    np.testing.assert_allclose(float(acc), float(torch.stack([o[1] for o in one]).mean()),
+                               **TOL)
+
+
+def test_two_steps_then_a_nan_sample_skips_bitwise(samples):
+    """Two steps against JAX's jitted step on the flat optimiser, then a
+    batch with one NaN sample: skipped whole in both packages, the
+    parameters and the momentum buffer bit for bit, the step counted."""
+    tc, jc, ts, js = samples
+    _, jinit, jstep, _ = JCL.make_classifier_train_step(jc)
+    jstate = jinit(jax.random.key(1), js[0])
+    init, step, _ = TCL.make_classifier_train_step(tc)
+    state = init(device="cpu")
+    assert isinstance(state.optimizer, Optimizer)
+    state.model.load_state_dict(classifier_state_dict_from_flax(
+        jax.tree.map(np.asarray, jstate.params)))
+    batch, jbatch = TCL.stack_samples(ts), _jbatch(js)
+    for i in range(2):
+        jstate, jm = jstep(jstate, jbatch)
+        state, m = step(state, batch)
+        for k in ("loss_obj_cls", "object_accuracy", "skipped"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), **STEP_TOL,
+                                       err_msg=f"step {i} {k}")
+        want = classifier_state_dict_from_flax(jax.tree.map(np.asarray, jstate.params))
+        for k, v in state.model.state_dict().items():
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), **STEP_TOL,
+                                       err_msg=f"step {i} {k}")
+    flat = state.optimizer.flat.clone()
+    moments = state.optimizer.moments["momentum_buffer"].clone()
+    assert moments.abs().sum() > 0
+    feat = np.array(batch.point_feat)
+    feat[2, 1, 3] = np.nan  # one sample of four
+    bad = batch._replace(point_feat=feat)
+    jstate, jm = jstep(jstate, JCL.ClassifierSample(*map(jnp.asarray, bad)))
+    state, m = step(state, bad)
+    assert float(m["skipped"]) == float(jm["skipped"]) == 1.0
+    assert torch.equal(state.optimizer.flat, flat)
+    assert torch.equal(state.optimizer.moments["momentum_buffer"], moments)
+    assert (state.step, state.updates) == (3, 2)
+
+
 def test_classifier_refuses_the_card_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     init, _, _ = TCL.make_classifier_train_step(TCL.ClassifierConfig(**tiny_ccfg()))
@@ -215,12 +279,15 @@ def _finetune_states(jcfg, cfg, params):
 def test_finetune_updates_only_object_head_as_jax(finetune_setup):
     """Three steps: the same metrics, ``predict_class`` within STEP_TOL of
     JAX after each step and moved; everything else bit for bit as loaded
-    (JAX's set_to_zero, the port's requires_grad_(False))."""
+    (JAX's set_to_zero; the port's optimiser holds ``predict_class`` alone
+    and every parameter keeps ``requires_grad`` for the finiteness
+    check)."""
     jcfg, cfg, params, batches = finetune_setup
     jstep, jstate, step, state = _finetune_states(jcfg, cfg, params)
     loaded = {k: v.clone() for k, v in state.model.state_dict().items()}
-    assert not any(p.requires_grad for n, p in state.model.named_parameters()
-                   if not n.startswith("predict_class."))
+    assert all(p.requires_grad for p in state.model.parameters())
+    assert {id(p) for p in state.optimizer.params} == {
+        id(p) for n, p in state.model.named_parameters() if n.startswith("predict_class.")}
     for i, b in enumerate(batches):
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, b))
         state, m = step(state, b)
@@ -241,8 +308,8 @@ def test_finetune_updates_only_object_head_as_jax(finetune_setup):
 def test_finetune_nan_skip_agrees_with_jax(finetune_setup):
     """The ordinary skip: a NaN in a node feature makes the loss NaN, and
     both packages skip the batch with nothing changed.  (A batch whose
-    frozen trunk gradient alone overflows is skipped by JAX only: ROADMAP.md
-    C6.)"""
+    frozen trunk gradient alone is not finite:
+    tests/test_torch_finetune_batched.py.)"""
     jcfg, cfg, params, batches = finetune_setup
     jstep, jstate, step, state = _finetune_states(jcfg, cfg, params)
     node_feat = batches[0].graph.node_feat.copy()

@@ -25,6 +25,7 @@ from graph_neural_network_for_radar_perception_torch.data.pipeline import (
     preprocess_frame_hybrid as t_hybrid,
 )
 from graph_neural_network_for_radar_perception_torch.models import cnn as TC
+from graph_neural_network_for_radar_perception_torch.train.steps import Optimizer
 from graph_neural_network_for_radar_perception_torch.utils.convert import (
     cnn_state_dict_from_flax,
     ws_conv_state_dict_from_flax,
@@ -344,6 +345,56 @@ def test_train_steps_match_jax(rng):
     assert float(m["skipped"]) == float(jm["skipped"]) == 1.0
     assert all(torch.equal(v, before[k]) for k, v in state.model.state_dict().items())
     assert state.updates == STEPS and state.step == STEPS + 1
+
+
+def test_two_steps_then_a_skip_on_the_flat_optimiser(rng, monkeypatch):
+    """The step as JAX jits it: two steps against ``make_grid_train_step``
+    (TINY widths) on the flat optimiser, then a batch with an infinite
+    offset target (a finite image: the loss overflows) skipped in both
+    packages with the parameters and the momentum buffer bit for bit; the
+    loss makes no tensor from host values (``torch.tensor``) that a
+    captured step would have to copy."""
+    hw = (32, 32)  # test_train_steps_match_jax's shapes: XLA's compile cache serves both
+    tcfg, jcfg, _, _, _, (image, vr, rcs) = _detectors(TINY, hw, batch=2)
+    labels, offsets = _labels(rng, 2, hw)
+    _, jinit, jstep, _ = JC.make_grid_train_step(jcfg)
+    jstate = jinit(jax.random.key(0), image, vr, rcs)
+    init, step, _ = TC.make_grid_train_step(tcfg)
+    state = init(device="cpu")
+    assert isinstance(state.optimizer, Optimizer)
+    state.model.load_state_dict(cnn_state_dict_from_flax(
+        jax.tree.map(np.asarray, jstate.params), tcfg))
+    made, real_tensor = [], torch.tensor
+
+    def recorded_step(*a):
+        monkeypatch.setattr(torch, "tensor", lambda *t, **k: made.append(t) or real_tensor(*t, **k))
+        try:
+            return step(*a)
+        finally:
+            monkeypatch.setattr(torch, "tensor", real_tensor)
+
+    args = (image, vr, rcs, labels, offsets)
+    for i in range(2):
+        jstate, jm = jstep(jstate, *args)
+        state, m = (step if i == 0 else recorded_step)(state, *args)
+        for k in ("loss_cls", "loss_reg", "loss_total", "skipped"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), **STEP_TOL,
+                                       err_msg=f"step {i} {k}")
+        want = cnn_state_dict_from_flax(jax.tree.map(np.asarray, jstate.params), tcfg)
+        for k, v in state.model.state_dict().items():
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), **STEP_TOL,
+                                       err_msg=f"step {i} {k}")
+    assert not made
+    flat = state.optimizer.flat.clone()
+    moments = state.optimizer.moments["momentum_buffer"].clone()
+    bad = offsets.copy()
+    bad[0, 5, 5, 0] = np.inf  # a valid dynamic cell (labels 0-5 at [5:15, 5:15])
+    jstate, jm = jstep(jstate, image, vr, rcs, labels, bad)
+    state, m = step(state, image, vr, rcs, labels, bad)
+    assert float(m["skipped"]) == float(jm["skipped"]) == 1.0
+    assert torch.equal(state.optimizer.flat, flat)
+    assert torch.equal(state.optimizer.moments["momentum_buffer"], moments)
+    assert (state.step, state.updates) == (3, 2)
 
 
 def test_grid_trainer_refuses_the_card_without_one(monkeypatch):

@@ -489,7 +489,8 @@ def test_captured_finetune_equals_eager_step(cuda_device):
     the same body run eagerly on the card from the same weights: metrics
     and the head's parameters within 1e-5 (index_add_ atomics in the head's
     backward), the trunk unchanged; the forward kernel one launch a round a
-    replay for the batch, the backward never."""
+    replay for the batch, and the backward too (the trunk's gradient for
+    the finiteness check, ROADMAP C6)."""
     cfg = tiny_test_config(batch_size=4)
     build, _ = FT.make_finetune_step(cfg)
     states, steps = [], []
@@ -512,8 +513,9 @@ def test_captured_finetune_equals_eager_step(cuda_device):
                                        err_msg=k)
     rounds = len(cfg.graph_convolution_stem_channels)
     assert step.captured.replays == 3 and len(step.captured.graphs) == 1
-    assert FM.fused_message_pass.launches - fwd == rounds * (3 + S.CapturedStep.WARMUP_RUNS + 3)
-    assert FM.fused_message_pass_backward.launches == bwd
+    runs = rounds * (3 + S.CapturedStep.WARMUP_RUNS + 3)
+    assert FM.fused_message_pass.launches - fwd == runs
+    assert FM.fused_message_pass_backward.launches - bwd == runs
     assert (cap.step, cap.updates) == (eager.step, eager.updates) == (3, 3)
     want = eager.model.state_dict()
     for k, v in cap.model.state_dict().items():
@@ -522,6 +524,177 @@ def test_captured_finetune_equals_eager_step(cuda_device):
         else:
             np.testing.assert_allclose(v.cpu().numpy(), want[k].cpu().numpy(), rtol=1e-5,
                                        atol=1e-6, err_msg=k)
+
+
+def _bitwise_or_close(got, want, eager_again, tol):
+    """Captured ``got`` against eager ``want`` (dicts of tensors): bit for
+    bit where two eager runs (``want``, ``eager_again``) agree bit for bit,
+    else within ``tol`` (the momentum, a step's gradient summed with
+    atomics, within 1e-4 of its largest element, as chip_smoke's
+    MOMENTUM_SCALE)."""
+    bitwise = all(torch.equal(want[k], eager_again[k]) for k in want)
+    for k, v in want.items():
+        g, w = got[k].cpu(), v.cpu()
+        if bitwise:
+            assert torch.equal(g, w), k
+        elif k == "momentum_buffer":
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **tol, err_msg=k)
+    return bitwise
+
+
+def _captured_against_eager(step, state, args, body_args, eager, tol):
+    """One captured step from ``state``, then its eager body on each of the
+    two ``eager`` states given ``state``'s values from before the step;
+    the captured metrics, parameters and momentum against them
+    (``_bitwise_or_close``: the case decided over all of them)."""
+    pre = [t.clone() for t in state.tensors()]
+    state, m = step(state, *args)
+    outs = []
+    for other in eager:
+        for dst, src in zip(other.tensors(), pre):
+            dst.copy_(src)
+        outs.append({**step.captured.body(other, body_args), **_params_and_moments(other)})
+    _bitwise_or_close({**m, **_params_and_moments(state)}, *outs, tol)
+    return state
+
+
+def _classifier_setup(batch=4, count=3):
+    from graph_neural_network_for_radar_perception_torch.models import classifier as CL
+
+    ccfg = CL.ClassifierConfig(node_feat_enc_stem_channels=(32, 32),
+                               graph_convolution_stem_channels=(32, 24),
+                               msg_mlp_hidden_dim=32, node_pred_stem_channels=(32, 32),
+                               max_points=128, max_objects=16, max_edges=1024)
+    ds = SyntheticRadarDataset(tiny_test_config(), seed=0, num_objects=2)
+    batches = []
+    while len(batches) < count:
+        samples = []
+        while len(samples) < batch:
+            fr = ds.sample_frame()
+            s = CL.build_classifier_sample(fr.other_feat[:, :2], fr.node_feat[:, 1],
+                                           fr.node_class, fr.node2cluster,
+                                           int(fr.cluster_class.shape[0]), ccfg)
+            if s is not None:
+                samples.append(s)
+        batches.append(CL.stack_samples(samples))
+    return CL, ccfg, batches
+
+
+def _params_and_moments(state):
+    return {"params": state.optimizer.flat, **state.optimizer.moments}
+
+
+def test_captured_classifier_step_equals_eager_step(cuda_device):
+    """Three classifier steps replayed from one captured CUDA graph (one
+    model call for the batch) against the eager body on the card from the
+    same state before each step: metrics, parameters and momentum bit for
+    bit where the eager step repeats itself bit for bit, else within 1e-5
+    (the momentum 1e-4 of its largest element); one capture, three
+    replays."""
+    CL, ccfg, batches = _classifier_setup()
+    init, step, _ = CL.make_classifier_train_step(ccfg)
+    cap, eager, again = (init(torch.Generator().manual_seed(0), device=cuda_device)
+                         for _ in range(3))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for batch in batches:
+        cap = _captured_against_eager(step, cap, (batch,), batch.to(cuda_device),
+                                      (eager, again), tol)
+    assert step.captured.replays == 3 and len(step.captured.graphs) == 1
+    assert (cap.step, cap.updates) == (3, 3)
+
+
+def test_captured_cnn_step_equals_eager_step(cuda_device):
+    """Two grid-CNN steps (small widths, TF32 off) replayed from one captured
+    CUDA graph against the eager body on the card: bit for bit where the
+    eager step repeats itself bit for bit (cuDNN's weight-gradient
+    algorithms need not), else within 1e-5; then a batch with an infinite
+    target skipped with the state bit for bit."""
+    from graph_neural_network_for_radar_perception_torch.data.labels import INVALID_NUM
+    from graph_neural_network_for_radar_perception_torch.models import cnn as CNN
+
+    torch.backends.cudnn.allow_tf32 = False
+    ccfg = CNN.CNNConfig(base_stem_channels=(8, 8), base_kernel_sizes=(5, 3),
+                         bottleneck_number_of_blocks=(1, 1), bottleneck_stem_channels=(16, 16),
+                         bottleneck_width_channels=8, neck_out_channels=8,
+                         head_stem_channels=(8,), head_ffn_channels=(8,), learning_rate=0.01)
+    rng = np.random.default_rng(0)
+    hw = (32, 32)
+    labels = np.full((2,) + hw, INVALID_NUM, np.float32)
+    labels[:, 5:15, 5:15] = rng.integers(0, 8, (2, 10, 10))
+    arrays = (rng.normal(size=(2,) + hw + (3,)).astype(np.float32),
+              rng.normal(size=(2,) + hw).astype(np.float32),
+              rng.normal(size=(2,) + hw).astype(np.float32), labels,
+              rng.normal(size=(2,) + hw + (2,)).astype(np.float32))
+    init, step, _ = CNN.make_grid_train_step(ccfg)
+    cap, eager, again = (init(torch.Generator().manual_seed(0), device=cuda_device)
+                         for _ in range(3))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for _ in range(2):
+        cap = _captured_against_eager(step, cap, arrays, dev, (eager, again), tol)
+    before = {k: v.clone() for k, v in _params_and_moments(cap).items()}
+    bad = arrays[4].copy()
+    bad[0, 6, 6, 0] = np.inf
+    cap, m = step(cap, *arrays[:4], bad)
+    assert float(m["skipped"]) == 1.0
+    assert all(torch.equal(v, before[k]) for k, v in _params_and_moments(cap).items())
+    assert step.captured.replays == 3 and len(step.captured.graphs) == 1
+    assert (cap.step, cap.updates) == (3, 2)
+
+
+@pytest.mark.parametrize("mp_impl", [None, "csr"], ids=["fused", "csr"])
+def test_captured_eval_step_equals_eager_and_sees_new_weights(cuda_device, mp_impl):
+    """The eval step replayed from one captured CUDA graph against its eager
+    body on the card, bit for bit where the eager body repeats itself bit
+    for bit (else within 1e-6); again after a train step updated the
+    weights in place (the replay reads them there); one capture, one launch
+    of the round kernel a round a replay."""
+    cfg = tiny_test_config(csr_edge_tile=128, csr_window=64, mp_impl=mp_impl)
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    train_step, eval_step = S.make_train_step(cfg), S.make_eval_step(cfg)
+    kernel = C.fused_message_pass_csr if mp_impl == "csr" else FM.fused_message_pass
+    batches = [_tiny_batch(cfg, seed=s) for s in (7, 8)]
+    tol = dict(rtol=1e-6, atol=1e-7)
+    for i, batch in enumerate(batches + batches[:1]):
+        if i == 2:
+            old = eval_step(state.model, batch)
+            state, _ = train_step(state, batches[1])
+        before = kernel.launches
+        got = eval_step(state.model, batch)
+        replay = kernel.launches - before
+        dev = S.batch_on(batch, cuda_device)
+        _bitwise_or_close(got, eval_step.body(state.model, dev), eval_step.body(state.model, dev),
+                          tol)
+        rounds = len(cfg.graph_convolution_stem_channels)
+        assert replay == rounds * (1 + (S.CapturedGraphs.WARMUP_RUNS if i == 0 else 0))
+    assert not torch.equal(got["loss_total"], old["loss_total"])  # the new weights seen
+    assert len(eval_step.captured.graphs) == 1 and eval_step.captured.replays == 4
+
+
+def test_failed_step_capture_raises_and_keeps_the_state(cuda_device, monkeypatch):
+    """A classifier step whose loss is read on the host fails its capture
+    (the second warm-up, under sync debug "error"): it raises, keeps no
+    graph, replays nothing and leaves the parameters, the momentum and the
+    counts as they were (the warm-ups' writes undone)."""
+    CL, ccfg, batches = _classifier_setup(count=1)
+    init, step, loss_fn = CL.make_classifier_train_step(ccfg)
+    state = init(torch.Generator().manual_seed(0), device=cuda_device)
+    real = CL.classifier_loss
+
+    def syncing_loss(*a, **k):
+        loss, acc = real(*a, **k)
+        return (loss if float(loss.sum()) >= 0 else loss), acc
+
+    monkeypatch.setattr(CL, "classifier_loss", syncing_loss)
+    before = {k: v.clone() for k, v in _params_and_moments(state).items()}
+    counters = state.counters.clone()
+    with pytest.raises(RuntimeError):
+        step(state, batches[0])
+    assert not step.captured.graphs and step.captured.replays == 0
+    assert all(torch.equal(v, before[k]) for k, v in _params_and_moments(state).items())
+    assert torch.equal(state.counters, counters)
 
 
 # ------------------------------------------------------------- the CSR round

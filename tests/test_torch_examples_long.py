@@ -21,7 +21,13 @@ from graph_neural_network_for_radar_perception_torch.examples import (
 from graph_neural_network_for_radar_perception_torch.scripts import (
     train_fixture_artifact as TFIX,
 )
-from torch_examples_support import Carry, assert_steps_close, load_root, run_jax
+from torch_examples_support import (
+    Carry,
+    assert_msgpack_like_jax,
+    assert_steps_close,
+    load_root,
+    run_jax,
+)
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 LOSSES = ("loss_total", "loss_node_cls", "loss_edge_cls", "loss_node_reg", "loss_obj_cls")
@@ -100,4 +106,7 @@ def test_train_fixture_artifact_matches_jax(monkeypatch, carry, tmp_path):
     with open(os.path.join(out, "config.json")) as f:
         cfg = json.load(f)
     assert (cfg["max_nodes"], cfg["batch_size"], cfg["max_train_iter"]) == (256, 4, 2)
-    assert sorted(os.listdir(out)) == ["README.md", "config.json", "eval", "weights.pt"]
+    assert sorted(os.listdir(out)) == ["README.md", "config.json", "eval", "weights.msgpack",
+                                       "weights.pt"]
+    assert_msgpack_like_jax(os.path.join(out, "weights.msgpack"),
+                            tmp_path / "jax" / "weights.msgpack")

@@ -20,7 +20,13 @@ from graph_neural_network_for_radar_perception_torch.examples import (
 from graph_neural_network_for_radar_perception_torch.examples import overfit_gnn as TOVER
 from graph_neural_network_for_radar_perception_torch.examples import train_gnn as TTRAIN
 from graph_neural_network_for_radar_perception_tpu.data import prefetch as JP
-from torch_examples_support import Carry, assert_steps_close, load_root, run_jax
+from torch_examples_support import (
+    Carry,
+    assert_msgpack_like_jax,
+    assert_steps_close,
+    load_root,
+    run_jax,
+)
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 LOSSES = ("loss_total", "loss_node_cls", "loss_edge_cls", "loss_node_reg", "loss_obj_cls")
@@ -96,4 +102,6 @@ def test_demo_training_run_matches_jax(monkeypatch, carry, tmp_path):
     assert (tmp_path / "port" / "params.pt").exists()
     np.testing.assert_array_equal(sorted(os.listdir(tmp_path / "port")),
                                   ["eval_after.json", "eval_before.json", "metrics.jsonl",
-                                   "params.pt"])
+                                   "params.msgpack", "params.pt"])
+    assert_msgpack_like_jax(tmp_path / "port" / "params.msgpack",
+                            tmp_path / "jax" / "params.msgpack")

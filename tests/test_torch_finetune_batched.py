@@ -1,10 +1,11 @@
 """Object-head finetuning as the JAX package compiles it, in the port: one
 ``batched_deploy`` for the batch, the majority vote and cross-entropy with
 the graph axis, optax's chain(add_decayed_weights, sgd) on the head's flat
-parameters (``train/steps.Optimizer``) and the branchless NaN skip.  On
-the CPU, at tiny widths, against the JAX package's ``make_finetune_step``
-on the same weights (``state_dict_from_flax``) and numpy-seeded batches,
-and against one deploy a graph.  The captured step needs a card
+parameters (``train/steps.Optimizer``) and the branchless NaN skip over
+every gradient, the frozen trunk's included.  On the CPU, at tiny widths,
+against the JAX package's ``make_finetune_step`` on the same weights
+(``state_dict_from_flax``) and numpy-seeded batches, and against one
+deploy a graph.  The captured step needs a card
 (``tests/test_torch_cuda.py``)."""
 
 import dataclasses
@@ -175,3 +176,81 @@ def test_nan_batch_keeps_head_and_momentum_bitwise(setup):
     assert all(torch.equal(v, _head(state)[k]) for k, v in head.items())
     assert torch.equal(state.optimizer.moments["momentum_buffer"], moments)
     assert state.step == 2 and state.updates == 1
+
+
+def _trunk_overflow(batch):
+    """The batch with one padded (masked) edge of graph 1 given features of
+    3e38, finite: its encoding overflows, the masked sum drops it, so the
+    loss and the head's gradient stay finite, but the trunk's gradient is
+    NaN (0 x inf in the encoder's and message MLP's weight gradients)."""
+    mask = batch.graph.edge_mask
+    edge = int(np.flatnonzero(~mask[1])[0])
+    edge_feat = batch.graph.edge_feat.copy()
+    edge_feat[1, edge, :] = 3e38
+    return dataclasses.replace(batch, graph=dataclasses.replace(batch.graph,
+                                                                edge_feat=edge_feat))
+
+
+def test_trunk_gradient_alone_not_finite_skips_as_jax(setup):
+    """ROADMAP C6: a batch of finite inputs whose loss and head gradient
+    are finite but whose frozen trunk gradient is not.  JAX's step skips it
+    (``all_finite`` over the whole tree); so does the port's, keeping the
+    head, its momentum and the trunk bit for bit, the step counted."""
+    jcfg, cfg, params, batches = setup
+    bad = _trunk_overflow(batches[1])
+    assert np.isfinite(bad.graph.edge_feat).all()
+    # The case on the JAX side: loss and head gradient finite, trunk not.
+    _, jloss = JFT.make_finetune_step(jcfg)
+    jbad = jax.tree.map(jnp.asarray, bad)
+    loss, grads = jax.jit(jax.value_and_grad(lambda p, b: jloss(p, b)[0]))(params, jbad)
+    finite = {k: all(bool(jnp.isfinite(x).all()) for x in jax.tree.leaves(v))
+              for k, v in grads.items()}
+    assert np.isfinite(float(loss)) and finite["predict_class"]
+    assert not finite["pass_messages"] and not finite["encode_edge_feat"]
+
+    jstep, jstate, step, state = _states(jcfg, cfg, params)
+    jstate, _ = jstep(jstate, jax.tree.map(jnp.asarray, batches[0]))
+    state, _ = step(state, batches[0])
+    head, moments = _head(state), state.optimizer.moments["momentum_buffer"].clone()
+    trunk = {k: v.clone() for k, v in state.model.state_dict().items()
+             if not k.startswith(TFT.TRAINED + ".")}
+    assert moments.abs().sum() > 0
+    jstate, jm = jstep(jstate, jbad)
+    state, m = step(state, bad)
+    assert float(m["skipped"]) == float(jm["skipped"]) == 1.0
+    np.testing.assert_allclose(float(m["loss_obj_cls"]), float(jm["loss_obj_cls"]), **TOL)
+    assert all(torch.equal(v, _head(state)[k]) for k, v in head.items())
+    assert torch.equal(state.optimizer.moments["momentum_buffer"], moments)
+    assert all(torch.equal(v, state.model.state_dict()[k]) for k, v in trunk.items())
+    assert state.step == 2 and state.updates == 1
+    # The next ordinary batch is taken again, as in JAX.
+    jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batches[2]))
+    state, m = step(state, batches[2])
+    assert float(m["skipped"]) == float(jm["skipped"]) == 0.0
+    want = state_dict_from_flax(jax.tree.map(np.asarray, jstate.params))
+    for k, v in _head(state).items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), **TOL, err_msg=k)
+
+
+def test_trunk_gradient_reaches_the_check(setup):
+    """The step takes the trunk's gradient (every parameter keeps
+    ``requires_grad``; the optimiser holds the head alone): a test-side
+    hook that makes one trunk gradient infinite skips the batch, with the
+    head, its momentum and the trunk bit for bit."""
+    jcfg, cfg, params, batches = setup
+    _, _, step, state = _states(jcfg, cfg, params)
+    state, _ = step(state, batches[0])
+    head, moments = _head(state), state.optimizer.moments["momentum_buffer"].clone()
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    weight = state.model.pass_messages.blocks[0].msg_mlp.blocks[0].linear.weight
+    hook = weight.register_hook(lambda g: g * float("inf"))
+    try:
+        state, m = step(state, batches[1])
+    finally:
+        hook.remove()
+    assert float(m["skipped"]) == 1.0 and np.isfinite(float(m["loss_obj_cls"]))
+    assert torch.equal(state.optimizer.moments["momentum_buffer"], moments)
+    assert all(torch.equal(v, before[k]) for k, v in state.model.state_dict().items())
+    assert all(torch.equal(v, _head(state)[k]) for k, v in head.items())
+    state, m = step(state, batches[1])
+    assert float(m["skipped"]) == 0.0 and (state.step, state.updates) == (3, 2)

@@ -98,3 +98,13 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(f"{d}/trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_step_timing_refuses_without_a_card(monkeypatch, capsys):
+    """``scripts/step_timing.py`` measures on a card only: without one it
+    exits 1 and prints no result."""
+    from graph_neural_network_for_radar_perception_torch.scripts import step_timing
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert step_timing.main([]) == 1
+    assert capsys.readouterr().out == ""

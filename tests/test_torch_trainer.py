@@ -1,8 +1,11 @@
 """The port's scan and training loop against its own train step (on the
 CPU): ``make_train_scan`` == sequential ``make_train_step`` calls, one batch
 reused or batches stacked; ``train()`` over 5 batches == 5 steps, with its
-logging, validation and checkpoint hooks."""
+logging, validation and checkpoint hooks; the eval step against the JAX
+package's jitted ``make_eval_step`` on the same weights and batch."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,15 @@ from graph_neural_network_for_radar_perception_torch.utils.checkpoint import (
 from graph_neural_network_for_radar_perception_torch.utils.metrics_writer import (
     RunningMeans,
 )
+from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
+from graph_neural_network_for_radar_perception_torch.utils.convert import (
+    state_dict_from_flax,
+)
+from graph_neural_network_for_radar_perception_tpu.config import config as JC
+from graph_neural_network_for_radar_perception_tpu.data.pipeline import (
+    SyntheticRadarDataset as JSyntheticRadarDataset,
+)
+from graph_neural_network_for_radar_perception_tpu.train import steps as JS
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -141,3 +153,26 @@ def test_eval_step_takes_no_gradient(cfg):
     assert set(m) >= {"loss_total", "segment_accuracy"}
     assert all(not v.requires_grad and np.isfinite(float(v)) for v in m.values())
     assert all(p.grad is None for p in st.model.parameters())
+
+
+@pytest.mark.parametrize("mp_impl", [None, "csr"], ids=["fused", "csr"])
+def test_eval_step_matches_jax(mp_impl):
+    """The eval step's metrics against JAX's jitted ``make_eval_step`` on
+    the same weights (``state_dict_from_flax``) and numpy batches (f32 on
+    two CPU backends: 1e-5), each message pass; no gradient anywhere."""
+    overrides = {} if mp_impl is None else dict(mp_impl=mp_impl)
+    jcfg, cfg = JC.tiny_test_config(**overrides), tiny_test_config(**overrides)
+    params = JS.init_params(jcfg, jax.random.key(4))
+    model = RadarGNN(cfg)
+    model.load_state_dict(state_dict_from_flax(jax.tree.map(np.asarray, params)))
+    gen = JSyntheticRadarDataset(jcfg, seed=33, num_objects=3).batches(jcfg.batch_size)
+    jeval, teval = JS.make_eval_step(jcfg), S.make_eval_step(cfg)
+    for _ in range(2):
+        batch = next(gen)
+        want = jeval(params, jax.tree.map(jnp.asarray, batch))
+        got = teval(model, batch)
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+    assert all(p.grad is None for p in model.parameters())

@@ -228,6 +228,36 @@ class Carry:
         return log
 
 
+def assert_msgpack_like_jax(port_path, jax_path):
+    """The flax msgpack file the port wrote (``port_path``) read by the JAX
+    package's ``load_params_msgpack`` with the JAX run's file
+    (``jax_path``) as its template: the same keys in the same order at
+    every level, the same shapes and dtypes, and values within STEP_TOL
+    (the two runs trained alike, each on its own backend)."""
+    from flax import serialization
+
+    from graph_neural_network_for_radar_perception_tpu.utils.checkpoint import (
+        load_params_msgpack,
+    )
+
+    with open(jax_path, "rb") as f:
+        want = serialization.msgpack_restore(f.read())
+    got = load_params_msgpack(want, str(port_path))
+    with open(port_path, "rb") as f:
+        raw = serialization.msgpack_restore(f.read())
+    paths = jax.tree_util.tree_flatten_with_path(raw)[0]
+    assert [p for p, _ in paths] == [p for p, _ in jax.tree_util.tree_flatten_with_path(want)[0]]
+
+    def keys(tree):
+        return [(k, keys(v)) for k, v in tree.items()] if isinstance(tree, dict) else None
+
+    assert keys(raw) == keys(want)
+    for (path, g), w in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                            jax.tree.leaves(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        np.testing.assert_allclose(g, w, **STEP_TOL, err_msg=str(path))
+
+
 def assert_steps_close(got, want, keys=None, what=""):
     """Per-step metrics of the port (``got``) against JAX's at STEP_TOL."""
     assert len(got) == len(want) and want, (len(got), len(want))
