@@ -149,12 +149,16 @@ Phases, each reported on its own line:
     step 2 x 2 with the fused and with the CSR round (the message kernels
     on each rank's edge shard, one launch a round for the rank's graphs)
     and the halo step 2 x 2 on spatially sorted frames (plain rounds: no
-    kernel); then one rank under NCCL runs data parallelism 1 x 1.  Each
-    mode held to the single-process train step on the card from the same
-    weights and batch, its first step to the plain rounds on the CPU, every
-    rank's params bitwise equal, the launches and the all-reduces per rank
-    and step exact, ms per step per rank and the host ms blocked in the
-    all-reduces;
+    kernel), each step eager (gloo stages CUDA tensors through the host);
+    then one rank under NCCL runs data parallelism 1 x 1, its step one
+    captured CUDA graph replayed a step.  Each mode held to the
+    single-process train step on the card from the same weights and batch,
+    its first step to the plain rounds on the CPU, every rank's params
+    bitwise equal, the launches and the collectives per rank and step exact
+    (the data-parallel ones by kind and bytes), captured or eager as its
+    backend says (one host launch a replay, also in a profile); ms per step
+    per rank beside the single-process step's, the host ms blocked in the
+    collectives of an eager step, each kind's calls and bytes a replay;
 23. [examples] the user entry points, each through its ``main`` on the
     card at its shipped widths for 2 steps or frames, into a temporary
     directory: the 11 ``examples/`` (``visualize`` its detection half: this
@@ -163,7 +167,12 @@ Phases, each reported on its own line:
     fused-kernel launches, ``overfit_gnn``'s step 1 replayed on the CPU,
     ``evaluate``'s confusion on the card equal to the CPU's, every file
     written parsed, the wall time of each;
-24. print the kernel table as JSON and the card's name and power limit.
+24. [sweep] the port's batch sweep (``scripts/sweep_batch.py``) of
+    ``train_b8`` at batch 8, 16 and 32, each size in its own process: ms a
+    step from the slope of 20- and 80-step runs of the captured step,
+    edge messages a second, occupancy, analytic TFLOP/s and its share of
+    the card's f32 peak; a size that fails fails the phase;
+25. print the kernel table as JSON and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  Needs one CUDA card, nvcc and no network; imports
@@ -180,12 +189,13 @@ nothing of JAX.
     python3 chip_smoke.py --phase cnn         # classifier, eval-step
     python3 chip_smoke.py --phase parallel
     python3 chip_smoke.py --phase examples
+    python3 chip_smoke.py --phase sweep
     python3 chip_smoke.py --phase train       # [batched] and the train phases
     python3 chip_smoke.py --phase deploy      # [deploy] and [deploy-csr]
 
 build the libraries a phase needs and run phase 3 (the fused backward),
 phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
-plane) or one of phases 17-23 (21b included) alone, or only a
+plane) or one of phases 17-24 (21b included) alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -319,6 +329,7 @@ PARALLEL_JOIN_S = 420         # a grid's limit, from start to the last rank's ex
 # A grid against the single-process step on the card: tests/test_torch_train.py's
 # STEP_TOL (the same kernels, the partial sums added in another order).
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-6
+SWEEP_S = 420                 # [sweep]: the three sizes' limit
 
 
 def log(msg: str) -> None:
@@ -3570,13 +3581,17 @@ def phase_parallel(torch, FM):
     from graph_neural_network_for_radar_perception_torch.parallel import worker as PW
     from graph_neural_network_for_radar_perception_torch.parallel.halo import halo_width
     from graph_neural_network_for_radar_perception_torch.train import steps as S
+    from graph_neural_network_for_radar_perception_torch.train.loss import LossSums
 
     base = GNNConfig(batch_size=PARALLEL_BATCH)
     rounds = len(base.graph_convolution_stem_channels)
     batch = next(SyntheticRadarDataset(base, seed=29, num_objects=(6, 10)).batches(PARALLEL_BATCH))
     sorted_batch = next(SyntheticRadarDataset(dataclasses.replace(base, spatial_sort=True),
                                               seed=29, num_objects=(6, 10)).batches(PARALLEL_BATCH))
-    weights = RadarGNN(base, generator=torch.Generator().manual_seed(5)).state_dict()
+    model = RadarGNN(base, generator=torch.Generator().manual_seed(5))
+    weights = model.state_dict()
+    # A data-parallel step's all-reduces: the 11 LossSums and the flat gradient, f32.
+    dp_bytes = (len(LossSums._fields) + sum(p.numel() for p in model.parameters())) * 4
     log(f"[parallel] GNNConfig() batch {PARALLEL_BATCH}, {PARALLEL_STEPS} steps a mode; live "
         f"edges per graph {[int(m.sum()) for m in batch.graph.edge_mask]} of {base.max_edges} "
         f"(G = 2: {base.max_edges // 2} an edge shard); halo {halo_width(sorted_batch, 2)} rows "
@@ -3618,9 +3633,13 @@ def phase_parallel(torch, FM):
             f"{time.perf_counter() - t0:.1f} s from start to the last rank's exit")
         for name, kind, n_data, n_graph, mp_impl in grid:
             res = [r[name] for r in ranks]
-            # every rank runs each round once a step for the graphs of its rows
-            want = 0 if kind == "halo" else rounds * PARALLEL_STEPS
-            # all-reduces a step: the rounds' psums forward and backward, the
+            # The step is one captured CUDA graph under NCCL, eager under gloo:
+            # a capture adds its warm-up runs to the step that makes it.
+            captured = backend == "nccl"
+            # every rank runs each round once a step (and a warm-up run) for
+            # the graphs of its rows
+            want = 0 if kind == "halo" else rounds * (PARALLEL_STEPS + res[0]["warmups"])
+            # collectives a step: the rounds' psums forward and backward, the
             # LossSums and the flat gradient (data parallel: the last two)
             calls = {"dp": 2, "edge": 2 * rounds + 2}.get(kind)
             kernels = ("csr_mp_forward", "csr_mp_backward") if mp_impl == "csr" else (
@@ -3632,10 +3651,31 @@ def phase_parallel(torch, FM):
                                          f"expected {want} of {kernels} and no other")
                 for k in totals:
                     totals[k] += got[k]
-                if calls is not None and any(rec["all_reduces"] != calls for rec in x["records"]):
-                    raise AssertionError(f"[parallel] {name} rank {r}: all-reduces a step "
+                if x["backend"] != backend or x["warmups"] != (
+                        S.CapturedStep.WARMUP_RUNS if captured else 0) or any(
+                        rec["captured"] != captured
+                        or rec["host_launches"] != (1 if captured else None)
+                        for rec in x["records"]):
+                    raise AssertionError(
+                        f"[parallel] {name} rank {r}: backend {x['backend']}, captured "
+                        f"{[rec['captured'] for rec in x['records']]}, host launches "
+                        f"{[rec['host_launches'] for rec in x['records']]}, warm-ups "
+                        f"{x['warmups']}; expected {backend}, "
+                        f"{'one replay a step' if captured else 'eager steps'}")
+                runs = [1 + rec["warmups"] for rec in x["records"]]
+                if calls is not None and any(rec["all_reduces"] != calls * n
+                                             for rec, n in zip(x["records"], runs)):
+                    raise AssertionError(f"[parallel] {name} rank {r}: collectives a step "
                                          f"{[rec['all_reduces'] for rec in x['records']]}, "
-                                         f"expected {calls}")
+                                         f"expected {calls} a run of the body, {runs} runs")
+                if kind == "dp" and any(
+                        rec["collectives"] != {k: {"calls": 2 * n if k == "all_reduce" else 0,
+                                                   "bytes": dp_bytes * n if k == "all_reduce"
+                                                   else 0} for k in rec["collectives"]}
+                        for rec, n in zip(x["records"], runs)):
+                    raise AssertionError(f"[parallel] {name} rank {r}: collectives by kind "
+                                         f"{[rec['collectives'] for rec in x['records']]}, "
+                                         f"expected 2 all-reduces of {dp_bytes} B a run")
                 for i, rec in enumerate(x["records"]):
                     first = res[0]["records"][i]
                     if rec["metrics"] != first["metrics"] or any(
@@ -3676,8 +3716,27 @@ def phase_parallel(torch, FM):
             r_m = _metrics_close([records[0]["metrics"]], [cpu_m], f"[parallel] {name} step 0")
             r_p = _params_close(records[0]["params"], cpu_p, f"[parallel] {name} step 0")
             ms = [[round(rec["ms"], 3) for rec in x["records"]] for x in res]
-            blocked = [[(rec["all_reduces"], round(rec["all_reduce_ms"], 3))
+            blocked = [[(rec["all_reduces"], None if rec["all_reduce_ms"] is None
+                         else round(rec["all_reduce_ms"], 3))
                         for rec in x["records"]] for x in res]
+            # each kind's calls and bytes a run of the body, rank 0's last step
+            last = res[0]["records"][-1]
+            kinds = {k: {f: v[f] // (1 + last["warmups"]) for f in v}
+                     for k, v in last["collectives"].items() if v["calls"]}
+            prof_launches = (res[0]["profile"] or {}).get("host_launches")
+            if captured and prof_launches != 1:
+                raise AssertionError(f"[parallel] {name}: the profiled replay made "
+                                     f"{prof_launches} host launches")
+            log(f"[parallel] {name} ({n_data} x {n_graph}, {backend}"
+                f"{', ' + mp_impl if mp_impl else ''}): "
+                f"{'captured, one replay a step' if captured else 'eager'}; ms a step "
+                f"{[round(t, 3) for t in ms[0]]} (step 1 with "
+                f"{'the capture' if captured else 'set-up'}) beside the single-process step "
+                f"of this run {[round(t, 3) for t in ref_ms[name]]}; host launches a step "
+                f"{[rec['host_launches'] for rec in res[0]['records']]} (profiled step: "
+                f"{prof_launches}); collectives by kind a "
+                f"{'replay' if captured else 'step'}, calls and bytes handed over: "
+                f"{json.dumps(kinds)}")
             log(f"[parallel] {name} ({n_data} x {n_graph}, {backend}"
                 f"{', ' + mp_impl if mp_impl else ''}): launches per rank "
                 f"{json.dumps([x['launches'] for x in res])} (expected {want} of each round "
@@ -3945,6 +4004,38 @@ def phase_examples(torch, FM):
     return dict(total, entries=results)
 
 
+def phase_sweep(torch, FM=None) -> list:
+    """Phase 24: the port's batch sweep of ``train_b8`` (``python -m
+    ...scripts.sweep_batch``: batch 8, 16 and 32, each in its own process,
+    the captured step's ms from the slope of 20- and 80-step runs): every
+    size must finish, and each row's numbers be finite and positive, its
+    occupancy at most 1 and its TFLOP/s below the card's f32 peak."""
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-m",
+                        "graph_neural_network_for_radar_perception_torch.scripts.sweep_batch"],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=SWEEP_S)
+    if r.returncode:
+        raise AssertionError(f"[sweep] exit code {r.returncode}:\n{r.stderr[-3000:]}")
+    rows = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+    if [row["batch"] for row in rows] != [8, 16, 32]:
+        raise AssertionError(f"[sweep] rows for batches {[row['batch'] for row in rows]}")
+    for row in rows:
+        if not all(np.isfinite(v) and v > 0 for v in row.values()) or not (
+                row["occupancy"] <= 1 and row["mfu"] < 1):
+            raise AssertionError(f"[sweep] row {row}")
+    log(f"[sweep] train_b8 at batch 8, 16, 32 on {card()}, each size in its own process "
+        f"({time.perf_counter() - t0:.1f} s): ms a step from the slope of 20- and 80-step "
+        f"runs of the captured step (best of 2 each); f32 MFU against "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s:")
+    for line in r.stderr.strip().splitlines():
+        log(f"[sweep]   {line}")
+    for row in rows:
+        log(f"[sweep] {json.dumps(row)}")
+    return rows
+
+
 def phase_training(torch, FM, C) -> dict:
     """``--phase train``: the batched kernels ([batched]) and the three
     train phases, whose steps are captured CUDA graphs."""
@@ -3995,6 +4086,7 @@ def main(argv) -> int:
               "eval-step": (phase_eval_step, "fused_mp", "csr_mp"),
               "parallel": (phase_parallel, "fused_mp", "csr_mp"),
               "examples": (phase_examples, "fused_mp"),
+              "sweep": (phase_sweep, "fused_mp"),
               "train": (lambda torch, _: phase_training(torch, FM, C), "fused_mp", "csr_mp"),
               "deploy": (lambda torch, _: phase_serving(torch, FM, C), "fused_mp", "csr_mp")}
     if argv and (len(argv) != 2 or argv[0] != "--phase" or argv[1] not in phases):
@@ -4078,6 +4170,7 @@ def main(argv) -> int:
     eval_step = phase_eval_step(torch, FM)
     par = phase_parallel(torch, FM)
     examples = phase_examples(torch, FM)
+    phase_sweep(torch)
     v1_fused = variants["v1"]["launches"]["fused_mp_forward"]
     v1_csr = variants["v1-csr"]["launches"]["csr_mp_forward"]
     fwd_row["launches"] = (deploy_launches + train_fwd + data_plane["fwd"] + evaluation["fwd"]

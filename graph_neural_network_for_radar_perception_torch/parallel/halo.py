@@ -14,7 +14,9 @@ The JAX package's ``parallel/halo.py`` over a grid of processes.  Where
   source lies more than ``halo`` rows outside the owner's range.
 
 Per message round each member then exchanges its first/last ``halo`` rows
-with its two neighbours (``collectives.ppermute``), gathers sources from
+with its two neighbours (``collectives.ppermute``: a send and a receive of
+the rank's own rows, ``batch_isend_irecv``, under NCCL and under gloo on
+the CPU), gathers sources from
 ``[halo ‖ owned ‖ halo]``, runs the message MLP on its edges, sums into its
 owned rows, and runs the update MLP on them only.  A rank's graphs go
 through as one batch (a leading graph axis, the JAX step's ``jax.vmap``):
@@ -45,6 +47,7 @@ from ..models.blocks import uses_fused_kernel
 from ..models.gnn import GNNOutputs
 from ..ops import segment as S
 from ..train.loss import LossSums, graph_loss_sums
+from ..train.steps import _batch_leaves, _static_batch
 from . import collectives as P
 from .mesh import ProcessMesh
 from .sharded import make_grid_step
@@ -267,7 +270,9 @@ def make_halo_train_step(cfg: GNNConfig, mesh: ProcessMesh, halo: int) -> Callab
     'data' of the batch and its member's column of the HaloShards (build
     them with make_halo_batch on the host from spatially-sorted frames,
     then ``member_shards``), and runs ONE ``halo_forward`` for the rows
-    (``sharded.make_grid_step``: one backward, the branchless skip).
+    (``sharded.make_grid_step``: one backward, the branchless skip; under
+    NCCL on the card one captured CUDA graph, the batch's and the shards'
+    arrays copied into its buffers).
     Every LossSums field counts on graph member 0 only: the heads run on the
     replicated all-gathered embeddings."""
     if not uses_fused_kernel(cfg.norm_layer, cfg.activation, cfg.aggregation):
@@ -284,4 +289,9 @@ def make_halo_train_step(cfg: GNNConfig, mesh: ProcessMesh, halo: int) -> Callab
                            halo=halo, group=group)
         return graph_loss_sums(out, batch.graph, labels, cfg)
 
-    return make_grid_step(cfg, mesh, graph_sums, LossSums._fields)
+    fields = [f.name for f in dataclasses.fields(HaloShards)]
+    return make_grid_step(
+        cfg, mesh, graph_sums, LossSums._fields,
+        leaves=lambda args: _batch_leaves(args[0]) + [getattr(args[1], f) for f in fields],
+        rebuild=lambda inputs: (_static_batch(inputs[:-len(fields)]),
+                                HaloShards(*inputs[-len(fields):])))

@@ -6,7 +6,9 @@ this host), which build their batches from the synthetic stream.  With
 every rank on one card (the only layout one card allows: ranks under
 gloo, its collectives staged through the host) this measures
 orchestration, not scaling; on the CPU it validates orchestration only.
-Each row records the device and the backend that produced it.
+Under NCCL (one rank a card) the grid step is a captured CUDA graph, and
+the timed steps are its replays.  Each row records the device, the
+backend that produced it and whether the step was captured.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ def measure_scaling(
                 "edge_msgs_per_s": eps,
                 "efficiency": eps / (base_eps * n_dev),
                 "backend": res["backend"],
+                "captured": res["captured"],
                 "device": res["device"],
             })
     return results
@@ -104,6 +107,7 @@ def measure_process_scaling(
             "graphs_per_s": thr,
             "efficiency": thr / (base * n_proc),
             "backend": res["backend"],
+            "captured": res["captured"],
             "device": res["device"],
         })
     return results

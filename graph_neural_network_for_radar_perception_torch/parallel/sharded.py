@@ -38,22 +38,35 @@ sums are psummed over ('data', 'graph') and the node and cluster sums over
    loss: every rank skips or steps together and the parameters stay equal
    bit for bit.
 
-The step stays eager: gloo stages CUDA tensors through the host, and such
-a step cannot be captured as a CUDA graph.
+On a CUDA device where the world group and every group of the grid are
+NCCL, steps 1-4 are one CUDA graph (``train/steps.CapturedStep``, as the
+JAX package's step is one compiled program): captured once per state, per
+binding of the state's tensors and per shape of the rank's arguments, then
+replayed, one host launch a step.  NCCL's collectives join the capture
+(its communicators exist after the two eager warm-ups); a replay adds to
+``collectives.STATS`` the calls and bytes its capture recorded.  A capture
+that fails raises with the state restored; nothing runs the step eagerly
+in its place.  On the CPU, and under gloo with CUDA tensors (several ranks
+on one card), the step runs eagerly: gloo stages CUDA tensors through the
+host, which a CUDA graph cannot hold.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config.config import GNNConfig
 from ..core.graph import GraphBatch
 from ..train.loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 from ..train.steps import (
+    CapturedStep,
     TrainState,
     _apply_update,
+    _batch_leaves,
+    _static_batch,
     all_finite,
     batch_on,
     batched_forward,
@@ -67,16 +80,31 @@ _EDGE_FIELDS = ("edge_sum", "edge_cnt", "edge_correct")
 _COUNT_FIELDS = ("edge_cnt", "node_cnt", "reg_cnt", "obj_cnt")
 
 
+def captures(mesh: ProcessMesh) -> bool:
+    """Does the grid step run as a captured CUDA graph on this rank: a
+    CUDA device, and NCCL under the world group and every group of the
+    grid."""
+    groups = [None] + [g for g in (mesh.graph_group, mesh.data_group) if g is not None]
+    return mesh.device.type == "cuda" and all(dist.get_backend(g) == "nccl" for g in groups)
+
+
 def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
                    graph_sums: Callable[..., LossSums],
-                   replicated: Iterable[str]) -> Callable:
+                   replicated: Iterable[str],
+                   leaves: Optional[Callable] = None,
+                   rebuild: Optional[Callable] = None) -> Callable:
     """(state, *local args) → (state, metrics) over the grid.
     ``graph_sums(model, *local args)`` gives this rank's LossSums with a
     leading graph axis, from one model call for its graphs; the fields
     named in ``replicated`` count on graph member 0 only.  Steps 1-4 of
     the module docstring.  ``step.loss(model, *local args)`` → (loss,
     metrics, surrogate) is steps 1-2: the global loss and metrics
-    (detached, equal on every rank) and what step 3 backprops."""
+    (detached, equal on every rank) and what step 3 backprops.
+
+    Where ``captures(mesh)``, the step is ``step.captured`` (a
+    ``CapturedStep``; ``step.captured.body(state, args)`` the eager body):
+    ``leaves(args)`` gives the arrays of the local args, ``rebuild(inputs)``
+    the args over the graph's static buffers (default: one ``GraphBatch``)."""
     keep = 1.0 if mesh.graph_index == 0 else 0.0
     replicated = frozenset(replicated)
 
@@ -89,7 +117,7 @@ def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
         surrogate = reduce_loss_sums(local._replace(**counts), cfg)[0]
         return loss, metrics, surrogate
 
-    def train_step(state: TrainState, *args) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def body(state: TrainState, args: tuple) -> Dict[str, torch.Tensor]:
         params = state.optimizer.params
         loss, metrics, surrogate = loss_fn(state.model, *args)
         grads = torch.autograd.grad(surrogate, params, allow_unused=True)
@@ -102,9 +130,17 @@ def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
             state.counters[0].add_(1)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["skipped"] = (~ok).to(torch.float32)
-        return state, metrics
+        return metrics
+
+    captured = CapturedStep(body, leaves or (lambda args: _batch_leaves(args[0])),
+                            rebuild or (lambda inputs: (_static_batch(inputs),)))
+    capture = captures(mesh)
+
+    def train_step(state: TrainState, *args) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        return state, (captured(state, args) if capture else body(state, args))
 
     train_step.loss = loss_fn
+    train_step.captured = captured
     return train_step
 
 

@@ -10,7 +10,9 @@ Launch one copy per device:
 Every rank executes the same program: start the process group, build the
 ('data', 'graph') grid, build its own rows of each global batch, and run
 the grid's train step (``parallel/distributed.py``).  It prints one JSON
-line: the JAX worker's ``param_l1``, metrics and ``ms_per_step``.
+line: the JAX worker's ``param_l1``, metrics and ``ms_per_step``, and
+whether the step was ``captured`` (under NCCL on the card: then
+``--bench-iters`` times replays of its CUDA graph).
 
 ``--device`` is the card by default (it raises without one); ``--device
 cpu`` runs the plain versions under gloo.  ``--backend`` defaults to
@@ -25,11 +27,13 @@ mode, ``name``, ``n_graph``, ``partition`` ("edge" | "halo"), ``cfg`` (a
 ``GNNConfig``; its ``mp_impl`` picks the round), ``weights`` (a state
 dict), ``batch`` (a numpy ``GraphBatch``, spatially sorted for "halo") and
 ``steps``, and optionally ``loss_only`` (the grid's loss and metrics and
-the all-reduce calls of that forward, no update) and ``profile`` (two more steps, rank 0's second under the
-profiler; on the card).  Each rank saves ``DIR/rank{r}.pt``: per mode the
-metrics and params after each step, its ms, its all-reduce calls and the
-host ms in them, and the hand-written kernels' launches over the mode's
-steps.  ``launch_spec`` runs one on this host.
+the collective calls of that forward, no update) and ``profile`` (two
+more steps, rank 0's second under the profiler; on the card).  Each rank
+saves ``DIR/rank{r}.pt``: per mode the records of ``run_steps`` (metrics
+and params after each step, its ms, whether it was captured, its
+collectives), the hand-written kernels' launches over the mode's steps,
+the captured graph's replays and warm-up runs, and the backend.
+``launch_spec`` runs one on this host.
 
 ``launch`` and ``launch_spec`` start a whole grid of workers on this host,
 each with its own log, and fail if any rank fails or the grid outlasts its
@@ -95,25 +99,49 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _collectives_since(before) -> tuple:
+    """The collective calls over all kinds since ``before`` (a
+    ``collectives.counts()``), and each kind's calls and bytes."""
+    from . import collectives as P
+
+    d = [a - b for a, b in zip(P.counts(), before)]
+    return d[0], {k: {"calls": d[1 + 2 * i], "bytes": d[2 + 2 * i]}
+                  for i, k in enumerate(P.KINDS)}
+
+
 def run_steps(step, state, inputs, device):
     """One step per argument tuple of ``inputs``: the state after them and,
     per step, its metrics, the params after it, its ms (the device
-    synchronised before and after), its all-reduce calls and the host ms
-    spent in them."""
+    synchronised before and after), whether it was a replay of a captured
+    CUDA graph (``captured``; the first such step also captures), the
+    host's launches (a replay is one; None for an eager step, whose
+    launches only a profile counts), the eager warm-up runs of a capture
+    in it (``warmups``: their collectives and kernels count in the step's
+    too), its collective calls over all kinds (``all_reduces``), each
+    kind's calls and bytes (``collectives``), and the host ms spent in the
+    collectives (None for a replay: it spends none in any one)."""
     from . import collectives as P
 
     records = []
     for args in inputs:
         _sync(device)
-        calls, seconds = P.STATS["calls"], P.STATS["seconds"]
+        before, seconds = P.counts(), P.STATS["seconds"]
+        replays, warmups = step.captured.replays, step.captured.warmups
         t0 = time.perf_counter()
         state, m = step(state, *args)
         _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        calls, kinds = _collectives_since(before)
+        captured = step.captured.replays > replays
         records.append({
             "metrics": {k: float(v) for k, v in m.items()},
-            "ms": (time.perf_counter() - t0) * 1e3,
-            "all_reduces": P.STATS["calls"] - calls,
-            "all_reduce_ms": (P.STATS["seconds"] - seconds) * 1e3,
+            "ms": ms,
+            "captured": captured,
+            "host_launches": step.captured.replays - replays if captured else None,
+            "warmups": step.captured.warmups - warmups,
+            "all_reduces": calls,
+            "collectives": kinds,
+            "all_reduce_ms": None if captured else (P.STATS["seconds"] - seconds) * 1e3,
             "params": {k: v.detach().cpu().clone()
                        for k, v in state.model.state_dict().items()},
         })
@@ -133,6 +161,7 @@ def run_spec(spec: dict, device, out_dir: str) -> None:
     """The modes of a spec (module docstring), each from its own weights,
     every rank saving its results to ``out_dir/rank{r}.pt``."""
     import torch
+    import torch.distributed as dist
 
     from ..train.steps import create_train_state
     from ..utils.timing import profile_run
@@ -152,10 +181,11 @@ def run_spec(spec: dict, device, out_dir: str) -> None:
         state.model.load_state_dict(mode["weights"])
         inputs = rank_inputs(cfg, mesh, full, halo)
         if mode.get("loss_only"):
-            calls = P.STATS["calls"]
+            before = P.counts()
             _, metrics, _ = step.loss(state.model, *inputs)
+            calls, kinds = _collectives_since(before)
             results[mode["name"]] = {"metrics": {k: float(v) for k, v in metrics.items()},
-                                     "all_reduces": P.STATS["calls"] - calls}
+                                     "all_reduces": calls, "collectives": kinds}
             continue
         counters = _launch_counters()
         for fn in counters.values():
@@ -170,7 +200,10 @@ def run_spec(spec: dict, device, out_dir: str) -> None:
             else:
                 for _ in range(2):
                     step(state, *inputs)
-        results[mode["name"]] = {"records": records, "launches": launches, "profile": profile}
+        results[mode["name"]] = {"records": records, "launches": launches, "profile": profile,
+                                 "replays": step.captured.replays,
+                                 "warmups": step.captured.warmups,
+                                 "backend": dist.get_backend()}
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -268,6 +301,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "device": str(device) if device.type == "cpu"
         else torch.cuda.get_device_name(device),
         "backend": dist.get_backend(),
+        "captured": records[-1]["captured"] if records else None,
         "metrics": metrics,
         "param_l1": float(sum(np.abs(p.detach().cpu().numpy().astype(np.float64)).sum()
                               for p in state.model.parameters())),

@@ -41,6 +41,7 @@ from ..core.graph import GraphBatch, GraphLabels, RadarGraph, resolve_device
 from ..models.gnn import RadarGNN
 from ..ops import csr_mp as C
 from ..ops import fused_mp as FM
+from ..parallel import collectives as P
 from .loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 
 
@@ -491,12 +492,16 @@ def launch_counters() -> List[Tuple[object, str]]:
 
 
 def _read_counters() -> List[int]:
-    return [getattr(f, a) for f, a in launch_counters()]
+    """The launch counters, then the collectives' calls and bytes
+    (``parallel/collectives.counts``)."""
+    return [getattr(f, a) for f, a in launch_counters()] + P.counts()
 
 
 def _add_counters(deltas: Sequence[int]) -> None:
-    for (f, a), d in zip(launch_counters(), deltas):
+    n = len(launch_counters())
+    for (f, a), d in zip(launch_counters(), deltas[:n]):
         setattr(f, a, getattr(f, a) + d)
+    P.add_counts(deltas[n:])
 
 
 def _batch_leaves(batch) -> list:
@@ -517,7 +522,7 @@ class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: list                # static input buffers, in the leaves' order
     outputs: Any
-    launches: List[int]         # each launch counter's advance per replay
+    launches: List[int]         # each counter's advance per replay (_read_counters)
     keep: Any                   # kept alive: the graph reads or writes it
 
 
@@ -538,7 +543,8 @@ class CapturedGraphs:
     tensors given back their values: nothing falls back to eager work on
     the card.
 
-    The launch counters of the message rounds advance by what a replay
+    The launch counters of the message rounds, and the collectives' calls
+    and bytes (``parallel/collectives.STATS``), advance by what a replay
     launches: the capture itself launches nothing, so its advance is taken
     back and added at every replay.  ``warmups`` counts the eager runs
     (``WARMUP_RUNS`` a capture), ``replays`` the graph launches."""

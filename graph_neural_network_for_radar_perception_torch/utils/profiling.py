@@ -19,7 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .timing import PEAK_BF16_FLOPS
+from .timing import PEAK_BF16_FLOPS, PEAK_F32_FLOPS
 
 
 @contextlib.contextmanager
@@ -121,26 +121,28 @@ def flops_per_train_step(cfg, batch_size: int) -> float:
 
 
 # Dense bf16 matmul peak of a card by the name CUDA reports, as the JAX
-# package keeps the TPU's (its MFU denominator).  Only the H100 SXM is
-# known: the PCIe and NVL parts have other peaks.
-_PEAK_BF16_FLOPS = {
-    "NVIDIA H100 80GB HBM3": PEAK_BF16_FLOPS,
-    "NVIDIA H100 SXM": PEAK_BF16_FLOPS,
+# package keeps the TPU's (its MFU denominator), and its f32 peak outside
+# the tensor cores.  Only the H100 SXM is known: the PCIe and NVL parts
+# have other peaks.
+_PEAK_FLOPS = {
+    "NVIDIA H100 80GB HBM3": {"bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS},
+    "NVIDIA H100 SXM": {"bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS},
 }
 
 
-def device_peak_flops(device=None) -> Optional[float]:
-    """Peak dense bf16 FLOP/s of the card (``device``: a CUDA device or its
-    index, default the current one), or None on the CPU or for a card whose
+def device_peak_flops(device=None, dtype: str = "bf16") -> Optional[float]:
+    """Peak FLOP/s of the card (``device``: a CUDA device or its index,
+    default the current one) for ``dtype`` ("bf16": dense, on the tensor
+    cores; "f32": outside them), or None on the CPU or for a card whose
     peak is not known.  MFU = measured FLOP/s / this."""
     if device is not None and not isinstance(device, int) and torch.device(device).type != "cuda":
         return None
     if not torch.cuda.is_available():
         return None
     name = torch.cuda.get_device_name(device)
-    for key, peak in _PEAK_BF16_FLOPS.items():
+    for key, peaks in _PEAK_FLOPS.items():
         if name.startswith(key):
-            return peak
+            return peaks[dtype]
     return None
 
 

@@ -697,6 +697,67 @@ def test_failed_step_capture_raises_and_keeps_the_state(cuda_device, monkeypatch
     assert torch.equal(state.counters, counters)
 
 
+def test_captured_grid_step_under_nccl_equals_eager_step(cuda_device, tmp_path, monkeypatch):
+    """The data-parallel grid step on a 1 x 1 grid under NCCL (one rank in
+    this process, a FileStore rendezvous): captured once, then each of
+    three steps a replay, held to the eager body on the card from the same
+    state before each step (bit for bit where the eager step repeats itself
+    bit for bit, else within 1e-5, the momentum 1e-4 of its largest
+    element); each replay one host launch and two all-reduces (the
+    LossSums and the flat gradient), counted in ``collectives.STATS`` with
+    their bytes, and one launch of each round kernel a round."""
+    import torch.distributed as dist
+
+    from graph_neural_network_for_radar_perception_torch.parallel import collectives as PC
+    from graph_neural_network_for_radar_perception_torch.parallel.distributed import (
+        init_distributed,
+    )
+    from graph_neural_network_for_radar_perception_torch.parallel.mesh import make_mesh
+    from graph_neural_network_for_radar_perception_torch.parallel.sharded import (
+        captures,
+        make_dp_train_step,
+    )
+    from graph_neural_network_for_radar_perception_torch.train.loss import LossSums
+    from graph_neural_network_for_radar_perception_torch.utils.timing import profile_run
+
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")  # one host: the bootstrap binds the loopback
+    init_distributed(num_processes=1, process_id=0, device="cuda", backend="nccl",
+                     store=str(tmp_path / "store"), timeout_s=120)
+    try:
+        cfg = tiny_test_config()
+        mesh = make_mesh(device="cuda")
+        step = make_dp_train_step(cfg, mesh)
+        assert captures(mesh)
+        cap, eager, again = (S.create_train_state(cfg, torch.Generator().manual_seed(0),
+                                                  device=cuda_device) for _ in range(3))
+        rounds = len(cfg.graph_convolution_stem_channels)
+        per_replay = [0] * len(PC.counts())
+        per_replay[0] = per_replay[1] = 2
+        per_replay[2] = (len(LossSums._fields) + cap.optimizer.flat.numel()) * 4
+        tol = dict(rtol=1e-5, atol=1e-6)
+        for i, seed in enumerate((4, 5, 6)):
+            args = (step.place_batch(_tiny_batch(cfg, seed=seed)),)
+            counts, fwd = PC.counts(), FM.fused_message_pass.launches
+            pre = [t.clone() for t in cap.tensors()]
+            cap, m = step(cap, *args)
+            runs = 1 + (S.CapturedStep.WARMUP_RUNS if i == 0 else 0)
+            assert [b - a for a, b in zip(counts, PC.counts())] == [runs * d for d in per_replay]
+            assert FM.fused_message_pass.launches - fwd == runs * rounds
+            outs = []
+            for other in (eager, again):
+                for dst, src in zip(other.tensors(), pre):
+                    dst.copy_(src)
+                outs.append({**step.captured.body(other, args), **_params_and_moments(other)})
+            _bitwise_or_close({**m, **_params_and_moments(cap)}, *outs, tol)
+            assert float(m["skipped"]) == 0.0
+        assert step.captured.replays == 3 and len(step.captured.graphs) == 1
+        assert (cap.step, cap.updates) == (3, 3)
+        prof = profile_run(lambda: step(cap, *args))
+        assert prof["host_launches"] == 1, prof
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------------------- the CSR round
 def _hub_edges(rng, n, k, hub, degree):
     """A kNN graph (k) with node ``hub`` joined both ways to the ``degree``

@@ -150,7 +150,8 @@ def runs():
     ranks = grid.result()
     return {name: {"jax": jax_out[name], "single": single, "halo": halos[name],
                    "ranks": [r[name] for r in ranks],
-                   "calls": [r[name + "-calls"]["all_reduces"] for r in ranks]}
+                   "calls": [r[name + "-calls"]["all_reduces"] for r in ranks],
+                   "kinds": [r[name + "-calls"]["collectives"] for r in ranks]}
             for name in SHAPES}
 
 
@@ -192,13 +193,51 @@ def test_halo_ranks_hold_identical_params(runs, shape):
 def test_halo_collectives_are_one_set_a_round_for_the_batch(runs, shape):
     """The halo forward takes a rank's graphs as one batch: each round's
     exchange is two ppermutes a hop for the batch, then one all_gather of
-    the [B, N, D] embeddings and one all-reduce of the LossSums (every
-    collective one all-reduce, ``collectives.STATS``)."""
+    the [B, N, D] embeddings and one all-reduce of the LossSums
+    (``collectives.STATS``' calls over all kinds)."""
     cfg = tiny_test_config()
     g = SHAPES[shape][1]
     hops = -(-runs[shape]["halo"] // (cfg.max_nodes // g))
     rounds = len(cfg.graph_convolution_stem_channels)
     assert runs[shape]["calls"] == [rounds * 2 * hops + 2] * 4
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_halo_collectives_hand_over_the_rank_rows_once(runs, shape):
+    """The native route under gloo on the CPU (``collectives.STATS`` by
+    kind, one halo forward): each ppermute hands over the rank's
+    [B_local, N/G, D] f32 rows once where the rank sends (the staged
+    all-reduce handed over G times as many from every rank), the
+    all_gather the same rows once, the LossSums' all-reduce its 11 f32
+    sums; no reduce-scatter runs forward."""
+    from graph_neural_network_for_radar_perception_torch.train.loss import LossSums
+
+    cfg = tiny_test_config()
+    n_data, g = SHAPES[shape]
+    nl = cfg.max_nodes // g
+    hops = -(-runs[shape]["halo"] // nl)
+    widths = (cfg.node_feat_enc_stem_channels[-1],) + cfg.graph_convolution_stem_channels[:-1]
+    rows = [(4 // n_data) * nl * w * 4 for w in widths]  # a round's input rows, bytes
+    for r, kinds in enumerate(runs[shape]["kinds"]):
+        me = r % g
+        sends = sum((me < g - hop) + (me >= hop) for hop in range(1, hops + 1))
+        assert kinds["ppermute"] == {"calls": len(widths) * 2 * hops,
+                                     "bytes": sends * sum(rows)}, r
+        last = (4 // n_data) * nl * cfg.graph_convolution_stem_channels[-1] * 4
+        assert kinds["all_gather"] == {"calls": 1, "bytes": last}, r
+        assert kinds["all_reduce"] == {"calls": 1, "bytes": len(LossSums._fields) * 4}, r
+        assert kinds["reduce_scatter"] == {"calls": 0, "bytes": 0}, r
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_halo_step_on_the_cpu_runs_eagerly(runs, shape):
+    """On the CPU the halo step is not captured: every step eager, the host
+    ms in its collectives recorded."""
+    for rank in runs[shape]["ranks"]:
+        for rec in rank["records"]:
+            assert rec["captured"] is False and rec["warmups"] == 0
+            assert rec["host_launches"] is None and rec["all_reduce_ms"] >= 0.0
+        assert rank["replays"] == 0 and rank["backend"] == "gloo"
 
 
 def test_halo_step_refuses_other_rounds():

@@ -9,7 +9,10 @@ the same numpy batch.  Held: metrics (rtol 2e-3, atol 1e-5) and params
 after each step (rtol 2e-4, atol 1e-6) against JAX, as the JAX package's
 tests/test_parallel.py holds its mesh steps; the port's single-process
 ``make_train_step`` within tests/test_torch_train.py's STEP_TOL; every
-rank's params equal bit for bit."""
+rank's params equal bit for bit; every step eager on the CPU.  The
+collectives' child (tests/torch_collectives_child.py) also runs each
+ppermute and all_gather through both routes, native and staged, at G = 2
+and G = 4: equal bit for bit, each route's bytes in ``collectives.STATS``."""
 
 import concurrent.futures
 import dataclasses
@@ -280,6 +283,71 @@ def test_collectives_forward_and_backward(runs, name):
             assert grad == want_g
         else:
             np.testing.assert_array_equal(grad, want_g)
+
+
+ROUTE_OPS = ("ppermute", "all_gather", "all_gather_tiled")
+
+
+@pytest.mark.parametrize("g, name", [(g, n) for g in (2, WORLD) for n in ROUTE_OPS],
+                         ids=lambda v: f"G{v}" if isinstance(v, int) else v)
+def test_native_route_equals_staged_route(runs, g, name):
+    """``ppermute`` (i -> i + 1), ``all_gather`` and tiled ``all_gather``
+    over the world (G = 4) and over pairs of ranks (G = 2) on random rows
+    with random cotangents: the native route (``batch_isend_irecv``,
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``) gives the staged
+    all-reduce route's output and input gradient bit for bit on every
+    rank."""
+    for r, c in enumerate(runs["collectives"]):
+        native, staged = c["routes"][g, name, "native"], c["routes"][g, name, "staged"]
+        for what, a, b in (("output", native[0], staged[0]), ("gradient", native[1], staged[1])):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (r, what)
+
+
+def _kinds(delta):
+    """A ``collectives.counts()`` advance by kind: {kind: (calls, bytes)}
+    of the kinds called."""
+    from graph_neural_network_for_radar_perception_torch.parallel import collectives as PC
+
+    assert delta[0] == sum(delta[1::2])
+    return {k: (delta[1 + 2 * i], delta[2 + 2 * i]) for i, k in enumerate(PC.KINDS)
+            if delta[1 + 2 * i]}
+
+
+@pytest.mark.parametrize("g", [2, WORLD], ids=["G2", "G4"])
+def test_stats_count_what_each_route_hands_over(runs, g):
+    """``collectives.STATS`` by kind: a native ppermute hands over the
+    rows it sends (x.nbytes from a rank that sends, 0 from the last of the
+    chain), the staged one G x x.nbytes; a native all_gather its own rows,
+    the staged one G x; the backward of either all_gather is a
+    reduce-scatter of the [G, ...] cotangent."""
+    rows = 3 * 5 * 4  # the [3, 5] f32 rows
+    for r, c in enumerate(runs["collectives"]):
+        me = r % g
+        want = {
+            ("ppermute", "native"): ({"ppermute": (1, rows * (me < g - 1))},
+                                     {"ppermute": (1, rows * (me > 0))}),
+            ("ppermute", "staged"): ({"ppermute": (1, g * rows)}, {"ppermute": (1, g * rows)}),
+            ("all_gather", "native"): ({"all_gather": (1, rows)},
+                                       {"reduce_scatter": (1, g * rows)}),
+            ("all_gather", "staged"): ({"all_gather": (1, g * rows)},
+                                       {"reduce_scatter": (1, g * rows)}),
+        }
+        for (name, route), (fwd, bwd) in want.items():
+            for op in (name, name + "_tiled") if name == "all_gather" else (name,):
+                got = c["routes"][g, op, route]
+                assert (_kinds(got[2]), _kinds(got[3])) == (fwd, bwd), (r, op, route)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_grid_step_on_the_cpu_runs_eagerly(runs, mode):
+    """On the CPU the grid step is not captured: every step is eager, with
+    no warm-up runs, its host launches not counted and the host ms in its
+    collectives recorded."""
+    for rank in runs[mode]["ranks"]:
+        for rec in rank["records"]:
+            assert rec["captured"] is False and rec["warmups"] == 0
+            assert rec["host_launches"] is None and rec["all_reduce_ms"] >= 0.0
+        assert rank["replays"] == 0 and rank["backend"] == "gloo"
 
 
 def test_edge_fields_are_jaxs():

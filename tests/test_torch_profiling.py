@@ -12,7 +12,10 @@ import torch
 
 from graph_neural_network_for_radar_perception_torch.config import config as PC
 from graph_neural_network_for_radar_perception_torch.utils import profiling as P
-from graph_neural_network_for_radar_perception_torch.utils.timing import PEAK_BF16_FLOPS
+from graph_neural_network_for_radar_perception_torch.utils.timing import (
+    PEAK_BF16_FLOPS,
+    PEAK_F32_FLOPS,
+)
 from graph_neural_network_for_radar_perception_tpu.config import config as JC
 from graph_neural_network_for_radar_perception_tpu.utils import profiling as JP
 from torch_port_fixtures import one_torch_thread  # noqa: F401  (autouse)
@@ -85,6 +88,7 @@ def test_peak_maps_card_names(monkeypatch, name, peak):
     assert P.device_peak_flops() == peak
     assert P.device_peak_flops(0) == peak
     assert P.device_peak_flops("cpu") is None
+    assert P.device_peak_flops(dtype="f32") == (PEAK_F32_FLOPS if peak else None)
     if peak is None:
         assert P.mfu(1e12, 1.0) is None
     else:
