@@ -10,6 +10,10 @@ Phases, each reported on its own line:
    forward, f32 and bf16, and backward), ``csr_mp`` (the CSR round's) and
    ``microbench_gather`` (row gather and scatter-add), and beside them the
    gather ablation's ``empty`` variant (the launch floor of [kernel-gather]);
+   then [sass]: ``cuobjdump -sass`` of ``fused_mp`` and ``csr_mp``, HMMA
+   (tensor-core) instructions counted per kernel instantiation: every
+   instantiation of the bf16 forwards' kernels (``fwd_edge_kernel_bf16``,
+   ``gemm_bf16_kernel``) holds some, every f32 kernel none;
 2. [kernel] hold the fused forward kernel against its plain PyTorch version
    on the card at the main path's shapes (N=768, E=15360, D=De=D2=64,
    H=128, plus a ragged E) and at the wider widths (FWD_WIDE) where its
@@ -44,7 +48,9 @@ Phases, each reported on its own line:
    graphs in one C call (the training batch, the main path's shapes)
    against one call a graph: per-graph outputs bitwise equal, the weight
    gradients within 1e-6 of the graphs' sum; the batch's layouts against
-   each graph's; the batched call's time beside its bound;
+   each graph's; the batched call's time beside its bound, each bf16
+   forward's beside its f32 twin's on the same inputs, and the two edge
+   products alone as ``torch.matmul`` in bf16 (a yardstick);
 7. [train] drive the training path — ``trainer.train`` with
    ``GNNConfig()`` at batch 8 on synthetic batches, each step a replay of
    one captured CUDA graph — count both kernels' launches (one a round a
@@ -59,11 +65,15 @@ Phases, each reported on its own line:
 9. [deploy-csr] ``FrameDetector(GNNConfig(mp_impl="csr"))``, captured as in
    [deploy], on 4 of the deploy frames against the default message pass on
    the card and against its own eager deploy (decisions bit for bit);
-10. [kernel-bf16] the fused forward's bf16 instantiation against its plain
-    bf16 version on the [kernel] problems, two launches bitwise equal, the
-    f32 kernel's output shown to lie outside that tolerance, timing;
+10. [kernel-bf16] the fused forward's bf16 instantiation (its edge
+    products on the bf16 tensor cores) against its plain bf16 version on
+    the [kernel] problems, two launches bitwise equal, the f32 kernel's
+    output shown to lie outside that tolerance, timing beside its f32
+    twin's on the same inputs (each a multiple of its bound) and the two
+    edge products alone as ``torch.matmul`` in bf16;
 11. [kernel-csr-bf16] the same for the CSR forward on the [kernel-csr]
-    graphs, two launches bitwise equal;
+    graphs (its node products on the tensor cores too), two launches
+    bitwise equal;
 12. [kernel-gather], [kernel-scatter] the microbenchmark's kernels against
     their plain versions with indices outside [0, N) (the scatter also
     bitwise against ``np.add.at`` and across two launches; the gather also
@@ -179,6 +189,7 @@ non-zero without it.  Needs one CUDA card, nvcc and no network; imports
 nothing of JAX.
 
     python3 chip_smoke.py --phase kernel-timing
+    python3 chip_smoke.py --phase sass
     python3 chip_smoke.py --phase kernel-bwd
     python3 chip_smoke.py --phase kernel-bwd-timing
     python3 chip_smoke.py --phase kernel-csr-bwd
@@ -193,9 +204,9 @@ nothing of JAX.
     python3 chip_smoke.py --phase train       # [batched] and the train phases
     python3 chip_smoke.py --phase deploy      # [deploy] and [deploy-csr]
 
-build the libraries a phase needs and run phase 3 (the fused backward),
-phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15 (the data
-plane) or one of phases 17-24 (21b included) alone, or only a
+build the libraries a phase needs and run [sass], phase 3 (the fused
+backward), phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15
+(the data plane) or one of phases 17-24 (21b included) alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
 call, the CSR one with the digest of its outputs and both forwards), then
@@ -227,6 +238,7 @@ from graph_neural_network_for_radar_perception_torch.utils.timing import (  # no
     PEAK_BYTES_PER_S,
     PEAK_F32_FLOPS,
     event_ms,
+    graph_ms,
     kernel_breakdown,
     profile_run,
 )
@@ -409,11 +421,13 @@ def fused_problems(torch, rng):
         torch, rng, WIDE_E - 300, WIDE_E, WIDE_N, de, h, d2)) for de, h, d2 in FWD_WIDE]
 
 
-def plan_of(FM, args) -> str:
-    """The fused forward's edge-kernel plan for the round ``args``."""
+def plan_of(FM, args, bf16: bool = False) -> str:
+    """The fused forward's edge-kernel plan for the round ``args`` (its
+    bf16 instantiation's with ``bf16``)."""
     x, ef, w2 = args[0], args[1], args[6]
-    p = FM._forward_plan(x.shape[0], ef.shape[0], ef.shape[1], w2.shape[0],
-                         w2.shape[1], x.device)
+    widths = (x.shape[0], ef.shape[0], ef.shape[1], w2.shape[0], w2.shape[1])
+    p = (FM._plan("fused_mp", "fused_mp_forward_bf16_plan", x.device, *widths) if bf16
+         else FM._forward_plan(*widths, x.device))
     return f"{p.tile}-edge tiles, {p.stages} stage(s), {p.blocks} blocks"
 
 
@@ -686,6 +700,8 @@ def time_fused_bwd(torch, FM):
         f"device kernels (us): " + "; ".join(f"{k} {us:.2f}" for k, us in whole))
     wrapper_ms = event_ms(wrapper)
     plain_ms = event_ms(lambda: FM.fused_message_pass_backward_reference(*args, g))
+    fn(*raw)  # the bits of the 11 outputs, to compare builds in turns
+    log(f"[kernel-bwd] outputs sha256 (the 11 outputs of one C call): {digest(results())}")
 
     # Least time on these inputs: three times the forward's f32 FMAs for
     # each edge whose receiver is in range (forward recompute, two products
@@ -813,11 +829,13 @@ def csr_fwd_problems(torch, rng):
         for de, h, d2 in FWD_WIDE]
 
 
-def csr_plan_of(C, args) -> str:
-    """The CSR forward's edge-kernel plan for the round ``args``."""
+def csr_plan_of(C, args, bf16: bool = False) -> str:
+    """The CSR forward's edge-kernel plan for the round ``args`` (its bf16
+    instantiation's with ``bf16``)."""
     x, ef, w2 = args[0], args[1], args[6]
-    p = C._forward_plan(x.shape[0], ef.shape[0], x.shape[1], ef.shape[1],
-                        w2.shape[0], w2.shape[1], x.device)
+    widths = (x.shape[0], ef.shape[0], x.shape[1], ef.shape[1], w2.shape[0], w2.shape[1])
+    p = (C._plan("csr_mp", "csr_mp_forward_bf16_plan", x.device, *widths) if bf16
+         else C._forward_plan(*widths, x.device))
     return f"{p.tile}-edge tiles, {p.stages} stage(s), {p.blocks} blocks"
 
 
@@ -1025,14 +1043,16 @@ def time_csr_bwd(torch, C):
     wrapper_ms = event_ms(lambda: C.fused_message_pass_csr_backward(
         *args, g, *tiling))
     # The bits of the outputs, to compare builds in turns: the 10 backward
-    # outputs of one C call and both forwards on this problem.
+    # outputs of one C call, then each forward on this problem.
     fn(*raw)
     with torch.no_grad():
         forwards = [C.fused_message_pass_csr(*args, *tiling, bf16)
                     for bf16 in (False, True)]
-    outputs = digest([*results(), *forwards])
-    log(f"[kernel-csr-bwd] outputs sha256 (10 backward outputs of one C call, "
-        f"the f32 and bf16 forwards): {outputs}")
+    outputs = {"backward": digest(results()), "forward_f32": digest(forwards[:1]),
+               "forward_bf16": digest(forwards[1:])}
+    log(f"[kernel-csr-bwd] outputs sha256: the 10 backward outputs of one C call "
+        f"{outputs['backward']}, the f32 forward {outputs['forward_f32']}, the bf16 "
+        f"forward {outputs['forward_bf16']}")
     plain_ms = event_ms(lambda: C.fused_message_pass_csr_backward_reference(
         *args, g, *tiling))
 
@@ -1137,6 +1157,18 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
             "b8_bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _log_bf16_twin(out: dict, name: str) -> None:
+    """The B = 8 time of a bf16 forward beside its f32 twin's on the same
+    inputs, each as a multiple of its own bound; the twin's time joins the
+    bf16 row."""
+    bf, f32 = out[name + "_bf16"], out[name]
+    bf["f32_b8_ms"] = f32["b8_ms"]
+    log(f"[batched] {name}_bf16 forward: {bf['b8_ms'] * 1e3:.2f} us = "
+        f"{bf['b8_ms'] / bf['b8_bound_ms']:.1f}x its bound ({bf['b8_bound_ms'] * 1e3:.2f} us, "
+        f"{bf['b8_bound_by']}); its f32 twin on the same inputs {f32['b8_ms'] * 1e3:.2f} us = "
+        f"{f32['b8_ms'] / f32['b8_bound_ms']:.1f}x its bound ({f32['b8_bound_ms'] * 1e3:.2f} us)")
+
+
 def phase_batched(torch, FM, C) -> dict:
     """The graph axis of the four message-round kernels and the bf16
     forwards: at the main path's shapes, BATCH graphs (other edges and
@@ -1179,6 +1211,9 @@ def phase_batched(torch, FM, C) -> dict:
         row = _check_batched(torch, f"{name} forward", fused_fwd(bf16), ["agg", "msgs"], 2)
         out[name] = dict(row, **_bound(fwd_flops, fwd_bytes,
                                        PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))
+    _log_bf16_twin(out, "fused_message_pass")
+    log_product_yardstick(torch, "[batched] fused_message_pass_bf16", ef[(r >= 0) & (r < N)],
+                          w1[2 * D:], w2)
 
     def fused_bwd(g):
         sl = slice(None) if g is None else slice(g, g + 1)
@@ -1223,6 +1258,9 @@ def phase_batched(torch, FM, C) -> dict:
         row = _check_batched(torch, f"{name} forward", csr_fwd(bf16), ["agg", "msgs"], 2)
         out[name] = dict(row, **_bound(fwd_flops, fwd_bytes,
                                        PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))
+    _log_bf16_twin(out, "fused_message_pass_csr")
+    log_product_yardstick(torch, "[batched] fused_message_pass_csr_bf16",
+                          ef[layout.dst < N], w1[2 * D:], w2)
 
     def csr_bwd(g):
         sl = slice(None) if g is None else slice(g, g + 1)
@@ -1890,7 +1928,7 @@ def phase_kernel_bf16(torch, FM):
         err, bad, ratio, n_out = bf16_verdict(torch, got, f32, want, "fused_message_pass bf16")
         same = bool(torch.equal(got, again))
         max_err = max(max_err, err)
-        log(f"[kernel-bf16] {name} ({plan_of(FM, args)}): max_abs_err={err:.3e}, "
+        log(f"[kernel-bf16] {name} ({plan_of(FM, args, True)}): max_abs_err={err:.3e}, "
             f"violations(rtol={BF16_RTOL}, atol={BF16_ATOL})={bad} (flipped roundings); "
             f"the f32 kernel lies up to {ratio:.1f} tolerances away ({n_out} of "
             f"{want.numel()} elements outside); two launches bitwise equal={same}")
@@ -1915,11 +1953,17 @@ def phase_kernel_bf16(torch, FM):
     flops = 2 * e_live * (DE * H + H * D2)
     nbytes = fused_fwd_bytes(E, e_live)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    f32_bound = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3
+    log_product_yardstick(torch, "[kernel-bf16]", args[1][(r >= 0) & (r < N)],
+                          args[4][2 * D:], args[6])
     log(f"[kernel-bf16] timing E={E} live={e_live}: bf16 kernel {kernel_ms * 1e3:.2f} us "
-        f"(f32 kernel on the same inputs {f32_ms * 1e3:.2f} us), wrapper "
+        f"= {kernel_ms / bound:.1f}x its bound; its f32 twin on the same inputs "
+        f"{f32_ms * 1e3:.2f} us = {f32_ms / f32_bound:.1f}x its bound "
+        f"({f32_bound * 1e3:.2f} us); wrapper "
         f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
-        f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP at bf16 peak, "
-        f"{nbytes / 1e6:.2f} MB)")
+        f"{bound * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at bf16 peak, "
+        f"{nbytes / 1e6:.2f} MB); {plan_of(FM, args, True)}")
     return {
         "name": "fused_message_pass_bf16",
         "route": "cuda",
@@ -1931,10 +1975,29 @@ def phase_kernel_bf16(torch, FM):
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
         "f32_kernel_ms": f32_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "f32_bound_ms": f32_bound,
+        "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
     }
+
+
+def log_product_yardstick(torch, tag: str, ef_live, w1e, w2) -> float:
+    """The two edge products alone as ``torch.matmul`` in bf16 over the
+    live edges' rows ``ef_live`` (ef . W1e, then a bf16 [E_live, H]
+    operand . W2; cuBLAS, f32 accumulation): a yardstick of the product
+    time beside a bf16 forward, not the same function (no gather, norm or
+    sum).  Returns its device ms."""
+    a = ef_live.to(torch.bfloat16)
+    m = torch.randn(a.shape[0], w1e.shape[1], device=a.device).to(torch.bfloat16)
+    wa, wb = w1e.to(torch.bfloat16), w2.to(torch.bfloat16)
+    ms = event_ms(lambda: (a @ wa, m @ wb))
+    device_ms = graph_ms(lambda: (a @ wa, m @ wb))
+    log(f"{tag} yardstick: the two edge products as torch.matmul in bf16 over "
+        f"{a.shape[0]} live edges: {device_ms * 1e3:.2f} us of device time (replays "
+        f"of a captured CUDA graph), {ms * 1e3:.2f} us a call (CUDA events; the two "
+        f"dispatches' host time where it exceeds the device's)")
+    return device_ms
 
 
 def phase_kernel_csr_bf16(torch, C):
@@ -1956,7 +2019,7 @@ def phase_kernel_csr_bf16(torch, C):
         same = bool(torch.equal(got, again))
         max_err = max(max_err, err)
         log(f"[kernel-csr-bf16] {name} E={args[2].shape[0]} src_window={src_window} "
-            f"({csr_plan_of(C, args)}): "
+            f"({csr_plan_of(C, args, True)}): "
             f"max_abs_err={err:.3e}, violations(rtol={BF16_RTOL}, atol={BF16_ATOL})="
             f"{bad} (flipped roundings); the f32 kernel lies up to {ratio:.1f} "
             f"tolerances away ({n_out} elements outside); two launches bitwise "
@@ -1979,11 +2042,17 @@ def phase_kernel_csr_bf16(torch, C):
     flops = 2 * 2 * N * D * H + 2 * e_live * (DE * H + H * D2)
     nbytes = csr_fwd_bytes(e_live)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    f32_bound = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3
+    log_product_yardstick(torch, "[kernel-csr-bf16]", args[1][layout.dst < N],
+                          args[4][2 * D:], args[6])
     log(f"[kernel-csr-bf16] timing E={E} live={e_live}: bf16 kernel {kernel_ms * 1e3:.2f} us "
-        f"(f32 kernel on the same inputs {f32_ms * 1e3:.2f} us), wrapper "
+        f"= {kernel_ms / bound:.1f}x its bound; its f32 twin on the same inputs "
+        f"{f32_ms * 1e3:.2f} us = {f32_ms / f32_bound:.1f}x its bound "
+        f"({f32_bound * 1e3:.2f} us); wrapper "
         f"{wrapper_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
-        f"{max(t_ops, t_bytes) * 1e6:.2f} us ({flops / 1e9:.3f} GFLOP at bf16 peak, "
-        f"{nbytes / 1e6:.2f} MB)")
+        f"{bound * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at bf16 peak, "
+        f"{nbytes / 1e6:.2f} MB); {csr_plan_of(C, args, True)}")
     return {
         "name": "fused_message_pass_csr_bf16",
         "route": "cuda",
@@ -1995,7 +2064,8 @@ def phase_kernel_csr_bf16(torch, C):
         "plain_ms": plain_ms,
         "wrapper_ms": wrapper_ms,
         "f32_kernel_ms": f32_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "f32_bound_ms": f32_bound,
+        "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
     }
@@ -4053,6 +4123,67 @@ def phase_serving(torch, FM, C) -> dict:
     return {"deploy": phase_deploy(torch, FM), "deploy-csr": phase_deploy_csr(torch, FM, C)}
 
 
+# The kernels whose SASS must hold tensor-core instructions (HMMA: the bf16
+# forwards' mma.sync), as their mangled names spell them; every other
+# kernel of the two message-round libraries must hold none.
+SASS_HMMA = ("fwd_edge_kernel_bf16", "gemm_bf16_kernel")
+SASS_KERNELS = SASS_HMMA + ("fwd_edge_kernel", "bwd_edge_kernel", "gemm_kernel",
+                            "segsum_kernel", "bwd_reduce_kernel")
+
+
+def _kernel_of(mangled: str) -> str:
+    """The kernel a mangled name instantiates (its length-prefixed name:
+    ``20fwd_edge_kernel_bf16`` is not ``15fwd_edge_kernel``)."""
+    return next((k for k in SASS_KERNELS if f"{len(k)}{k}" in mangled), mangled)
+
+
+def sass_hmma(lib: str) -> dict:
+    """{kernel: [HMMA instructions of each instantiation]} of a built
+    library, from ``cuobjdump -sass`` (the CUDA toolkit's, beside nvcc)."""
+    from graph_neural_network_for_radar_perception_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    out = {}
+    for fn, c in sorted(counts.items()):
+        out.setdefault(_kernel_of(fn), []).append(c)
+    return out
+
+
+def phase_sass(torch=None, _=None) -> dict:
+    """The bf16 forwards run on the tensor cores and nothing else does:
+    in the built ``fused_mp`` and ``csr_mp`` libraries every instantiation
+    of SASS_HMMA's kernels holds HMMA instructions (the bf16 edge kernel of
+    each library, the CSR node GEMM) and every other kernel none."""
+    from graph_neural_network_for_radar_perception_torch.ops import _build
+
+    report = {name: sass_hmma(str(_build.build(name))) for name in ("fused_mp", "csr_mp")}
+    log(f"[sass] HMMA instructions per instantiation (cuobjdump -sass): {json.dumps(report)}")
+    want = {"fused_mp": {"fwd_edge_kernel_bf16": 1},
+            "csr_mp": {"fwd_edge_kernel_bf16": 1, "gemm_bf16_kernel": 1}}
+    for name, kernels in report.items():
+        for kernel, counts in kernels.items():
+            if kernel not in SASS_KERNELS:
+                raise AssertionError(f"[sass] {name}: unknown kernel {kernel}")
+            if kernel in SASS_HMMA and not all(counts):
+                raise AssertionError(f"[sass] {name}: {kernel} without HMMA: {counts}")
+            if kernel not in SASS_HMMA and any(counts):
+                raise AssertionError(f"[sass] {name}: the f32 kernel {kernel} holds HMMA: {counts}")
+        for kernel, n in want[name].items():
+            if len(kernels.get(kernel, [])) != n:
+                raise AssertionError(f"[sass] {name}: {n} instantiations of {kernel} expected, "
+                                     f"found {kernels.get(kernel)}")
+    return report
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4072,6 +4203,7 @@ def main(argv) -> int:
 
     # Phases that run alone, and the libraries each needs.
     phases = {"kernel-timing": (time_forwards, "fused_mp", "csr_mp"),
+              "sass": (phase_sass, "fused_mp", "csr_mp"),
               "kernel-bwd": (phase_kernel_bwd, "fused_mp"),
               "kernel-bwd-timing": (time_fused_bwd, "fused_mp"),
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
@@ -4143,6 +4275,7 @@ def main(argv) -> int:
         f"({_build.host_compiler()}, {native_s:.1f} s of it), in parallel: "
         f"{time.perf_counter() - t0:.1f} s -> "
         f"{', '.join(os.path.relpath(p, REPO) for p in [*libs.values(), floor_lib, native_lib])}")
+    phase_sass()
 
     fwd_row = phase_kernel(torch, FM)
     bwd_row = phase_kernel_bwd(torch, FM)

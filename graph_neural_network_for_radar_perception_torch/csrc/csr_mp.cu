@@ -26,8 +26,9 @@
 // reduction over the sorted destinations, with no atomics:
 //
 // Forward, three launches in one C call.  (1) x . W1r and x . W1s once
-// per node (one batched gemm_kernel; the TPU body computes them per edge:
-// the same function with less work); (2) fwd_edge_kernel
+// per node (one batched gemm_kernel, gemm_bf16_kernel in bf16; the TPU body
+// computes them per edge: the same function with less work); (2)
+// fwd_edge_kernel (fwd_edge_kernel_bf16 in bf16)
 // (csrc/mp_edge_tile.cuh, shared with the fused round's forward): one
 // block per SM, each a balanced contiguous run of the edges before off[N]
 // in tiles of T = 32 (16 or 8 where 32 rows overflow the shared memory:
@@ -81,19 +82,21 @@
 // per-edge rows.  At the main path's shapes (~70 edges a block) a launch
 // also pays its tiles' fixed cost: the ablations, scripts/fwd_tile_ablation.py
 // and scripts/edge_tile_ablation.py, and PERF.md.  Simple first: no wgmma,
-// no TMA, f32 FMAs on the CUDA cores.
+// no TMA, f32 FMAs on the CUDA cores (the bf16 forward: mma.sync, below).
 //
 // bf16 operands (csr_mp_forward_bf16).  The TPU kernel's bf16 mode
 // (_fwd_kernel with bf16=True) rounds every MXU operand to bf16 and
 // accumulates in f32, at other points than the fused kernel's: x is rounded
 // *before* the node products (xw = x[...].astype(dt), then dot(xd,
-// w1r.astype(dt))), so the node GEMM's BF16 instantiation rounds both x and
-// W1r/W1s on load, and the edge kernel takes its products unrounded
-// (fwd_edge_kernel<T, false, false, true>).  After that, as in
-// csrc/fused_mp.cu: ef and W1e, the layer-1 activations and W2, and each
-// message before the segmented sum are rounded; b1, b2, the norms and every
-// sum stay f32.  The forward stays deterministic.  The backward is the f32
-// one for either forward, as the JAX package's.
+// w1r.astype(dt))).  Both products run on the bf16 tensor cores
+// (mma.sync.m16n8k16, f32 accumulators): the node products in
+// gemm_bf16_kernel, which rounds x and W1r/W1s as it copies them into
+// shared memory, and the edge products in fwd_edge_kernel_bf16<T, false,
+// false> (csrc/mp_edge_tile.cuh), which takes the node products unrounded.
+// After that, as in csrc/fused_mp.cu: ef and W1e, the layer-1 activations
+// and W2, and each message before the segmented sum are rounded; b1, b2,
+// the norms and every sum stay f32.  The forward stays deterministic.  The
+// backward is the f32 one for either forward, as the JAX package's.
 
 #include "mp_edge_tile.cuh"
 
@@ -115,11 +118,10 @@ constexpr int kDxSplitK = 32;      // hidden channels per split-K partial of dx
 // whose k stride is 1 is read with neighbouring threads on neighbouring k
 // (coalesced); the others with neighbouring threads on neighbouring m or n.
 // Use only names the instantiation (GemmUse), so that a profile tells the
-// products apart.  BF16 rounds every element of A and B to bf16 on load (the
-// products of two bf16 values are exact in f32, the sums stay f32).
+// products apart.
 enum GemmUse { kNodePartials, kNodeCotangent, kNodeWeightGrad };
 
-template <int Use, bool BF16 = false>
+template <int Use>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const float* __restrict__ A, long long sag, long long sab,
             long long sam, long long sak, const float* __restrict__ B,
@@ -160,9 +162,9 @@ gemm_kernel(const float* __restrict__ A, long long sag, long long sab,
 #pragma unroll
     for (int r = 0; r < kLoads; ++r) {
       const int ka = kb + a_k[r], m = m0 + a_q[r];
-      av[r] = (ka < k1 && m < M) ? operand<BF16>(A[m * sam + ka * sak]) : 0.f;
+      av[r] = (ka < k1 && m < M) ? A[m * sam + ka * sak] : 0.f;
       const int kb2 = kb + b_k[r], nn = n0 + b_q[r];
-      bv[r] = (kb2 < k1 && nn < N) ? operand<BF16>(B[kb2 * sbk + nn * sbn]) : 0.f;
+      bv[r] = (kb2 < k1 && nn < N) ? B[kb2 * sbk + nn * sbn] : 0.f;
     }
   };
 
@@ -204,17 +206,92 @@ gemm_kernel(const float* __restrict__ A, long long sag, long long sab,
 
 // graphs x inner products, each split over k into ceil(K / k_split)
 // partials.
-template <int Use, bool BF16 = false>
+template <int Use>
 cudaError_t gemm(const float* A, long long sag, long long sab, long long sam,
                  long long sak, const float* B, long long sbg, long long sbb,
                  long long sbk, long long sbn, float* C, int M, int N, int K,
                  int k_split, int inner, int graphs, cudaStream_t stream) {
   const int splits = K > 0 ? (K + k_split - 1) / k_split : 1;
   dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits * inner * graphs);
-  gemm_kernel<Use, BF16><<<grid, kGemmThreads, 0, stream>>>(
+  gemm_kernel<Use><<<grid, kGemmThreads, 0, stream>>>(
       A, sag, sab, sam, sak, B, sbg, sbb, sbk, sbn, C, M, N, K, k_split, splits,
       inner);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward's node products: xab[g][j] = bf16(x[g]) . bf16(W1[j]) for
+// graph g = blockIdx.z / 2 and j = blockIdx.z % 2 (W1r, W1s: rows [j d,
+// (j+1) d) of w1), x [graphs, n, d], xab [graphs, 2, n, h], on the bf16
+// tensor cores (mma.sync.m16n8k16, f32 accumulators).  A block computes a
+// 64 x 64 output tile, each of its 4 warps 16 rows by 8 n-tiles; the k
+// range in chunks of kBf16GemmK (one at D = 64), each rounded (nearest even)
+// into shared memory as it is copied, a chunk's loads all in flight before
+// any is stored, zero past n, d and h (exact: the function does not
+// change); k in order: fixed-order sums.  What bounds it: the bytes (at
+// N = 768, D = 64, H = 128 its 25 MFLOP a graph take 25 ns at the bf16
+// peak, its 1.0 MB 0.3 us) and, at these sizes, one load latency a chunk.
+constexpr int kBf16GemmTile = 64;     // gemm_bf16_kernel's output tile (64 x 64)
+constexpr int kBf16GemmK = 64;        // its k chunk
+constexpr int kBf16GemmThreads = 128;
+
+__global__ void __launch_bounds__(kBf16GemmThreads)
+gemm_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                 float* __restrict__ xab, int n, int d, int h) {
+  // Rows of 40 and 72 bf16: 8 mod 16, so ldmatrix's rows fall on distinct banks.
+  __shared__ __align__(16) bf16 As[kBf16GemmTile][kBf16GemmK + 8];  // [m][k]
+  __shared__ __align__(16) bf16 Bs[kBf16GemmK][kBf16GemmTile + 8];  // [k][n]
+  const int m0 = blockIdx.y * kBf16GemmTile, n0 = blockIdx.x * kBf16GemmTile;
+  const size_t g = blockIdx.z / 2, j = blockIdx.z % 2;
+  x += g * n * d;
+  w1 += j * d * h;
+  xab += static_cast<size_t>(blockIdx.z) * n * h;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float acc[kBf16GemmTile / 8][4] = {};
+  constexpr int kA = kBf16GemmTile * kBf16GemmK / kBf16GemmThreads;  // x elements a thread a chunk
+  for (int k0 = 0; k0 < d; k0 += kBf16GemmK) {
+    float a_v[kA];  // x is read element by element: d may be any width
+#pragma unroll
+    for (int j = 0; j < kA; ++j) {
+      const int i = tid + j * kBf16GemmThreads, r = i / kBf16GemmK, kk = k0 + i % kBf16GemmK;
+      a_v[j] = m0 + r < n && kk < d ? x[static_cast<size_t>(m0 + r) * d + kk] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kA; ++j) {
+      const int i = tid + j * kBf16GemmThreads;
+      As[i / kBf16GemmK][i % kBf16GemmK] = __float2bfloat16_rn(a_v[j]);
+    }
+    // W1r or W1s rows [k0, k0 + kBf16GemmK), columns [n0, n0 + kBf16GemmTile).
+    round_into<kBf16GemmThreads>(&Bs[0][0], kBf16GemmTile + 8, kBf16GemmK, kBf16GemmTile,
+                             w1 + static_cast<size_t>(k0) * h + n0, h,
+                             min(kBf16GemmK, d - k0), min(kBf16GemmTile, h - n0));
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBf16GemmK; kk += 16) {
+      unsigned a[4];
+      ldsm_x4(a, &As[warp * 16 + (lane & 15)][kk + 8 * (lane >> 4)]);
+#pragma unroll
+      for (int t = 0; t < kBf16GemmTile / 8; t += 2) {
+        unsigned b[4];
+        ldsm_x4_t(b, &Bs[kk + (lane & 15)][8 * t + 8 * (lane >> 4)]);
+        mma_bf16(acc[t], a, b[0], b[1]);
+        mma_bf16(acc[t + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+  const int m = m0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < kBf16GemmTile / 8; ++t) {
+    const int c = n0 + 8 * t + 2 * (lane & 3);  // c + 1 < h where c < h
+    if (c >= h) continue;
+    if (m < n)
+      *reinterpret_cast<float2*>(xab + static_cast<size_t>(m) * h + c) =
+          make_float2(acc[t][0], acc[t][1]);
+    if (m + 8 < n)
+      *reinterpret_cast<float2*>(xab + static_cast<size_t>(m + 8) * h + c) =
+          make_float2(acc[t][2], acc[t][3]);
+  }
 }
 
 // csr_mp_backward's scratch over `graphs` = B graphs, in floats, each part
@@ -245,8 +322,8 @@ bool graphs_ok(int graphs) { return graphs >= 1 && graphs <= 65535; }
 namespace {
 
 // The forward's three launches: x . W1r, x . W1s (one batched gemm_kernel;
-// with BF16 of bf16(x) and bf16(W1r), bf16(W1s)), the edge tiles' messages
-// and the destination segments' sums (fwd_round).
+// with BF16 gemm_bf16_kernel, of bf16(x) and bf16(W1r), bf16(W1s)), the edge
+// tiles' messages and the destination segments' sums (fwd_round).
 template <bool BF16>
 int forward_entry(const float* x, const float* ef, const int* src,
                   const int* dst, const int* off, const float* w1,
@@ -258,14 +335,21 @@ int forward_entry(const float* x, const float* ef, const int* src,
       !aligned16(w1) || !aligned16(w2) || !aligned16(xab) || !aligned16(msgs))
     return cudaErrorInvalidValue;
   FwdPlan p;
-  cudaError_t err = fwd_plan(e, de, h, d2, p);
+  cudaError_t err = fwd_plan(e, de, h, d2, BF16, p);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long dh = static_cast<long long>(d) * h;
   const long long nh = static_cast<long long>(n) * h;
   // xab [B, 2, n, h]: graph g's x . W1r, x . W1s.
-  err = gemm<kNodePartials, BF16>(x, static_cast<long long>(n) * d, 0, d, 1, w1, 0,
-                                  dh, h, 1, xab, n, h, d, d, 2, graphs, s);
+  if constexpr (BF16) {
+    const dim3 grid((h + kBf16GemmTile - 1) / kBf16GemmTile,
+                    (n + kBf16GemmTile - 1) / kBf16GemmTile, 2 * graphs);
+    gemm_bf16_kernel<<<grid, kBf16GemmThreads, 0, s>>>(x, w1, xab, n, d, h);
+    err = cudaGetLastError();
+  } else {
+    err = gemm<kNodePartials>(x, static_cast<long long>(n) * d, 0, d, 1, w1, 0,
+                              dh, h, 1, xab, n, h, d, d, 2, graphs, s);
+  }
   if (err != cudaSuccess) return err;
   return fwd_round<false, false, BF16>(p, xab, xab + nh, ef, src, dst, nullptr, off,
                                        w1 + 2 * dh, b1, w2, b2, scal, slope, msgs,
@@ -314,7 +398,14 @@ extern "C" int csr_mp_forward_bf16(const float* x, const float* ef,
 extern "C" int csr_mp_forward_plan(int n, int e, int d, int de, int h, int d2,
                                    int* plan) {
   if (!widths_ok(n, e, d, de, h, d2)) return cudaErrorInvalidValue;
-  return fwd_plan_out(e, de, h, d2, plan);
+  return fwd_plan_out(e, de, h, d2, false, plan);
+}
+
+// The same for csr_mp_forward_bf16's edge kernel.
+extern "C" int csr_mp_forward_bf16_plan(int n, int e, int d, int de, int h,
+                                        int d2, int* plan) {
+  if (!widths_ok(n, e, d, de, h, d2)) return cudaErrorInvalidValue;
+  return fwd_plan_out(e, de, h, d2, true, plan);
 }
 
 // The scratch of one csr_mp_backward call at these widths over `graphs`

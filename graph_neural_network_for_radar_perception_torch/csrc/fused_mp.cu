@@ -54,16 +54,18 @@
 //
 // bf16 operands (fused_mp_forward_bf16).  The TPU kernel's bf16 mode
 // (_kernel with bf16=True) feeds every MXU dot bf16 operands and accumulates
-// in f32.  The BF16 instantiation rounds (to nearest even,
-// __float2bfloat16_rn) at exactly its points: W1e and W2 when staged, each
-// staged ef row, each gathered xa/xb element (the TPU rounds the products
-// x.W1r and x.W1s, which the caller computes in f32), the layer-1
-// activations when staged for layer 2, and each message before it is added.
-// b1, b2, both norms and every sum stay f32.  A product of two bf16 values
-// is exact in f32, so f32 FMAs over rounded operands compute the TPU
-// function up to summation order.  Its bound on this card is the bytes
-// (the same work on bf16 tensor cores takes less time than reading the
-// inputs); tensor-core tiles are later work.
+// in f32.  Its counterpart on this card is the bf16 tensor core: the edge
+// kernel is fwd_edge_kernel_bf16 (csrc/mp_edge_tile.cuh), both products on
+// mma.sync.m16n8k16 with f32 accumulators, rounding (to nearest even,
+// __float2bfloat16_rn) at exactly the TPU kernel's points: W1e and W2 once
+// a block, each ef row, each gathered xa/xb element (the TPU rounds the
+// products x.W1r and x.W1s, which the caller computes in f32), the layer-1
+// activations (written as layer 2's bf16 A tile) and each message before it
+// is added.  b1, b2, both norms and every sum stay f32.  A product of two
+// bf16 values is exact in f32: the TPU function up to summation order.  Its
+// tiles are 32 edges, two blocks an SM where they fit (fwd_plan).  Its
+// bound on this card is the bytes: at the shipped widths the products of
+// 9216 edges take 0.3 us at the bf16 peak, reading the inputs 1 us.
 //
 // ---------------------------------------------------------------------------
 // Backward (fused_mp_backward).  Per edge e = (s -> r) it recomputes the
@@ -129,7 +131,7 @@ int forward_entry(const float* xa, const float* xb, const float* ef,
       !aligned16(msgs))
     return cudaErrorInvalidValue;
   FwdPlan p;
-  const cudaError_t err = fwd_plan(e, de, h, d2, p);
+  const cudaError_t err = fwd_plan(e, de, h, d2, BF16, p);
   if (err != cudaSuccess) return err;
   return fwd_round<true, BF16, BF16>(p, xa, xb, ef, senders, receivers, order,
                                      off, w1e, b1, w2, b2, scal, slope, msgs,
@@ -199,7 +201,14 @@ extern "C" int fused_mp_forward_bf16(const float* xa, const float* xb,
 extern "C" int fused_mp_forward_plan(int n, int e, int de, int h, int d2,
                                      int* plan) {
   if (!edge_widths_ok(n, e, de, h, d2)) return cudaErrorInvalidValue;
-  return fwd_plan_out(e, de, h, d2, plan);
+  return fwd_plan_out(e, de, h, d2, false, plan);
+}
+
+// The same for fused_mp_forward_bf16's edge kernel.
+extern "C" int fused_mp_forward_bf16_plan(int n, int e, int de, int h, int d2,
+                                          int* plan) {
+  if (!edge_widths_ok(n, e, de, h, d2)) return cudaErrorInvalidValue;
+  return fwd_plan_out(e, de, h, d2, true, plan);
 }
 
 // The scratch of one fused_mp_backward call at these widths over `graphs`

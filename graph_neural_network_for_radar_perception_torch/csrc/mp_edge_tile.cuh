@@ -23,8 +23,9 @@
 // (tile_gemm), the norms fixed-order row phases (centre_row).
 //
 // Forward, two launches (after the CSR round's node products):
-// * fwd_edge_kernel: each position's message to its edge's row of a
-//   scratch msgs [E, D2];
+// * fwd_edge_kernel (f32) or fwd_edge_kernel_bf16 (the TPU kernels' bf16
+//   operands, both products on the bf16 tensor cores): each position's
+//   message to its edge's row of a scratch msgs [E, D2];
 // * segsum_kernel: agg[v] = the sum of v's receiver segment of msgs, in
 //   order of position, dropped edges skipped; every agg row written once.
 //
@@ -53,12 +54,14 @@
 // graph the kernels do what they did before the graph axis.
 //
 // No atomics: every output is a fixed-order sum, so two launches give the
-// same bits.  What bounds them: f32 FMAs on paper (the top of
+// same bits.  What bounds the f32 kernels: f32 FMAs on paper (the top of
 // csrc/csr_mp.cu), shared-memory bandwidth for tile_gemm in practice (a
 // lane's 16-byte load costs the same whether or not its warp shares the
-// address).  The ablations behind the register tiles, stages and edge
-// tiles: scripts/edge_tile_ablation.py (backward), scripts/fwd_tile_ablation.py
-// (forward) and PERF.md.  Each source includes this header inside its own
+// address); the bf16 forward: the bytes (its mma.sync products load about
+// 16 times less from shared memory a multiply-add than tile_gemm).  The
+// ablations behind the register tiles, stages and edge tiles:
+// scripts/edge_tile_ablation.py (backward), scripts/fwd_tile_ablation.py
+// (both forwards, f32 and bf16) and PERF.md.  Each source includes this header inside its own
 // translation unit (each is its own library); ops/_build.py hashes it with
 // the source.
 
@@ -76,19 +79,6 @@ constexpr float kTiny = 1e-30f;      // ops/fused_mp.py _TINY
 constexpr int kEdgeThreads = 256;    // threads per edge block (one block per SM)
 constexpr int kReduceThreads = 256;  // bwd_reduce_kernel threads per block
 constexpr int kReduceGroups = 8;     // bwd_reduce_kernel: groups of partials per output
-
-// v as an MXU operand of the TPU kernel: rounded to bf16 (nearest even, as
-// JAX's astype) when BF16, else unchanged.
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float4 operand(float4 v) {
-  return make_float4(operand<BF16>(v.x), operand<BF16>(v.y),
-                     operand<BF16>(v.z), operand<BF16>(v.w));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -873,11 +863,7 @@ cudaError_t bwd_edges(const BwdPlan& p, const float* xa, const float* xb,
 //
 // A position whose destination is out of range (a dropped CSR edge)
 // computes its message from zero rows, and segsum_kernel never reads it.
-// BF16 rounds where the TPU kernels round an MXU operand: W1e and W2 once
-// staged, each staged ef row, the layer-1 activations, each message; with
-// ROUND_X also each gathered xa, xb element (the fused round rounds the
-// products x . W1r, x . W1s; the CSR round rounds x before its node
-// products instead).  b1, b2, the norms and every sum stay f32.
+// This is the f32 forward; fwd_edge_kernel_bf16 (below) the bf16 one.
 
 // Dynamic shared memory of fwd_edge_kernel with tiles of T edges and
 // `stages` input stages.
@@ -890,7 +876,7 @@ size_t fwd_smem(int de, int h, int d2, int T, int stages) {
 // T edges a tile, RT = kEdgeThreads / T threads a row in the row phases;
 // ORDER: position q is the edge order[q] (else the edge q, and order is not
 // read).
-template <int T, bool ORDER, bool ROUND_X, bool BF16>
+template <int T, bool ORDER>
 __global__ void __launch_bounds__(kEdgeThreads, 1)
 fwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                 const float* __restrict__ ef, const int* __restrict__ src,
@@ -978,10 +964,10 @@ fwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(r_xa + c, g_xa + c, keep);
     for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(r_xb + c, g_xb + c, sok);
   };
-  // lrelu(gamma * u * inv_den + beta), rounded as an operand.
+  // lrelu(gamma * u * inv_den + beta).
   auto act = [&](float u, float inv_den, float gamma, float beta) {
     const float y = gamma * (u * inv_den) + beta;
-    return operand<BF16>(y >= 0.f ? y : slope * y);
+    return y >= 0.f ? y : slope * y;
   };
 
   const bool two = stages == 2;
@@ -1017,31 +1003,10 @@ fwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     const bool warp_rows = warp * WR < prows;
     const int edge = row_t < rows ? edge_at(q0 + row_t) : 0;  // for the store
 
-    if constexpr (BF16) {  // the MXU operands of layer 1, rounded in place
-      if (i == 0) {
-        for (int k = tid; k < de * ch; k += blockDim.x) {
-          float4* w = reinterpret_cast<float4*>(s_w1e + (k / ch) * ldh) + k % ch;
-          *w = operand<true>(*w);
-        }
-        for (int k = tid; k < h * cd; k += blockDim.x) {
-          float4* w = reinterpret_cast<float4*>(s_w2 + (k / cd) * ldd) + k % cd;
-          *w = operand<true>(*w);
-        }
-      }
-      for (int c = 4 * part; c < de; c += 4 * RT) {
-        float4* v = reinterpret_cast<float4*>(t_ef + row_t * lde + c);
-        *v = operand<true>(*v);
-      }
-      __syncthreads();
-    }
-
     // ---- pre1 = b1 + xa[dst] + xb[src] + ef . W1e, over xa[dst] ----------
     tile_gemm<false>(
         t_ef, lde, s_w1e, ldh, de, h, prows,
-        [&](int t, int c) {
-          return s_b1[c] + operand<ROUND_X && BF16>(t_p1[t * ldh + c]) +
-                 operand<ROUND_X && BF16>(t_xb[t * ldh + c]);
-        },
+        [&](int t, int c) { return s_b1[c] + t_p1[t * ldh + c] + t_xb[t * ldh + c]; },
         [&](int t, int c, float v) { t_p1[t * ldh + c] = v; });
     __syncthreads();
 
@@ -1085,19 +1050,487 @@ fwd_edge_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   cp_async_wait<0>();  // a block without tiles still has the weights in flight
 }
 
-// How fwd_edge_kernel runs at these widths on this device: edges a tile
-// (32, else 16, else 8: the largest whose shared memory
-// fits a block, with two input stages where they fit, else one) and edge
-// blocks (one per SM, no more than there are tiles).
+// ---------------------------------------------------------------------------
+// Forward with the TPU kernels' bf16 operands (fwd_edge_kernel_bf16), on
+// the bf16 tensor cores.  The TPU kernels' bf16 mode (ops/pallas/fused_mp.py
+// and csr_mp.py with bf16=True) feeds the MXU bf16 operands and accumulates
+// in f32 (preferred_element_type=float32); here the same products run on
+// Hopper's bf16 tensor cores: mma.sync.m16n8k16 (bf16 x bf16 + f32), the
+// operands loaded by ldmatrix from bf16 copies in shared memory.  The
+// runs, tiles, stages, row phases and the message store are those of
+// fwd_edge_kernel; per tile of T edges:
+//
+//   pre1 = b1 + xa + xb + bf16(ef) . bf16(W1e)   mma_tile, f32, over xa
+//   a1   = bf16(lrelu(cnorm(pre1)))              row phase, into a bf16 tile
+//                                                over xb (layer 2's A)
+//   pre2 = b2 + a1 . bf16(W2)                    mma_tile, f32, over xa
+//   msgs[p] = bf16(lrelu(cnorm(pre2)))           row phase, as f32
+//
+// with ROUND_X xa and xb rounded to bf16 as they are added (the fused round
+// rounds its products x . W1r, x . W1s; the CSR round rounds x before its
+// node products instead).  The rounding points are the TPU kernels' (b1,
+// b2, the norms and every sum stay f32); a product of two bf16 values is
+// exact in f32, and the tensor cores add the products in another order
+// than a loop of FMAs: the same function up to summation order.  W1e and
+// W2 are rounded once per block as they are copied in (round_into: batched
+// loads, while the first tile's copies fly), each tile's ef rows land as
+// f32 (cp.async) and each thread rounds the floats it copied into the bf16
+// A tile of layer 1, so no barrier is added.  The products' depths are
+// padded to 16 and their widths to 8 with zeros (exact: the function does
+// not change), so De, H and D2 need only be multiples of 4.  Fixed k
+// order, no atomics: two launches give the same bits.  A message depends
+// on its own row and on T alone (T sets the threads that sum a row in the
+// norms), so a batch gives each graph's one-graph bits.  What bounds it in
+// practice: a block's fixed cost (the launch, the weights, the first
+// tile's chain of index loads and gathers: ~6 us of the edge kernel's ~19
+// at the main path's ~70 edges a block), then the products' and norms'
+// latencies (scripts/fwd_tile_ablation.py's bf16_no_* variants, PERF.md);
+// fwd_plan puts two blocks on an SM where they fit, to hide them.
+
+using bf16 = __nv_bfloat16;
+
+// v rounded to bf16 (nearest even, as JAX's astype) and back.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four floats as four bf16 (nearest even) at p, 8-byte aligned.
+__device__ __forceinline__ void store_bf16x4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&lo);
+  u.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// A row-major f32 matrix [rows_src][cols_src] in global memory (rows
+// ld_src apart; 16-byte aligned, ld_src and cols_src multiples of 4)
+// rounded into the bf16 tile [rows][ld] of shared memory, zero in rows
+// [rows_src, rows) and columns [cols_src, cols) (cols a multiple of 4), by
+// `threads` threads; each
+// thread keeps kStageLoads 16-byte loads in flight before it stores any,
+// so that a block pays one load latency a batch and not one a load.
+constexpr int kStageLoads = 8;
+
+template <int threads>
+__device__ __forceinline__ void round_into(bf16* dst, int ld, int rows, int cols,
+                                           const float* src, int ld_src,
+                                           int rows_src, int cols_src) {
+  const int c4 = cols >> 2, items = rows * c4;
+  for (int i0 = threadIdx.x; i0 < items; i0 += threads * kStageLoads) {
+    float4 v[kStageLoads];
+#pragma unroll
+    for (int j = 0; j < kStageLoads; ++j) {
+      const int i = i0 + j * threads, r = i / c4, c = (i - r * c4) * 4;
+      v[j] = i < items && r < rows_src && c < cols_src
+                 ? ld4(src + static_cast<size_t>(r) * ld_src + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kStageLoads; ++j) {
+      const int i = i0 + j * threads, r = i / c4, c = (i - r * c4) * 4;
+      if (i < items) store_bf16x4(dst + r * ld + c, v[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes); r[j] gets the j-th matrix's
+// elements (l / 4, 2 (l % 4) + {0, 1}).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+// The same, transposed: r[j] gets the j-th matrix's elements (2 (l % 4) +
+// {0, 1}, l / 4).
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+// Two matrices, transposed (lanes 0-15 give the addresses).
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+// c += A . B for one 16 x 16 A fragment (a) and one 16 x 8 B fragment (b0,
+// b1) of bf16, in f32: c[0], c[1] at row l / 4, columns 2 (l % 4) + {0, 1};
+// c[2], c[3] at row l / 4 + 8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out(t, c) = init(t, c) + sum over k < K of A[t][k] W[k][c] for the rows t
+// of the first ceil(rows / 16) m-tiles of 16 and the N columns c (N a
+// multiple of 8, K of 16), from bf16 operands in shared memory (A row-major
+// [.][lda], W row-major [K][ldw], both leading dimensions 8 mod 16: the
+// ldmatrix rows fall on distinct banks), in f32 on the tensor cores.  A
+// warp's item is one m-tile by up to kMmaTiles n-tiles of 8 columns: its
+// A fragment once a k-step, the B fragments two n-tiles an ldmatrix (.trans:
+// W is k-major).  k in order.  init(t, c) and store(t, c, v) take the
+// column pair (c, c + 1) as a float2; rows from `rows` up to the m-tile's
+// end are computed and stored too (the caller's shared rows hold them).
+constexpr int kMmaTiles = 4;
+
+template <typename Init, typename Store>
+__device__ __forceinline__ void mma_tile(const bf16* A, int lda, const bf16* W,
+                                         int ldw, int K, int N, int rows,
+                                         Init init, Store store) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int nt = N >> 3, chunks = (nt + kMmaTiles - 1) / kMmaTiles;
+  const int items = ((rows + 15) >> 4) * chunks;
+  for (int it = warp; it < items; it += kEdgeThreads / 32) {
+    const int m0 = (it / chunks) * 16, t0 = (it % chunks) * kMmaTiles;
+    const int nc = min(kMmaTiles, nt - t0);  // n-tiles of this item
+    float acc[kMmaTiles][4];
+#pragma unroll
+    for (int j = 0; j < kMmaTiles; ++j) {
+      float2 lo = make_float2(0.f, 0.f), hi = lo;
+      if (j < nc) {
+        lo = init(m0 + g, (t0 + j) * 8 + c2);
+        hi = init(m0 + g + 8, (t0 + j) * 8 + c2);
+      }
+      acc[j][0] = lo.x;
+      acc[j][1] = lo.y;
+      acc[j][2] = hi.x;
+      acc[j][3] = hi.y;
+    }
+    // Lane l's rows: A row m0 + l % 16 at k + 8 (l / 16); W row k + l % 16
+    // at column 8 (t0 + j) + 8 (l / 16).
+    const bf16* a_row = A + (m0 + (lane & 15)) * lda + 8 * (lane >> 4);
+    const bf16* w_row = W + (lane & 15) * ldw + 8 * t0 + 8 * (lane >> 4);
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      unsigned a[4];
+      ldsm_x4(a, a_row + k0);
+      const bf16* w_k = w_row + k0 * ldw;
+#pragma unroll
+      for (int j = 0; j < kMmaTiles; j += 2) {
+        if (j + 1 < nc) {
+          unsigned b[4];
+          ldsm_x4_t(b, w_k + 8 * j);
+          mma_bf16(acc[j], a, b[0], b[1]);
+          mma_bf16(acc[j + 1], a, b[2], b[3]);
+        } else if (j < nc) {
+          unsigned b[2];
+          ldsm_x2_t(b, w_k + 8 * j);
+          mma_bf16(acc[j], a, b[0], b[1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMmaTiles; ++j)
+      if (j < nc) {
+        store(m0 + g, (t0 + j) * 8 + c2, make_float2(acc[j][0], acc[j][1]));
+        store(m0 + g + 8, (t0 + j) * 8 + c2, make_float2(acc[j][2], acc[j][3]));
+      }
+  }
+}
+
+// Leading dimensions: f32 rows 8 mod 32 floats (a half-warp's float2s of
+// an mma fragment, 4 rows by 8 floats, fall on distinct banks), bf16 rows
+// 8 mod 16 elements (ldmatrix's 8 rows of 16 bytes do); each at least w.
+__host__ __device__ __forceinline__ int ld_f32(int w) { return w + (40 - w % 32) % 32; }
+__host__ __device__ __forceinline__ int ld_b16(int w) { return w + (24 - w % 16) % 16; }
+__host__ __device__ __forceinline__ int pad_to(int w, int m) { return (w + m - 1) / m * m; }
+
+// The dynamic shared memory of fwd_edge_kernel_bf16 with tiles of T edges
+// and `stages` input stages, in bytes from its start (each part a multiple
+// of 16 bytes):
+//   w1 [k1][ldw1], w2 [k2][ldw2]        bf16 weights, zero-padded
+//   b1 [n1], b2 [n2]                    f32 biases, zero-padded
+//   land [T][ldl]                       f32: the ef rows as they land
+//   stages x { a1 [T][lda1]             bf16: the ef rows, layer 1's A
+//              xa [T][ldx]              f32: xa[dst], then pre1, then pre2
+//              xb [T][ldx] }            f32: xb[src], then layer 2's A
+//                                       (bf16 [T][lda2])
+struct Bf16Smem {
+  int k1, n1, k2, n2;           // layer 1's depth and width, layer 2's (padded)
+  int ldw1, ldw2, lda1, lda2, ldx, ldl;
+  size_t w2, b1, b2, land, stage, a1, xa, xb, bytes;
+
+  __host__ __device__ Bf16Smem(int de, int h, int d2, int T, int stages)
+      : k1(pad_to(de, 16)), n1(pad_to(h, 8)), k2(pad_to(h, 16)), n2(pad_to(d2, 8)),
+        ldw1(ld_b16(n1)), ldw2(ld_b16(n2)), lda1(ld_b16(k1)), lda2(ld_b16(k2)),
+        ldx(ld_f32(h > d2 ? h : d2)), ldl(de + kPad) {
+    const size_t xb_bytes = static_cast<size_t>(T) *
+        (4 * ldx > 2 * lda2 ? 4 * ldx : 2 * lda2);
+    w2 = 2 * static_cast<size_t>(k1) * ldw1;
+    b1 = w2 + 2 * static_cast<size_t>(k2) * ldw2;
+    b2 = b1 + 4 * static_cast<size_t>(n1);
+    land = b2 + 4 * static_cast<size_t>(n2);
+    a1 = land + 4 * static_cast<size_t>(T) * ldl;  // stage 0's; stage s at + s * stage
+    xa = a1 + 2 * static_cast<size_t>(T) * lda1;
+    xb = xa + 4 * static_cast<size_t>(T) * ldx;
+    stage = xb + xb_bytes - a1;
+    bytes = a1 + stages * stage;
+  }
+};
+
+// T edges a tile (16 to 128, a multiple of 16), RT = kEdgeThreads / T
+// threads a row in the row phases; ORDER: position q is the edge order[q];
+// ROUND_X: xa and xb are rounded to bf16 (the fused round).  Registers for
+// two blocks an SM (fwd_plan).
+template <int T, bool ORDER, bool ROUND_X>
+__global__ void __launch_bounds__(kEdgeThreads, 2)
+fwd_edge_kernel_bf16(const float* __restrict__ xa, const float* __restrict__ xb,
+                     const float* __restrict__ ef, const int* __restrict__ src,
+                     const int* __restrict__ dst, const int* __restrict__ order,
+                     const int* __restrict__ off, const float* __restrict__ w1e,
+                     const float* __restrict__ b1, const float* __restrict__ w2,
+                     const float* __restrict__ b2, const float* __restrict__ scal,
+                     float slope, float* __restrict__ msgs, int n, int e, int de,
+                     int h, int d2, long long x_gs, int stages) {
+  constexpr int RT = kEdgeThreads / T, WR = 32 / RT;
+  static_assert(RT * T == kEdgeThreads && T % 16 == 0 && RT >= 2, "16 to 128 edges a tile");
+  extern __shared__ __align__(16) float smem[];
+  {  // blockIdx.y = g, the graph: its slices (xa, xb at g * x_gs)
+    const size_t g = blockIdx.y;
+    xa += g * x_gs;
+    xb += g * x_gs;
+    ef += g * e * de;
+    src += g * e;
+    dst += g * e;
+    if constexpr (ORDER) order += g * e;
+    off += g * (n + 1);
+    msgs += g * e * d2;
+  }
+  const Bf16Smem S(de, h, d2, T, stages);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* s_w1 = reinterpret_cast<bf16*>(base);
+  bf16* s_w2 = reinterpret_cast<bf16*>(base + S.w2);
+  float* s_b1 = reinterpret_cast<float*>(base + S.b1);
+  float* s_b2 = reinterpret_cast<float*>(base + S.b2);
+  float* s_land = reinterpret_cast<float*>(base + S.land);
+  const int ldx = S.ldx;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int q_end = off[n];
+  const int q_lo = static_cast<int>(static_cast<long long>(blockIdx.x) * q_end / gridDim.x);
+  const int q_hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * q_end / gridDim.x);
+  const int ntile = (q_hi - q_lo + T - 1) / T;
+  const float g1 = scal[0], be1 = scal[1], g2 = scal[2], be2 = scal[3];
+  const float inv_h = 1.0f / static_cast<float>(h);
+  const float inv_d2 = 1.0f / static_cast<float>(d2);
+  const float inv_hm1 = 1.0f / static_cast<float>(h > 1 ? h - 1 : 1);
+  const float inv_d2m1 = 1.0f / static_cast<float>(d2 > 1 ? d2 - 1 : 1);
+
+  const int row_t = tid / RT, part = tid % RT;
+  auto a1_of = [&](int buf) { return reinterpret_cast<bf16*>(base + S.a1 + buf * S.stage); };
+  auto xa_of = [&](int buf) { return reinterpret_cast<float*>(base + S.xa + buf * S.stage); };
+  auto xb_of = [&](int buf) { return reinterpret_cast<float*>(base + S.xb + buf * S.stage); };
+  auto edge_at = [&](int q) {
+    if constexpr (ORDER) return order[q]; else return q;
+  };
+  // The edge of this thread's row in tile i (-1 past the run) and its two
+  // ends, read a tile ahead of its staging.
+  auto fetch = [&](int i, int& pp, int& dd, int& ss) {
+    const int q = q_lo + i * T + row_t;
+    pp = q < q_hi ? edge_at(q) : -1;
+    dd = pp >= 0 ? dst[pp] : n;
+    ss = pp >= 0 ? src[pp] : n;
+  };
+  // The row's ef row to the landing rows, xa[dst] and xb[src] to stage
+  // `buf` (zero past the run or for an index out of range).
+  auto stage_in = [&](int buf, int pp, int dd, int ss) {
+    const bool live = pp >= 0, keep = in_range(dd, n), sok = in_range(ss, n);
+    const float* g_ef = ef + static_cast<size_t>(live ? pp : 0) * de;
+    const float* g_xa = xa + static_cast<size_t>(keep ? dd : 0) * h;
+    const float* g_xb = xb + static_cast<size_t>(sok ? ss : 0) * h;
+    float* l_ef = s_land + row_t * S.ldl;
+    float* l_xa = xa_of(buf) + row_t * ldx;
+    float* l_xb = xb_of(buf) + row_t * ldx;
+    for (int c = 4 * part; c < de; c += 4 * RT) cp_async16(l_ef + c, g_ef + c, live);
+    for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(l_xa + c, g_xa + c, keep);
+    for (int c = 4 * part; c < h; c += 4 * RT) cp_async16(l_xb + c, g_xb + c, sok);
+  };
+  // The floats this thread copied to the landing rows, once landed, rounded
+  // into stage `buf`'s A tile (zero past De).
+  auto round_ef = [&](int buf) {
+    const float* l_ef = s_land + row_t * S.ldl;
+    bf16* a = a1_of(buf) + row_t * S.lda1;
+    for (int c = 4 * part; c < S.k1; c += 4 * RT)
+      store_bf16x4(a + c, c < de ? ld4(l_ef + c) : make_float4(0.f, 0.f, 0.f, 0.f));
+  };
+  // lrelu(gamma * u * inv_den + beta) of four values.
+  auto act4 = [&](float4 u, float inv_den, float gamma, float beta) {
+    const float v[4] = {u.x, u.y, u.z, u.w};
+    float y[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      y[k] = gamma * (v[k] * inv_den) + beta;
+      y[k] = y[k] >= 0.f ? y[k] : slope * y[k];
+    }
+    return make_float4(y[0], y[1], y[2], y[3]);
+  };
+
+  const bool two = stages == 2;
+  int pp = -1, dd = n, ss = n;  // the next tile to stage
+  // Tile 0's rows fly while the weights come in, with either stage count.
+  fetch(0, pp, dd, ss);
+  if (ntile > 0) {
+    stage_in(0, pp, dd, ss);
+    fetch(1, pp, dd, ss);
+  }
+  cp_async_commit();
+  // The weights and biases, rounded once per block while they fly; zero in
+  // the padding.
+  for (int i = tid; i < S.n1; i += kEdgeThreads) s_b1[i] = i < h ? b1[i] : 0.f;
+  for (int i = tid; i < S.n2; i += kEdgeThreads) s_b2[i] = i < d2 ? b2[i] : 0.f;
+  round_into<kEdgeThreads>(s_w1, S.ldw1, S.k1, S.n1, w1e, h, de, h);
+  round_into<kEdgeThreads>(s_w2, S.ldw2, S.k2, S.n2, w2, d2, h, d2);
+  if (ntile > 0) {
+    cp_async_wait<0>();
+    round_ef(0);
+  }
+
+  for (int it = 0; it < ntile; ++it) {
+    const int buf = two ? it & 1 : 0;
+    if (two) {  // the next tile's rows fly during this one
+      if (it + 1 < ntile) {
+        stage_in(buf ^ 1, pp, dd, ss);
+        fetch(it + 2, pp, dd, ss);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else if (it > 0) {  // this tile's rows (tile 0's came in above)
+      stage_in(0, pp, dd, ss);
+      fetch(it + 1, pp, dd, ss);
+      cp_async_commit();
+      cp_async_wait<0>();
+      round_ef(0);
+    }
+    __syncthreads();
+    const bf16* t_a1 = a1_of(buf);
+    float* t_xa = xa_of(buf);  // xa[dst], then pre1 and a1's norm, then pre2
+    const float* t_xb = xb_of(buf);
+    bf16* t_a2 = reinterpret_cast<bf16*>(xb_of(buf));  // layer 2's A, over xb
+    const int q0 = q_lo + it * T, rows = min(T, q_hi - q0);
+    const bool warp_rows = warp * WR < rows;  // the row phases' warps
+    const int edge = row_t < rows ? edge_at(q0 + row_t) : 0;  // for the store
+
+    // ---- pre1 = b1 + xa[dst] + xb[src] + ef . W1e, over xa[dst] ----------
+    mma_tile(t_a1, S.lda1, s_w1, S.ldw1, S.k1, S.n1, rows,
+             [&](int t, int c) {
+               if (c >= h) return make_float2(0.f, 0.f);
+               const float2 a = *reinterpret_cast<const float2*>(t_xa + t * ldx + c);
+               const float2 b = *reinterpret_cast<const float2*>(t_xb + t * ldx + c);
+               if constexpr (ROUND_X)
+                 return make_float2(s_b1[c] + round_bf16(a.x) + round_bf16(b.x),
+                                    s_b1[c + 1] + round_bf16(a.y) + round_bf16(b.y));
+               else
+                 return make_float2(s_b1[c] + a.x + b.x, s_b1[c + 1] + a.y + b.y);
+             },
+             [&](int t, int c, float2 v) {
+               *reinterpret_cast<float2*>(t_xa + t * ldx + c) = v;
+             });
+    __syncthreads();
+
+    // ---- a1 = bf16(lrelu(cnorm(pre1))) into layer 2's A tile -------------
+    if (warp_rows) {
+      float* u = t_xa + row_t * ldx;
+      const float sd_a = centre_row<RT>(u, h, part, inv_h, inv_hm1);
+      const float inv_a = 1.0f / (sd_a + kEps);
+      bf16* a2 = t_a2 + row_t * S.lda2;
+      for (int c = 4 * part; c < S.k2; c += 4 * RT)
+        store_bf16x4(a2 + c, c < h ? act4(ld4(u + c), inv_a, g1, be1)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    __syncthreads();
+
+    // ---- pre2 = b2 + a1 . W2, over pre1 ----------------------------------
+    mma_tile(t_a2, S.lda2, s_w2, S.ldw2, S.k2, S.n2, rows,
+             [&](int, int c) { return make_float2(s_b2[c], s_b2[c + 1]); },
+             [&](int t, int c, float2 v) {
+               *reinterpret_cast<float2*>(t_xa + t * ldx + c) = v;
+             });
+    __syncthreads();
+
+    // ---- the message, bf16(lrelu(cnorm(pre2))), to msgs[edge] -------------
+    if (warp_rows) {
+      float* u = t_xa + row_t * ldx;
+      const float sd_b = centre_row<RT>(u, d2, part, inv_d2, inv_d2m1);
+      const float inv_b = 1.0f / (sd_b + kEps);
+      if (row_t < rows) {
+        float* out = msgs + static_cast<size_t>(edge) * d2;
+        for (int c = 4 * part; c < d2; c += 4 * RT) {
+          const float4 y = act4(ld4(u + c), inv_b, g2, be2);
+          *reinterpret_cast<float4*>(out + c) = make_float4(
+              round_bf16(y.x), round_bf16(y.y), round_bf16(y.z), round_bf16(y.w));
+        }
+      }
+    }
+    // The next tile's ef rows, landed, into its A tile.
+    if (two && it + 1 < ntile) {
+      cp_async_wait<0>();
+      round_ef(buf ^ 1);
+    }
+    __syncthreads();  // this stage's rows are free for the tile after next
+  }
+}
+
+// How a forward edge kernel runs at these widths on this device: edges a
+// tile, input stages and edge blocks (one per SM, no more than there are
+// tiles).  fwd_edge_kernel (f32): 32, else 16, else 8 edges, the largest
+// whose shared memory fits a block, with two input stages where they fit,
+// else one.  fwd_edge_kernel_bf16: kBf16Tile edges in one input stage
+// where two such blocks fit an SM's shared memory (its registers do:
+// __launch_bounds__), else in two stages where they fit a block, else
+// one; widths whose tile fits no block are refused.  A block's fixed cost
+// (launch, weights, the first tile's gathers: 5-6 us) outweighs its tiles
+// at the main path's ~70 edges a block, so two blocks an SM, each hiding
+// the other's latencies, beat larger tiles and a second stage at B = 8:
+// 32-edge tiles in one stage 74 us, two stages 117, 64 and 128 edges
+// 106-110 (the edge kernel at the shipped widths, scripts/
+// fwd_tile_ablation.py, PERF.md).
 struct FwdPlan {
   int tile, stages, blocks;
   size_t smem;
 };
 
-cudaError_t fwd_plan(int e, int de, int h, int d2, FwdPlan& p) {
+constexpr int kBf16Tile = 32;  // fwd_edge_kernel_bf16's edges a tile
+
+cudaError_t fwd_plan(int e, int de, int h, int d2, bool bf16, FwdPlan& p) {
   int smem_max = 0, sms = 0;
-  const cudaError_t err = device_limits(smem_max, sms);
+  cudaError_t err = device_limits(smem_max, sms);
   if (err != cudaSuccess) return err;
+  if (bf16) {
+    int dev = 0, per_sm = 0, reserved = 0;  // an SM's shared memory, a block's reserve
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                      dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                                      dev)) != cudaSuccess)
+      return err;
+    const int tile = kBf16Tile, blocks = edge_blocks((e + tile - 1) / tile, sms);
+    const size_t one = Bf16Smem(de, h, d2, tile, 1).bytes;
+    if (2 * (one + reserved) <= static_cast<size_t>(per_sm)) {  // two blocks an SM
+      p = {tile, 1, blocks, one};
+      return cudaSuccess;
+    }
+    for (int st = 2; st >= 1; --st) {
+      const size_t bytes = Bf16Smem(de, h, d2, tile, st).bytes;
+      if (bytes > static_cast<size_t>(smem_max)) continue;
+      p = {tile, st, blocks, bytes};
+      return cudaSuccess;
+    }
+    return cudaErrorInvalidValue;
+  }
   for (int t = 32; t >= 8; t /= 2)
     for (int s = 2; s >= 1; --s) {
       const size_t smem = fwd_smem(de, h, d2, t, s);
@@ -1109,10 +1542,11 @@ cudaError_t fwd_plan(int e, int de, int h, int d2, FwdPlan& p) {
 }
 
 // fwd_plan's tile, input stages and blocks into plan[3]; the forwards'
-// plan entry points (fused_mp_forward_plan, csr_mp_forward_plan).
-cudaError_t fwd_plan_out(int e, int de, int h, int d2, int* plan) {
+// plan entry points (fused_mp_forward_plan, csr_mp_forward_plan and their
+// _bf16 twins).
+cudaError_t fwd_plan_out(int e, int de, int h, int d2, bool bf16, int* plan) {
   FwdPlan p;
-  const cudaError_t err = fwd_plan(e, de, h, d2, p);
+  const cudaError_t err = fwd_plan(e, de, h, d2, bf16, p);
   if (err != cudaSuccess) return err;
   plan[0] = p.tile;
   plan[1] = p.stages;
@@ -1120,31 +1554,33 @@ cudaError_t fwd_plan_out(int e, int de, int h, int d2, int* plan) {
   return cudaSuccess;
 }
 
-template <int T, bool ORDER, bool ROUND_X, bool BF16>
-cudaError_t launch_fwd_edges(const FwdPlan& p, const float* xa, const float* xb,
-                             const float* ef, const int* src, const int* dst,
-                             const int* order, const int* off,
+// One launch of a forward edge kernel (fwd_edge_kernel<T, ORDER> or
+// fwd_edge_kernel_bf16<T, ORDER, ROUND_X>) as planned, over `graphs` graphs.
+template <typename Kernel>
+cudaError_t launch_fwd_edges(Kernel kernel, const FwdPlan& p, const float* xa,
+                             const float* xb, const float* ef, const int* src,
+                             const int* dst, const int* order, const int* off,
                              const float* w1e, const float* b1,
                              const float* w2, const float* b2,
                              const float* scal, float slope, float* msgs,
                              int n, int e, int de, int h, int d2, int graphs,
                              long long x_gs, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fwd_edge_kernel<T, ORDER, ROUND_X, BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.smem));
   if (err != cudaSuccess) return err;
-  fwd_edge_kernel<T, ORDER, ROUND_X, BF16><<<dim3(p.blocks, graphs), kEdgeThreads, p.smem, stream>>>(
+  kernel<<<dim3(p.blocks, graphs), kEdgeThreads, p.smem, stream>>>(
       xa, xb, ef, src, dst, order, off, w1e, b1, w2, b2, scal, slope, msgs, n,
       e, de, h, d2, x_gs, p.stages);
   return cudaGetLastError();
 }
 
 // A forward round's two launches over `graphs` graphs, graph g's node
-// products xa, xb [n, h] at g * x_gs: fwd_edge_kernel at the plan's tile
-// (messages into msgs [graphs, e, d2]), then segsum_kernel (agg [graphs, n,
-// d2], every row written).  order: the receiver order (ORDER) or null; the
-// index arrays [graphs, ...].  xa, xb, ef, w1e, w2 and msgs are 16-byte
-// aligned.
+// products xa, xb [n, h] at g * x_gs: the edge kernel at the plan's tile
+// (fwd_edge_kernel, or with BF16 fwd_edge_kernel_bf16; messages into msgs
+// [graphs, e, d2]), then segsum_kernel (agg [graphs, n, d2], every row
+// written).  order: the receiver order (ORDER) or null; the index arrays
+// [graphs, ...].  xa, xb, ef, w1e, w2 and msgs are 16-byte aligned.
+// ROUND_X (with BF16): xa and xb are rounded to bf16.
 template <bool ORDER, bool ROUND_X, bool BF16>
 cudaError_t fwd_round(const FwdPlan& p, const float* xa, const float* xb,
                       const float* ef, const int* src, const int* dst,
@@ -1154,15 +1590,21 @@ cudaError_t fwd_round(const FwdPlan& p, const float* xa, const float* xb,
                       int n, int e, int de, int h, int d2, int graphs,
                       long long x_gs, cudaStream_t stream) {
   cudaError_t err = cudaErrorInvalidValue;
-#define MP_FWD(T)                                                              \
+#define MP_FWD_KERNEL(T, K)                                                    \
   if (p.tile == T)                                                             \
-    err = launch_fwd_edges<T, ORDER, ROUND_X, BF16>(p, xa, xb, ef, src, dst,   \
-                                                    order, off, w1e, b1, w2,   \
-                                                    b2, scal, slope, msgs, n,  \
-                                                    e, de, h, d2, graphs,      \
-                                                    x_gs, stream);
-  MP_FWD(32) MP_FWD(16) MP_FWD(8)
+    err = launch_fwd_edges(K, p, xa, xb, ef, src, dst, order, off, w1e, b1,    \
+                           w2, b2, scal, slope, msgs, n, e, de, h, d2, graphs, \
+                           x_gs, stream);
+#define MP_FWD(T) MP_FWD_KERNEL(T, (fwd_edge_kernel<T, ORDER>))
+#define MP_FWD_BF16(T) MP_FWD_KERNEL(T, (fwd_edge_kernel_bf16<T, ORDER, ROUND_X>))
+  if constexpr (BF16) {
+    MP_FWD_BF16(kBf16Tile)
+  } else {
+    MP_FWD(32) MP_FWD(16) MP_FWD(8)
+  }
+#undef MP_FWD_BF16
 #undef MP_FWD
+#undef MP_FWD_KERNEL
   if (err != cudaSuccess) return err;
   segsum_kernel<<<dim3((n + kWarps - 1) / kWarps, 1, graphs), kWarps * 32, 0, stream>>>(
       msgs, dst, order, nullptr, off, nullptr, n, e, d2,

@@ -3,23 +3,34 @@
     python -m graph_neural_network_for_radar_perception_torch.scripts.fwd_tile_ablation [VARIANT ...]
 
 Builds variants of the forward edge-tile core that both forwards share
-(``fwd_edge_kernel`` of ``csrc/mp_edge_tile.cuh``) by rewriting the header,
-each compiled with ``csrc/fused_mp.cu`` and with ``csrc/csr_mp.cu`` into
-libraries of its own (one ``nvcc`` each, all started together): launch
-variants (16- and 64-edge tiles, 2 x 4 register tiles in place of 4 x 4)
-and ablations that drop one part of the edge kernel's work (the products,
-the norms, the input staging, every tile).  Each variant is timed in its
-own process (never two builds of one library in one process) at the
-forwards' timing problems, D=De=D2=64, H=128: the fused round on N=768,
-E=15360 with 9216 live edges and random receivers, the CSR round on
+(``fwd_edge_kernel`` and ``fwd_edge_kernel_bf16`` of
+``csrc/mp_edge_tile.cuh``) by rewriting the header, each compiled with
+``csrc/fused_mp.cu`` and with ``csrc/csr_mp.cu`` into libraries of its own
+(one ``nvcc`` each, all started together): f32 launch variants (16- and
+64-edge tiles, 2 x 4 register tiles in place of 4 x 4), ablations that
+drop one part of the f32 edge kernel's work (the products, the norms, the
+input staging, every tile), the bf16 edge kernel's tiles (32, 64 or 128
+edges, with one or two input stages: ``bf16_t<T>_s<S>``; 128 edges in two
+stages do not fit a block at the shipped widths; ``bf16_t32_s1`` is the
+shipped plan there, two blocks an SM; ``bf16_twice_the_blocks`` 2 x 132
+blocks a graph) and its ablations
+(``bf16_no_*``: the products, the norms, the input staging, the weights'
+staging, every tile).  Each variant is
+timed in its own process (never two builds of one library in one process)
+at the forwards' timing problems, D=De=D2=64, H=128: the fused round on
+N=768, E=15360 with 9216 live edges and random receivers, the CSR round on
 ``chip_smoke.py``'s [kernel-csr] timing problem, a kNN graph (k=10) of
-N=768 nodes padded to E=15360 (so run it from the repo's root).  For
-each: its f32 C entry
-point with CUDA events, and the device kernels of one call from
-``torch.profiler``.  The variants that keep the function are checked
-against the shipped build's agg on the same problems (rtol 2e-4, atol
-2e-5: other summation orders); the ablations compute wrong results on
-purpose.  Prints one JSON line per variant.  Needs a CUDA card and nvcc.
+N=768 nodes padded to E=15360 (so run it from the repo's root).  For each:
+its f32 C entry points at B = 1 and its bf16 ones at B = 1 and at B = 8
+(8 such graphs in one call, ``chip_smoke.batched_round``) with CUDA
+events, and the device kernels of one call from ``torch.profiler``.  The
+variants that keep the function are checked against the shipped build's
+agg on the same problems: f32 at rtol 2e-4, atol 2e-5 (other summation
+orders), bf16 at ``chip_smoke``'s bf16 tolerance but for a few flipped
+roundings (another tile has other threads a row, so other norm sums), and
+a variant that leaves the f32 kernel as it is must give its bits; the
+ablations compute wrong results on purpose.  Prints one JSON line per
+variant.  Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -52,6 +63,21 @@ _STAGE = [(f"for (int c = 4 * part; c < {w}; c += 4 * RT) cp_async16({dst}",
            f"for (int c = 4 * part; c < 0; c += 4 * RT) cp_async16({dst}")
           for w, dst in (("de", "r_ef"), ("h", "r_xa"), ("h", "r_xb"))]
 
+# fwd_plan's bf16 tile, its choice of one stage where two blocks fit an
+# SM, its input stages and its blocks a graph.
+_BF16_TILE = "constexpr int kBf16Tile = 32;"
+_BF16_TWO = "if (2 * (one + reserved) <= static_cast<size_t>(per_sm)) {"
+_BF16_STAGES = "for (int st = 2; st >= 1; --st) {"
+_BF16_BLOCKS = "blocks = edge_blocks((e + tile - 1) / tile, sms);"
+
+
+def _bf16(tile: int, stages: int) -> list:
+    """The bf16 edge kernel at `tile` edges and `stages` input stages only
+    (as many blocks an SM as its resources let share one)."""
+    return [(_BF16_TILE, _BF16_TILE.replace("32", str(tile))),
+            (_BF16_TWO, "if (false) {"),
+            (_BF16_STAGES, _BF16_STAGES.replace("st = 2; st >= 1", f"st = {stages}; st >= {stages}"))]
+
 # name -> (keeps the function?, [(old, new), ...] in mp_edge_tile.cuh)
 VARIANTS = {
     "shipped": (True, []),
@@ -70,6 +96,24 @@ VARIANTS = {
     "no_stage": (False, _STAGE),
     "no_tiles": (False, [("for (int i = 0; i < tiles; ++i) {",
                           "for (int i = 0; i < 0; ++i) {")]),
+    **{f"bf16_t{t}_s{s}": (True, _bf16(t, s))
+       for t, s in ((32, 2), (32, 1), (64, 2), (64, 1), (128, 1))},
+    "bf16_twice_the_blocks": (True, [(_BF16_BLOCKS, _BF16_BLOCKS.replace(", sms)", ", 2 * sms)"))]),
+    # The bf16 edge kernel without one part of its work (its f32 twin's
+    # ablations above).
+    "bf16_no_products": (False, [("for (int k0 = 0; k0 < K; k0 += 16) {",
+                                  "for (int k0 = 0; k0 < 0; k0 += 16) {")]),
+    "bf16_no_norms": (False, [
+        ("const float sd_a = centre_row<RT>(u, h, part, inv_h, inv_hm1);", "const float sd_a = 1.f;"),
+        ("const float sd_b = centre_row<RT>(u, d2, part, inv_d2, inv_d2m1);",
+         "const float sd_b = 1.f;")]),
+    "bf16_no_stage": (False, [(f"for (int c = 4 * part; c < {w}; c += 4 * RT) cp_async16({dst}",
+                               f"for (int c = 4 * part; c < 0; c += 4 * RT) cp_async16({dst}")
+                              for w, dst in (("de", "l_ef"), ("h", "l_xa"), ("h", "l_xb"))]),
+    "bf16_no_weights": (False, [(f"  round_into<kEdgeThreads>(s_w{i}, ",
+                                 f"  if (de < 0) round_into<kEdgeThreads>(s_w{i}, ") for i in (1, 2)]),
+    "bf16_no_tiles": (False, [("for (int it = 0; it < ntile; ++it) {",
+                               "for (int it = 0; it < 0; ++it) {")]),
 }
 
 
@@ -108,10 +152,28 @@ def time_one(name: str, fused_lib: str, csr_lib: str) -> dict:
                cscal.data_ptr(), xab.data_ptr(), 0.01, cmsgs.data_ptr(),
                cagg.data_ptr(), N, E, D, DE, H, D2, 1, torch.cuda.current_stream().cuda_stream)
     rounds = {"fused": (FM._kernel(False), fused_raw, agg),
-              "csr": (C._kernel(False), csr_raw, cagg)}
+              "csr": (C._kernel(False), csr_raw, cagg),
+              "fused_bf16": (FM._kernel(True), fused_raw, agg),
+              "csr_bf16": (C._kernel(True), csr_raw, cagg)}
+    # B = 8: 8 graphs of the same kinds in one call each (node products and
+    # layouts made once).
+    rng = np.random.default_rng(21)
+    f8 = chip_smoke.batched_round(torch, [chip_smoke.kernel_problem(torch, rng, 9216 - 512 * g, E)
+                                          for g in range(8)])
+    fscal = torch.cat(f8[8:])
+    f8_layout = FM.fused_layout(f8[2], f8[3], N)  # alive while the raw pointers are
+    f8_raw, f8_out = FM._forward_launch(*f8[:8], fscal, 0.01, f8_layout)
+    c8 = chip_smoke.batched_round(torch, [chip_smoke.csr_problem(torch, rng, chip_smoke.knn_edges(
+        rng, N, 10), E) for _ in range(8)])
+    c8_layout, c8_scal = C.csr_layout(c8[2], c8[3], N, 512, 256, 0), torch.cat(c8[8:])
+    c8_raw, c8_out = C._forward_launch(c8[0], c8[1], c8_layout, *c8[4:8], c8_scal, 0.01)
+    rounds["fused_bf16_b8"] = (FM._kernel(True), f8_raw, f8_out[1])
+    rounds["csr_bf16_b8"] = (C._kernel(True), c8_raw, c8_out[1])
 
     row = {"variant": name, "device": torch.cuda.get_device_name(0),
-           "plan": FM._forward_plan(N, E, DE, H, D2, dev)._asdict()}
+           "plan": FM._forward_plan(N, E, DE, H, D2, dev)._asdict(),
+           "plan_bf16": FM._plan("fused_mp", "fused_mp_forward_bf16_plan", dev,
+                                 N, E, DE, H, D2)._asdict()}
     got = {}
     for key, (fn, raw, out) in rounds.items():
         def launch(fn=fn, raw=raw):
@@ -135,10 +197,26 @@ def time_one(name: str, fused_lib: str, csr_lib: str) -> dict:
     elif VARIANTS[name][0]:
         want = torch.load(ref)
         for key, a in got.items():
-            if not bool(((a - want[key]).abs() <= ATOL + RTOL * want[key].abs()).all()):
+            if "bf16" in key:
+                _bf16_close(chip_smoke, a, want[key], f"{name} {key}")
+            elif name.startswith("bf16"):  # the f32 kernel as shipped: its bits
+                if not torch.equal(a, want[key]):
+                    raise AssertionError(f"{name}: the {key} forward changed its bits")
+            elif not bool(((a - want[key]).abs() <= ATOL + RTOL * want[key].abs()).all()):
                 raise AssertionError(f"{name}: the {key} forward disagrees with the shipped build")
         row["within_tolerance_of_shipped"] = True
     return row
+
+
+def _bf16_close(cs, got, want, what: str) -> None:
+    """``got`` within chip_smoke's bf16 tolerance of ``want`` but for a
+    few flipped roundings (BF16_FLIP_SHARE, each within 2^-7 of max |want|)."""
+    tol = cs.BF16_ATOL + cs.BF16_RTOL * want.abs()
+    err = (got - want).abs()
+    allowed = max(4, int(cs.BF16_FLIP_SHARE * want.numel()))
+    flip = 2.0 ** -7 * float(want.abs().max())
+    if int((err > tol).sum()) > allowed or bool((err > tol + flip).any()):
+        raise AssertionError(f"{what}: outside the bf16 tolerance of the shipped build")
 
 
 def main(argv) -> int:

@@ -143,6 +143,64 @@ def test_csr_bf16_matches_pallas_interpret(rng, graph):
             - want).max()
 
 
+# --------------------------------------------- widths the card's tiles pad
+# Multiples of 4 that are not multiples of the tensor-core tiles (De and H
+# of 16, D2 of 8): the card's bf16 forwards zero-pad their mma.sync operand
+# tiles at these widths (csrc/mp_edge_tile.cuh, fwd_edge_kernel_bf16), and
+# tests/test_torch_cuda.py holds them there against the plain bf16 rounds,
+# which this test pins to the JAX package's bf16 Pallas kernels.
+PAD_WIDTHS = dict(de=36, h=132, d2=68)
+PAD_CASES = {"fused-padded": 700, "fused-non_divisible_tile": 500,
+             **{f"csr-{g}": g for g in GRAPHS}}
+
+
+def _assert_bf16_tol(port_bf16, port_f32, want, what=""):
+    """port_bf16 within BF16_TOL of want element by element and CLOSER times
+    closer to it in mean abs error than port_f32, which lies outside
+    BF16_TOL somewhere (the rounding shows).  The mean, not the max: at
+    these widths one flipped bf16 rounding between the two packages'
+    summation orders moves a single element by a bf16 ulp."""
+    port_bf16, port_f32, want = (np.asarray(a, np.float64)
+                                 for a in (port_bf16, port_f32, want))
+    np.testing.assert_allclose(port_bf16, want, **BF16_TOL, err_msg=what)
+    assert not np.allclose(port_f32, want, **BF16_TOL), f"{what}: no rounding shows"
+    err_bf16 = np.abs(port_bf16 - want).mean()
+    err_f32 = np.abs(port_f32 - want).mean()
+    assert CLOSER * err_bf16 <= err_f32, (
+        f"{what}: bf16 mean err {err_bf16:.3e} is not {CLOSER}x below the f32 "
+        f"output's {err_f32:.3e}")
+
+
+@pytest.mark.parametrize("case", list(PAD_CASES))
+def test_zero_padded_widths_bf16_match_pallas_interpret(rng, case):
+    """The plain bf16 rounds, fused and CSR (through the autograd Function
+    and directly), at PAD_WIDTHS against the JAX bf16 Pallas kernels in
+    interpret mode: the fused round on tests/test_pallas.py's problem
+    (sentinel edges, a tile that divides E or not), the CSR round on the
+    graphs of tests/test_torch_csr.py."""
+    if case.startswith("fused"):
+        args = make_problem(rng, n=64, e=PAD_CASES[case], d=16, **PAD_WIDTHS)
+        want = np.asarray(JFM.fused_message_pass(
+            *map(jnp.asarray, args), 0.01, 256, True, True))
+        t = _torch(args)
+        f32 = FM.fused_message_pass(*t, 0.01).detach()
+        got = [FM.fused_message_pass(*t, 0.01, True).detach(),
+               FM.fused_message_pass_reference(*t, 0.01, bf16=True)]
+    else:
+        args, edge_tile, window, src_window = _problem(PAD_CASES[case], rng, d=20,
+                                                       **PAD_WIDTHS)
+        want = np.asarray(JCM.fused_message_pass_csr(
+            *map(jnp.asarray, args), 0.01, edge_tile, window, True, True, True,
+            src_window))
+        t = _torch(args)
+        tiling = (0.01, edge_tile, window)
+        f32 = C.fused_message_pass_csr(*t, *tiling, False, src_window).detach()
+        got = [C.fused_message_pass_csr(*t, *tiling, True, src_window).detach(),
+               C.fused_message_pass_csr_reference(*t, *tiling, src_window, True)]
+    for g in got:
+        _assert_bf16_tol(g, f32, want, case)
+
+
 # ------------------------------------------------------------------ gradients
 @pytest.mark.parametrize("mp", ["fused", "csr"])
 def test_bf16_round_gradients_are_the_f32_backward(rng, mp):

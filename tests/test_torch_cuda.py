@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    FWD_WIDE,
     banded_edges,
     bf16_verdict,
     csr_problem,
@@ -961,6 +962,105 @@ def test_csr_bf16_kernel_matches_plain(cuda_device, case):
     want = C.fused_message_pass_csr_reference(*args, 0.01, tile, window,
                                               src_window, True)
     bf16_verdict(torch, got, f32, want, f"csr bf16 {case}")
+
+
+# The bf16 forwards' tensor-core tiles (fwd_edge_kernel_bf16, the CSR
+# round's gemm_bf16_kernel) at the main path's widths (De, H, D2), at
+# chip_smoke.FWD_WIDE and at widths that are multiples of 4 but not of the
+# mma.sync tiles (De and H of 16, D2 of 8), which the kernels zero-pad; the
+# edge kernel's (tile, input stages) at each on an H100 (one stage where
+# two blocks fit an SM's 228 KB of shared memory, else two where they fit
+# a block's 227 KB).
+BF16_WIDTHS = {"main": (64, 128, 64),
+               **{f"wide-{de}-{h}-{d2}": (de, h, d2) for de, h, d2 in FWD_WIDE},
+               "pad": (36, 132, 68)}
+BF16_PLANS = {"main": (32, 1), "wide-64-256-64": (32, 2), "wide-96-256-64": (32, 1),
+              "wide-64-256-128": (32, 1), "pad": (32, 1)}
+
+
+def _bf16_case(mp, widths, seed, device):
+    """(round, args, call) of one bf16 forward at BF16_WIDTHS[widths]: the
+    main path's graph size (N=768, E=15360) at the main widths, else N=256,
+    E=3001; random edges with sentinels (fused) or a kNN graph (CSR)."""
+    de, h, d2 = BF16_WIDTHS[widths]
+    n, e = (768, 15360) if widths == "main" else (256, 3001)
+    if mp == "fused":
+        args = _problem(seed, n=n, e=e, d=64, de=de, h=h, d2=d2, device=device)
+        return args, lambda bf16: FM.fused_message_pass(*args, 0.01, bf16), (
+            lambda: FM.fused_message_pass_reference(*args, 0.01, bf16=True))
+    rng = np.random.default_rng(seed)
+    args = csr_problem(torch, rng, knn_edges(rng, n, 10 if n == 768 else 8), e, n, 64,
+                       de, h, d2, device)
+    tiling = (512, 256, 0)
+
+    def call(bf16):
+        with torch.no_grad():
+            return C.fused_message_pass_csr(*args, 0.01, *tiling[:2], bf16, tiling[2])
+    return args, call, lambda: C.fused_message_pass_csr_reference(
+        *args, 0.01, *tiling, True)
+
+
+@pytest.mark.parametrize("mp", ["fused", "csr"])
+@pytest.mark.parametrize("widths", list(BF16_WIDTHS))
+def test_bf16_tensor_core_forward_matches_plain(cuda_device, widths, mp):
+    """Each bf16 forward against its plain bf16 version under
+    chip_smoke.bf16_verdict (the f32 kernel outside that tolerance), two
+    launches bitwise equal, one bf16 count a launch, at the plan's tile
+    (BF16_PLANS)."""
+    args, call, plain = _bf16_case(mp, widths, 7, cuda_device)
+    counter = FM.fused_message_pass if mp == "fused" else C.fused_message_pass_csr
+    before = counter.launches_bf16
+    got, again, f32 = call(True), call(True), call(False)
+    torch.cuda.synchronize()
+    assert counter.launches_bf16 == before + 2
+    assert torch.equal(got, again)
+    bf16_verdict(torch, got, f32, plain(), f"{mp} bf16 {widths}")
+    x, ef, w2 = args[0], args[1], args[6]
+    widths_c = (x.shape[0], ef.shape[0]) + ((x.shape[1],) if mp == "csr" else ()) + (
+        ef.shape[1], w2.shape[0], w2.shape[1])
+    lib = "fused_mp" if mp == "fused" else "csr_mp"
+    plan = FM._plan(lib, f"{lib}_forward_bf16_plan", cuda_device, *widths_c)
+    assert (plan.tile, plan.stages) == BF16_PLANS[widths]
+
+
+@pytest.mark.parametrize("mp", ["fused", "csr"])
+@pytest.mark.parametrize("widths", ["main", "pad"])
+def test_bf16_batched_launch_equals_one_graph_launches(cuda_device, widths, mp):
+    """A bf16 forward over 8 graphs in one C call equals 8 calls of one
+    graph on the same inputs bit for bit (agg, and the messages of the
+    edges that land): graph g's tiles are those of a one-graph launch."""
+    probs = [_bf16_case(mp, widths, 50 + g, cuda_device)[0] for g in range(8)]
+    x, ef, s, r = (torch.stack([p[i] for p in probs]) for i in range(4))
+    w1, b1, w2, b2 = probs[0][4:8]
+    n, d = x.shape[1], x.shape[2]
+
+    def sl(g):
+        return slice(None) if g is None else slice(g, g + 1)
+
+    if mp == "fused":
+        scal = torch.tensor(probs[0][8:], device=cuda_device)
+        layout = FM.fused_layout(s, r, n)
+        xa, xb = x @ w1[:d], x @ w1[d:2 * d]  # one set of node products for both
+
+        def fwd(g):
+            lay = layout if g is None else type(layout)(*(t[g:g + 1] for t in layout))
+            raw, outs = FM._forward_launch(x[sl(g)], ef[sl(g)], s[sl(g)], r[sl(g)], w1, b1,
+                                           w2, b2, scal, 0.01, lay, (xa[sl(g)], xb[sl(g)]))
+            lands = ((r[sl(g)] >= 0) & (r[sl(g)] < n))[..., None]
+            return (lambda: FM._kernel(True)(*raw)), (
+                lambda: (torch.where(lands, outs[0], 0.0), outs[1]))
+    else:
+        scal = torch.cat(probs[0][8:])
+        layout = C.csr_layout(s, r, n, 512, 256, 0)
+
+        def fwd(g):
+            lay = layout if g is None else type(layout)(
+                *(t[g:g + 1] if torch.is_tensor(t) else t for t in layout))
+            raw, outs = C._forward_launch(x[sl(g)], ef[sl(g)], lay, w1, b1, w2, b2, scal, 0.01)
+            lands = (lay.dst < n)[..., None]
+            return (lambda: C._kernel(True)(*raw)), (
+                lambda: (torch.where(lands, outs[0], 0.0), outs[1]))
+    _batched_launches(fwd, 8, 2)
 
 
 @pytest.mark.parametrize("mp", ["fused", "csr"])
