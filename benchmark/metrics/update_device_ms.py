@@ -1,0 +1,10 @@
+"""update_device_ms.<mode>: device milliseconds of the train step's update: the
+median over the traced stretch's sampled replays of the in-graph span
+``train_step.update`` (``harness/program_trace``)."""
+
+from harness import program_trace as pt
+
+
+def read(ctx):
+    t = pt.get(ctx)
+    return None if t is None else pt.phase_ms(t, ctx.mode, "update")

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from ..core.graph import device_constant
+from ..utils.profiling import TRACER
 from ._build import load
 from .fused_mp import (
     BackwardPlan,
@@ -594,7 +595,8 @@ class _FusedMessagePassCSR(torch.autograd.Function):
     """Autograd node of one CSR round over a graph or a batch (x [B, N, D]; the JAX
     package's ``custom_vjp`` with ``pallas_backward=True``, vmapped), over
     the graphs' ``CSRLayout``.  A bf16 forward gets the same f32 backward:
-    the flag is not passed on."""
+    the flag is not passed on.  Captured while the tracer is on, each is a
+    device span: ``mp.forward``, ``mp.backward``."""
 
     @staticmethod
     def forward(ctx, x, ef, w1, b1, w2, b2, g1, be1, g2, be2, slope, layout,
@@ -604,8 +606,9 @@ class _FusedMessagePassCSR(torch.autograd.Function):
             agg = _forward_plain(x, ef, layout.src, layout.dst, w1, b1, w2,
                                  b2, g1, be1, g2, be2, slope, bf16)
         else:
-            agg = _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope,
-                                bf16)
+            with TRACER.graph_span("mp.forward"):
+                agg = _forward_cuda(x, ef, layout, w1, b1, w2, b2, scal, slope,
+                                    bf16)
         ctx.slope, ctx.layout = slope, layout
         ctx.save_for_backward(x, ef, w1, b1, w2, b2, scal)
         return agg
@@ -621,8 +624,9 @@ class _FusedMessagePassCSR(torch.autograd.Function):
                 x, ef, layout.src, layout.dst, w1, b1, w2, b2, *scal, g_out,
                 ctx.slope, layout.edge_tile)
         else:
-            dx, gef, dw1, db1, dw2, db2, *dscal = _backward_cuda(
-                x, ef, layout, w1, b1, w2, b2, scal, g_out, ctx.slope)
+            with TRACER.graph_span("mp.backward"):
+                dx, gef, dw1, db1, dw2, db2, *dscal = _backward_cuda(
+                    x, ef, layout, w1, b1, w2, b2, scal, g_out, ctx.slope)
         return (dx, gef, dw1, db1, dw2, db2,
                 *(v.reshape(1) for v in dscal), None, None, None)
 

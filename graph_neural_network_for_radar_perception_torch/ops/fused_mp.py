@@ -55,6 +55,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import TRACER
 from ._build import load
 from .norms import EPS, channel_norm
 
@@ -552,7 +553,9 @@ class _FusedMessagePass(torch.autograd.Function):
     dx = dxa·W1rᵀ + dxb·W1sᵀ per graph, dW1 = [xᵀ·dxa; xᵀ·dxb; dW1e] over
     every graph's nodes.  A bf16 forward gets the same f32 backward: the
     flag is not passed on.  On the card both walk the graphs'
-    ``FusedLayout``; the plain versions take none."""
+    ``FusedLayout``; the plain versions take none.  Captured while the
+    tracer is on, each is a device span: ``mp.forward``, ``mp.backward``
+    (the dx and dW1 products included)."""
 
     @staticmethod
     def forward(ctx, x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2,
@@ -560,22 +563,24 @@ class _FusedMessagePass(torch.autograd.Function):
         ctx.slope, ctx.layout = slope, layout
         ctx.save_for_backward(x, ef, senders, receivers, w1, b1, w2, b2, g1,
                               be1, g2, be2)
-        return _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1,
-                        g2, be2, slope, bf16, layout)
+        with TRACER.graph_span("mp.forward"):
+            return _forward(x, ef, senders, receivers, w1, b1, w2, b2, g1, be1,
+                            g2, be2, slope, bf16, layout)
 
     @staticmethod
     def backward(ctx, g_out):
         x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2 = (
             ctx.saved_tensors)
-        # upd_mlp concatenates [x, agg]: the cotangent may be a strided view.
-        (gef, dxa, dxb, dw1e, db1, dw2, db2, dg1, dbe1, dg2,
-         dbe2) = fused_message_pass_backward(
-            x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
-            g_out.contiguous(), ctx.slope, ctx.layout)
-        d, h = x.shape[-1], w1.shape[1]
-        dx = dxa @ w1[:d].t() + dxb @ w1[d : 2 * d].t()
-        xt = x.reshape(-1, d).t()  # every graph's nodes
-        dw1 = torch.cat([xt @ dxa.reshape(-1, h), xt @ dxb.reshape(-1, h), dw1e])
+        with TRACER.graph_span("mp.backward"):
+            # upd_mlp concatenates [x, agg]: the cotangent may be a strided view.
+            (gef, dxa, dxb, dw1e, db1, dw2, db2, dg1, dbe1, dg2,
+             dbe2) = fused_message_pass_backward(
+                x, ef, senders, receivers, w1, b1, w2, b2, g1, be1, g2, be2,
+                g_out.contiguous(), ctx.slope, ctx.layout)
+            d, h = x.shape[-1], w1.shape[1]
+            dx = dxa @ w1[:d].t() + dxb @ w1[d : 2 * d].t()
+            xt = x.reshape(-1, d).t()  # every graph's nodes
+            dw1 = torch.cat([xt @ dxa.reshape(-1, h), xt @ dxb.reshape(-1, h), dw1e])
         return (dx, gef, None, None, dw1, db1, dw2, db2, dg1.reshape(1),
                 dbe1.reshape(1), dg2.reshape(1), dbe2.reshape(1), None, None,
                 None)

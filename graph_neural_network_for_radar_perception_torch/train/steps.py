@@ -30,11 +30,11 @@ step returns the same ``TrainState`` object it was given.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config.config import GNNConfig
 from ..core.graph import GraphBatch, GraphLabels, RadarGraph, resolve_device
@@ -42,6 +42,7 @@ from ..models.gnn import RadarGNN
 from ..ops import csr_mp as C
 from ..ops import fused_mp as FM
 from ..parallel import collectives as P
+from ..utils.profiling import TRACER
 from .loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 
 
@@ -441,15 +442,15 @@ def update_if_finite(state: TrainState, loss: torch.Tensor,
 def _train_body(state: TrainState, batch: GraphBatch, loss_fn: Callable,
                 cfg: GNNConfig) -> Dict[str, torch.Tensor]:
     """One step on tensors on the state's device: loss, gradients, the
-    branchless update.  Its three parts are profiler ranges:
-    ``train_step.forward``, ``train_step.backward``, ``train_step.update``
-    (on the card they run where the step is captured, not per replay)."""
+    branchless update.  Captured while ``TRACER`` is on, its three parts
+    are device spans in the graph: ``train_step.forward``,
+    ``train_step.backward``, ``train_step.update``."""
     opt = state.optimizer
-    with record_function("train_step.forward"):
+    with TRACER.graph_span("train_step.forward"):
         loss, metrics = loss_fn(state.model, batch)
-    with record_function("train_step.backward"):
+    with TRACER.graph_span("train_step.backward"):
         grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
-    with record_function("train_step.update"), torch.no_grad():
+    with TRACER.graph_span("train_step.update"), torch.no_grad():
         # A parameter the loss does not reach gets a zero gradient, so
         # that weight decay and momentum still apply to it, as in optax.
         grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
@@ -504,6 +505,12 @@ def _add_counters(deltas: Sequence[int]) -> None:
     P.add_counts(deltas[n:])
 
 
+TRACER.watch("launches", lambda: {f"{f.__name__}.{a}": getattr(f, a)
+                                  for f, a in launch_counters()})
+TRACER.watch("collectives", lambda: {k: (dict(v) if isinstance(v, dict) else v)
+                                     for k, v in P.STATS.items()})
+
+
 def _batch_leaves(batch) -> list:
     """The arrays of a batch (numpy or tensors), graph fields then labels'."""
     return ([getattr(batch.graph, f) for f in RadarGraph.__dataclass_fields__]
@@ -524,6 +531,7 @@ class _Captured(NamedTuple):
     outputs: Any
     launches: List[int]         # each counter's advance per replay (_read_counters)
     keep: Any                   # kept alive: the graph reads or writes it
+    marks: list                 # its device spans (TRACER.marking), empty untraced
 
 
 class CapturedGraphs:
@@ -547,14 +555,26 @@ class CapturedGraphs:
     and bytes (``parallel/collectives.STATS``), advance by what a replay
     launches: the capture itself launches nothing, so its advance is taken
     back and added at every replay.  ``warmups`` counts the eager runs
-    (``WARMUP_RUNS`` a capture), ``replays`` the graph launches."""
+    (``WARMUP_RUNS`` a capture), ``replays`` the graph launches.
+
+    Tracing (``utils/profiling.TRACER``): the warm-ups and the capture are
+    always spans (``captured.warmup``, ``captured.capture``).  While the
+    tracer is on, the copy of the arrays is a host and device span
+    (``captured.copy``; counters ``captured.copy_bytes`` and
+    ``captured.pageable_bytes``, the bytes copied from memory that is not
+    pinned) and the replay one (``label``) that shares its call; a graph
+    captured then holds the body's device spans (``TRACER.graph_span``),
+    read after its replays.  Whether the tracer was on is part of the key:
+    a graph with those spans is never replayed untraced, nor the reverse."""
 
     WARMUP_RUNS = 2
+    _every: "weakref.WeakSet[CapturedGraphs]" = weakref.WeakSet()
 
     def __init__(self):
         self.graphs: Dict[tuple, _Captured] = {}
         self.warmups = 0
         self.replays = 0
+        CapturedGraphs._every.add(self)
 
     def run(self, key: tuple, leaves: Sequence, body: Callable[[list], Any],
             device: torch.device, restore: Sequence[torch.Tensor] = (),
@@ -562,15 +582,26 @@ class CapturedGraphs:
         """Replay the graph of ``key`` on ``leaves`` (numpy arrays or
         tensors), capturing ``body`` first if the key is new; ``keep`` is
         held as long as the graph (what it reads or writes)."""
+        key = (key, TRACER.enabled)
         entry = self.graphs.get(key)
         if entry is None:
             entry = self.graphs[key] = self._capture(leaves, body, device, restore, keep)
+            call = None
         else:
-            _copy_into(entry.inputs, leaves)
-        with record_function(label):
+            with TRACER.span("captured.copy", device) as copy:
+                _copy_into(entry.inputs, leaves)
+            call = copy.call
+            if TRACER.enabled:
+                TRACER.count("captured.copy_bytes", sum(b.nbytes for b in entry.inputs))
+                TRACER.count("captured.pageable_bytes", sum(
+                    b.nbytes for b, a in zip(entry.inputs, leaves)
+                    if not (torch.is_tensor(a) and (a.is_cuda or a.is_pinned()))))
+        with TRACER.span(label, device, call=call, marks=entry.marks):
             entry.graph.replay()
         _add_counters(entry.launches)
         self.replays += 1
+        if TRACER.enabled:
+            TRACER.count("captured.traced_replays")
         return entry.outputs
 
     def _capture(self, leaves, body, device, restore, keep) -> _Captured:
@@ -585,11 +616,13 @@ class CapturedGraphs:
         side.wait_stream(current)
         try:
             with torch.cuda.stream(side):
-                body(inputs)  # first use
+                with TRACER.once("captured.warmup"):
+                    body(inputs)  # first use
                 mode = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    body(inputs)  # as it will be captured
+                    with TRACER.once("captured.warmup"):
+                        body(inputs)  # as it will be captured
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
         finally:  # a failed capture leaves no trace of its warm-ups either
@@ -599,11 +632,17 @@ class CapturedGraphs:
         self.warmups += self.WARMUP_RUNS
         graph = torch.cuda.CUDAGraph()
         before = _read_counters()
-        with torch.cuda.graph(graph, pool=_pool(device)):
+        with (TRACER.once("captured.capture"), TRACER.marking() as marks,
+              torch.cuda.graph(graph, pool=_pool(device))):
             outputs = body(inputs)
         launches = [a - b for a, b in zip(_read_counters(), before)]
         _add_counters([-d for d in launches])  # the capture launched nothing
-        return _Captured(graph, inputs, outputs, launches, keep)
+        return _Captured(graph, inputs, outputs, launches, keep, marks)
+
+
+TRACER.watch("captured_graphs", lambda: {
+    "replays": sum(c.replays for c in CapturedGraphs._every),
+    "warmups": sum(c.warmups for c in CapturedGraphs._every)})
 
 
 def shape_key(leaves) -> tuple:
@@ -652,7 +691,7 @@ def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,
 
     On the CPU the step runs eagerly.  On a CUDA device it is captured once
     per state and batch shape (``CapturedStep``, ``train_step.captured``)
-    and replayed: one host launch a step, the profiler range
+    and replayed: one host launch a step, the tracer's span
     ``train_step.replay`` around it."""
     loss_fn = make_loss_fn(cfg, mp_impl, mp_bf16)
 
@@ -714,7 +753,7 @@ def make_eval_step(cfg: GNNConfig) -> Callable:
     captured = CapturedGraphs()
 
     def body(model: RadarGNN, batch: GraphBatch) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
+        with torch.no_grad(), TRACER.graph_span("eval_step.forward"):
             return loss_fn(model, batch)[1]
 
     def eval_step(model: RadarGNN, batch: GraphBatch

@@ -23,10 +23,12 @@ HOST_LAUNCH_CALLS = frozenset((
     "cudaGraphLaunch", "cuGraphLaunch"))
 HOST_COPY_CALLS = frozenset(("cudaMemcpyAsync", "cudaMemcpy", "cuMemcpyAsync",
                              "cuMemcpyHtoDAsync_v2", "cuMemcpyDtoHAsync_v2"))
-# The port's profiler ranges (a train step's parts and replay, an eval
-# step's, a detector's and any other capture's replay): on the device
-# timeline they are annotations that span kernels, not kernels.
-RANGE_PREFIXES = ("train_step.", "eval_step.", "detect.", "captured.")
+# The names of the tracer's spans (``utils/profiling.TRACER``: a step's
+# parts and replay, an eval step's, a detector's, any other capture's
+# replay and copy, the message rounds), which a profiled span opens as a
+# range: on the device timeline such a range is an annotation that spans
+# kernels, not a kernel.
+RANGE_PREFIXES = ("train_step.", "eval_step.", "detect.", "captured.", "mp.")
 
 
 def event_ms(fn, reps: int = 50, inner: int = 20) -> float:
@@ -86,9 +88,8 @@ def profile_run(fn) -> dict:
     """One call of ``fn`` under torch.profiler, after a warm call: device
     kernels launched, launches the host issued (CUDA API calls that
     launch a kernel or a CUDA graph) and its memory copies, device busy time (union of
-    kernel intervals), host wall time, the card's idle share of it, the
-    kernels that take the most device time, and the host time of the train
-    step's named parts (``train_step.*`` ranges) where it has them."""
+    kernel intervals), host wall time, the card's idle share of it, and the
+    kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -98,21 +99,17 @@ def profile_run(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # The train step's named ranges also appear on the device timeline as
-    # annotations spanning their kernels: not kernels, so left out.
+    # The tracer's ranges also appear on the device timeline as annotations
+    # spanning their kernels: not kernels, so left out.
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
         and not e.name.startswith(RANGE_PREFIXES)
     )
-    ranges = {}  # host time of the train step's named parts
     host_calls = [e.name for e in prof.events()
                   if e.device_type != torch.autograd.DeviceType.CUDA]
     host_launches = sum(1 for name in host_calls if name in HOST_LAUNCH_CALLS)
     host_copies = sum(1 for name in host_calls if name in HOST_COPY_CALLS)
-    for e in prof.events():
-        if e.name.startswith("train_step.") and e.device_type != torch.autograd.DeviceType.CUDA:
-            ranges[e.name] = ranges.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     busy, end, by_name, count = 0.0, float("-inf"), {}, {}
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
@@ -129,5 +126,4 @@ def profile_run(fn) -> dict:
         "device_idle_share": 1.0 - busy / wall_us,
         "top_kernels_ms_launches": {name[:60]: [t / 1e3, count[name]]
                                     for name, t in top},
-        **({"host_ms_by_part": ranges} if ranges else {}),
     }

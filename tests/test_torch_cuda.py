@@ -24,6 +24,7 @@ from chip_smoke import (
     knn_edges,
 )
 from graph_neural_network_for_radar_perception_torch.config.config import (
+    GNNConfig,
     tiny_test_config,
 )
 from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
@@ -40,6 +41,7 @@ from graph_neural_network_for_radar_perception_torch.scripts import (
 )
 from graph_neural_network_for_radar_perception_torch.train import finetune as FT
 from graph_neural_network_for_radar_perception_torch.train import steps as S
+from graph_neural_network_for_radar_perception_torch.utils.profiling import TRACER
 
 pytestmark = pytest.mark.cuda
 
@@ -672,6 +674,118 @@ def test_captured_eval_step_equals_eager_and_sees_new_weights(cuda_device, mp_im
         assert replay == rounds * (1 + (S.CapturedGraphs.WARMUP_RUNS if i == 0 else 0))
     assert not torch.equal(got["loss_total"], old["loss_total"])  # the new weights seen
     assert len(eval_step.captured.graphs) == 1 and eval_step.captured.replays == 4
+
+
+@pytest.fixture
+def traced():
+    """``TRACER`` emptied before and after the test, and left off."""
+    TRACER.disable()
+    TRACER.drain()
+    yield TRACER
+    TRACER.disable()
+    TRACER.drain()
+
+
+def _inner(spans, replay):
+    """The in-graph device spans of a replay's device span."""
+    hosts = {s["id"] for s in spans if s["where"] == "host"}
+    return [s for s in spans if s["call"] == replay["call"] and s["where"] == "device"
+            and s["parent"] not in hosts]
+
+
+def test_traced_train_step_phases_are_timed(cuda_device, traced):
+    """A train step at the configuration's widths (batch 4) captured with
+    the tracer on: the forward, backward and update and each round's
+    forward and backward are device spans, read after one replay in
+    ``SAMPLE_EVERY`` (each read), inside its device span, nested as
+    captured; forward + backward + update within 5 % of the replay's
+    device span."""
+    cfg = GNNConfig(batch_size=4)
+    batches = [_tiny_batch(cfg, seed=s) for s in (1, 2, 3)]
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    step = S.make_train_step(cfg)
+    n = 2 * traced.SAMPLE_EVERY
+    traced.enable()
+    for i in range(n):
+        state, _ = step(state, batches[i % 3])
+    out = traced.drain()
+    spans, rounds = out["spans"], len(cfg.graph_convolution_stem_channels)
+    replays = [s for s in spans if s["name"] == "train_step.replay" and s["where"] == "device"]
+    assert len(replays) == n and out["counters"]["captured.traced_replays"] == n
+    assert out["counters"]["captured.sampled_replays"] == 2
+    assert [bool(_inner(spans, r)) for r in replays] == [i % traced.SAMPLE_EVERY == 0
+                                                         for i in range(n)]
+    for r in replays:
+        inner = _inner(spans, r)
+        if not inner:
+            continue
+        by = {}
+        for s in inner:
+            by.setdefault(s["name"], []).append(s)
+            assert r["start_ns"] - 1000 <= s["start_ns"] <= s["end_ns"] <= r["end_ns"] + 1000, s
+        assert {k: len(v) for k, v in by.items()} == {
+            "train_step.forward": 1, "train_step.backward": 1, "train_step.update": 1,
+            "mp.forward": rounds, "mp.backward": rounds}
+        phases = {k: by[f"train_step.{k}"][0] for k in ("forward", "backward", "update")}
+        assert all(s["parent"] == phases["forward"]["id"] for s in by["mp.forward"])
+        assert all(s["parent"] == phases["backward"]["id"] for s in by["mp.backward"])
+        parts = sum(s["end_ns"] - s["start_ns"] for s in phases.values())
+        whole = r["end_ns"] - r["start_ns"]
+        assert abs(whole - parts) <= 0.05 * whole, (parts, whole)
+    copies = [s for s in spans if s["name"] == "captured.copy" and s["where"] == "device"]
+    assert len(copies) == n - 1 and out["counters"]["captured.copy_bytes"] > 0
+
+
+def test_traced_and_untraced_steps_are_bitwise_equal(cuda_device, traced):
+    """Three train steps replayed with the tracer on against the same from
+    the same state with it off: metrics, parameters and momentum bit for
+    bit where two untraced runs agree bit for bit (else within 1e-5; the
+    momentum, summed with atomics, within 1e-4 of its largest element)."""
+    cfg = tiny_test_config()
+    batches = [_tiny_batch(cfg, seed=s) for s in (4, 5, 6)]
+    step = S.make_train_step(cfg)
+    off, again, on = (S.create_train_state(cfg, torch.Generator().manual_seed(0),
+                                           device=cuda_device) for _ in range(3))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for batch in batches:
+        results = []
+        for st, tracing in ((off, False), (again, False), (on, True)):
+            if tracing:
+                traced.enable()
+            _, m = step(st, batch)
+            traced.disable()
+            results.append({**m, "params": st.optimizer.flat.clone(),
+                            "momentum_buffer": st.optimizer.moments["momentum_buffer"].clone()})
+        _bitwise_or_close(results[2], results[0], results[1], tol)
+    assert traced.drain()["counters"]["captured.traced_replays"] == 3
+
+
+def test_capture_key_separates_tracing_on_from_off(cuda_device, traced):
+    """A step called with the tracer off, on, on and off: two captures, the
+    traced one holding the phases' and rounds' device spans and the other
+    none; each replayed with its own flag."""
+    cfg = tiny_test_config()
+    batch = _tiny_batch(cfg)
+    step = S.make_train_step(cfg)
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    for tracing in (False, True, True, False):
+        if tracing:
+            traced.enable()
+        state, _ = step(state, batch)
+        traced.disable()
+    cap = step.captured
+    assert len(cap.graphs) == 2 and cap.replays == 4
+    assert cap.warmups == 2 * S.CapturedStep.WARMUP_RUNS
+    marks = {key[1]: [m[0] for m in entry.marks] for key, entry in cap.graphs.items()}
+    rounds = len(cfg.graph_convolution_stem_channels)
+    assert marks[False] == []
+    assert sorted(set(marks[True])) == ["mp.backward", "mp.forward", "train_step.backward",
+                                        "train_step.forward", "train_step.update"]
+    assert marks[True].count("mp.forward") == marks[True].count("mp.backward") == rounds
+    out = traced.drain()
+    replays = [s for s in out["spans"] if s["name"] == "train_step.replay"]
+    assert [s["where"] for s in replays] == ["host", "device", "host", "device"]
+    assert out["counters"]["captured.sampled_replays"] == 2  # the first after each enable()
 
 
 def test_failed_step_capture_raises_and_keeps_the_state(cuda_device, monkeypatch):
