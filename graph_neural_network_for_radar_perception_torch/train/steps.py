@@ -525,9 +525,109 @@ def _static_batch(inputs: list) -> GraphBatch:
         GraphLabels(**dict(zip(GraphLabels.__dataclass_fields__, inputs[len(names):]))))
 
 
+STAGING_ALIGN = 256  # bytes: each staged leaf starts at a multiple of this
+
+
+def _on_card(a) -> bool:
+    """Whether a leaf is already device memory (copied on the device, never staged)."""
+    return bool(getattr(a, "is_cuda", False))
+
+
+def _leaf_dtype(a) -> torch.dtype:
+    return a.dtype if torch.is_tensor(a) else torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _staging_layout(leaves) -> Tuple[List[Optional[int]], int]:
+    """One flat layout of the leaves that are host memory (numpy arrays,
+    CPU tensors, pinned or not): each one's byte offset, a multiple of
+    ``STAGING_ALIGN``, or None for a leaf on a card; and the layout's size
+    in bytes."""
+    offsets, end = [], 0
+    for a in leaves:
+        if _on_card(a):
+            offsets.append(None)
+        else:
+            offsets.append(end)
+            end += -(-a.nbytes // STAGING_ALIGN) * STAGING_ALIGN
+    return offsets, end
+
+
+def _leaf_views(flat: torch.Tensor, leaves, offsets) -> list:
+    """Each laid-out leaf's view of the flat byte buffer ``flat``, at its
+    offset, dtype and shape; None for a leaf off the layout."""
+    return [None if off is None else
+            flat[off:off + a.nbytes].view(_leaf_dtype(a)).view(tuple(a.shape))
+            for a, off in zip(leaves, offsets)]
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+class _Staging:
+    """A captured graph's static inputs and the way a batch reaches them.
+
+    The leaves that were host memory at capture (``_staging_layout``) are
+    views of one flat device buffer; a leaf on a card has a buffer of its
+    own.  Two pinned host buffers of the same layout serve in turn, each
+    guarded by an event recorded after its copy to the card.  ``copy``
+    writes the host leaves into the turn's pinned buffer on the host (a
+    numpy array by ``np.copyto`` on the calling thread: torch's CPU copy of
+    a large array wakes its thread pool, whose threads then compete with
+    the host's waits for the card) and copies it to the card in one
+    asynchronous DMA on the current stream, then copies the other leaves
+    on the device: stream order alone keeps the DMA behind the previous
+    replay and ahead of the next, and the caller's arrays are read in full
+    before it returns.  ``wait`` blocks until the turn's pinned buffer is
+    free, the one host wait of a copy."""
+
+    def __init__(self, leaves, device: torch.device):
+        self.offsets, nbytes = _staging_layout(leaves)
+        self.flat = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.inputs = [torch.empty(tuple(a.shape), dtype=_leaf_dtype(a), device=device)
+                       if v is None else v
+                       for a, v in zip(leaves, _leaf_views(self.flat, leaves, self.offsets))]
+        self.pinned = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
+                       for _ in range(2 if nbytes else 0)]
+        self.host = [_leaf_views(h, leaves, self.offsets) for h in self.pinned]
+        self.host_np = [[v.numpy() if isinstance(a, np.ndarray) and v is not None else None
+                         for v, a in zip(views, leaves)] for views in self.host]
+        self.done = [torch.cuda.Event() for _ in self.pinned]
+        self.turn = 0
+
+    def wait(self) -> bool:
+        """Wait until the turn's pinned buffer has left for the card;
+        whether that took a wait."""
+        if not self.done or self.done[self.turn].query():
+            return False
+        self.done[self.turn].synchronize()
+        return True
+
+    def copy(self, leaves) -> int:
+        """Copy ``leaves`` into the inputs; returns the bytes staged."""
+        staged, rest = 0, []
+        for i, a in enumerate(leaves):
+            if self.offsets[i] is None or _on_card(a):
+                rest.append((self.inputs[i], a))
+                continue
+            dst, dst_np = self.host[self.turn][i], self.host_np[self.turn][i]
+            if dst_np is not None and isinstance(a, np.ndarray):
+                np.copyto(dst_np, a, casting="unsafe")
+            else:
+                dst.copy_(_as_tensor(a))
+            staged += dst.nbytes
+        if staged:
+            self.flat.copy_(self.pinned[self.turn], non_blocking=True)
+            self.done[self.turn].record()
+            self.turn ^= 1
+        for buf, a in rest:
+            buf.copy_(_as_tensor(a))
+        return staged
+
+
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    inputs: list                # static input buffers, in the leaves' order
+    staging: _Staging           # the static input buffers and how a batch reaches them
     outputs: Any
     launches: List[int]         # each counter's advance per replay (_read_counters)
     keep: Any                   # kept alive: the graph reads or writes it
@@ -539,7 +639,11 @@ class CapturedGraphs:
     static device buffers, captured as one CUDA graph per key and replayed
     (the counterpart of ``jax.jit``): ``run`` copies the arrays it is given
     into the key's buffers, replays its graph and returns the graph's
-    outputs, which the next replay of that graph overwrites.
+    outputs, which the next replay of that graph overwrites.  The arrays in
+    host memory go through pinned staging in one asynchronous DMA
+    (``_Staging``), so ``run`` returns without waiting for the card: it
+    waits only when both of the key's pinned buffers are still on their
+    way, and the caller may reuse its arrays at once.
 
     Capture: on a side stream the body runs once eagerly (libraries,
     constants and other first-use work) and once more under
@@ -560,12 +664,16 @@ class CapturedGraphs:
     Tracing (``utils/profiling.TRACER``): the warm-ups and the capture are
     always spans (``captured.warmup``, ``captured.capture``).  While the
     tracer is on, the copy of the arrays is a host and device span
-    (``captured.copy``; counters ``captured.copy_bytes`` and
-    ``captured.pageable_bytes``, the bytes copied from memory that is not
-    pinned) and the replay one (``label``) that shares its call; a graph
-    captured then holds the body's device spans (``TRACER.graph_span``),
-    read after its replays.  Whether the tracer was on is part of the key:
-    a graph with those spans is never replayed untraced, nor the reverse."""
+    (``captured.copy``: on the host the staging and the enqueue, on the
+    device the DMA; counters ``captured.copy_bytes``,
+    ``captured.pageable_bytes``, the bytes the caller gave in memory that
+    is not pinned, ``captured.staged_bytes``, the bytes that went through
+    the pinned staging, and ``captured.staging_waits``, the waits for a
+    pinned buffer, made before the span) and the replay one (``label``)
+    that shares its call; a graph captured then holds the body's device
+    spans (``TRACER.graph_span``), read after its replays.  Whether the
+    tracer was on is part of the key: a graph with those spans is never
+    replayed untraced, nor the reverse."""
 
     WARMUP_RUNS = 2
     _every: "weakref.WeakSet[CapturedGraphs]" = weakref.WeakSet()
@@ -588,13 +696,16 @@ class CapturedGraphs:
             entry = self.graphs[key] = self._capture(leaves, body, device, restore, keep)
             call = None
         else:
+            waited = entry.staging.wait()
             with TRACER.span("captured.copy", device) as copy:
-                _copy_into(entry.inputs, leaves)
+                staged = entry.staging.copy(leaves)
             call = copy.call
             if TRACER.enabled:
-                TRACER.count("captured.copy_bytes", sum(b.nbytes for b in entry.inputs))
+                TRACER.count("captured.staged_bytes", staged)
+                TRACER.count("captured.staging_waits", int(waited))
+                TRACER.count("captured.copy_bytes", sum(b.nbytes for b in entry.staging.inputs))
                 TRACER.count("captured.pageable_bytes", sum(
-                    b.nbytes for b, a in zip(entry.inputs, leaves)
+                    b.nbytes for b, a in zip(entry.staging.inputs, leaves)
                     if not (torch.is_tensor(a) and (a.is_cuda or a.is_pinned()))))
         with TRACER.span(label, device, call=call, marks=entry.marks):
             entry.graph.replay()
@@ -605,11 +716,9 @@ class CapturedGraphs:
         return entry.outputs
 
     def _capture(self, leaves, body, device, restore, keep) -> _Captured:
-        inputs = [torch.empty(tuple(a.shape), device=device,
-                              dtype=a.dtype if torch.is_tensor(a)
-                              else torch.from_numpy(np.asarray(a[:0])).dtype)
-                  for a in leaves]
-        _copy_into(inputs, leaves)
+        staging = _Staging(leaves, device)
+        staging.copy(leaves)
+        inputs = staging.inputs
         saved = [t.clone() for t in restore]
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -637,7 +746,7 @@ class CapturedGraphs:
             outputs = body(inputs)
         launches = [a - b for a, b in zip(_read_counters(), before)]
         _add_counters([-d for d in launches])  # the capture launched nothing
-        return _Captured(graph, inputs, outputs, launches, keep, marks)
+        return _Captured(graph, staging, outputs, launches, keep, marks)
 
 
 TRACER.watch("captured_graphs", lambda: {
@@ -674,11 +783,6 @@ class CapturedStep(CapturedGraphs):
             lambda inputs: self.body(state, self.rebuild(inputs)), state.device,
             restore=state.tensors(), keep=state, label="train_step.replay")
         return {k: v.clone() for k, v in outputs.items()}
-
-
-def _copy_into(buffers: List[torch.Tensor], arrays) -> None:
-    for buf, a in zip(buffers, arrays):
-        buf.copy_(a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)))
 
 
 def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,

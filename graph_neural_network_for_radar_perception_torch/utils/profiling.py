@@ -50,7 +50,7 @@ class _Span:
     two timing events from the tracer's pool recorded on the current stream
     at its ends.  ``marks`` (the in-graph spans of a captured graph) makes
     it a replay's span: the graph's previous replay is read first, if it
-    is complete."""
+    was sampled."""
 
     def __init__(self, tracer: "Tracer", name: str, device=None, call=None, marks=None):
         self.tracer, self.name, self.device, self.marks = tracer, name, device, marks
@@ -136,13 +136,14 @@ class Tracer:
     current stream; a ``graph_span`` inside a capture while the tracer is
     on is an event pair captured into the graph.  Every replay records the
     graph's events again, so they are read for one replay in
-    ``SAMPLE_EVERY`` (reading takes ~6 us an event on the host, while the
-    card waits for the next replay), if that replay is complete before the
-    next replay of its graph (and the last one at ``drain``).  Device times
-    are put on the host clock through one anchor per card: an event
-    recorded on an idle stream, waited for, and the host clock read around
-    it.  ``enable`` readies a pool of ``EVENTS`` timing events a card, so
-    that no span creates one.
+    ``SAMPLE_EVERY`` (reading takes ~6 us an event on the host), before
+    the next replay of its graph is launched (and the last one at
+    ``drain``): the host waits there for the sampled replay to end, as it
+    otherwise runs ahead of the card.  Device times are put on the host
+    clock through one anchor per card: an event recorded on an idle
+    stream, waited for, and the host clock read around it.  ``enable``
+    readies a pool of ``EVENTS`` timing events a card, so that no span
+    creates one.
 
     Counters (``count``) add up while the tracer is on; ``watch`` names
     counters kept elsewhere (the launch counters, the captures' replays and
@@ -268,13 +269,14 @@ class Tracer:
         return pair
 
     def _sample(self, marks: list) -> None:
-        """Read the in-graph spans of the last replay of ``marks``' graph if
-        it is complete (else they are lost: the next replay overwrites
-        them)."""
+        """Read the in-graph spans of the last replay of ``marks``' graph,
+        if it was sampled, once it is complete: the next replay overwrites
+        them."""
         entry = self._inflight.pop(id(marks), None)
-        if entry is None or not entry[3].query():
+        if entry is None:
             return
-        _, rec, card, _ = entry
+        _, rec, card, last = entry
+        last.synchronize()
         ids = [next(self._ids) for _ in marks]
         for i, (name, parent, start, end) in enumerate(marks):
             self._spans.append(dict(

@@ -8,6 +8,7 @@ Imports nothing of JAX, so that it runs on a machine without it:
 
 Every test skips without a CUDA card."""
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -1413,3 +1414,110 @@ def test_native_library_builds_from_a_clean_dir(cuda_device, monkeypatch, tmp_pa
                                    rtol=1e-5, atol=1e-6)
     finally:
         TN._lib.cache_clear()
+
+
+# ------------------------------------------------------------ the staged batch copy
+_BUSY_CYCLES = 100_000_000  # torch.cuda._sleep: ~60 ms of a busy card
+
+
+def _spoil(batch) -> None:
+    """Overwrite a numpy batch in place: NaN floats, zero integers, flipped masks."""
+    for a in S._batch_leaves(batch):
+        a[...] = np.nan if a.dtype.kind == "f" else (~a if a.dtype == bool else 0)
+
+
+def test_caller_may_overwrite_its_arrays_once_run_returns(cuda_device):
+    """The eval step's numpy batch overwritten as soon as the call returns,
+    while the card is still busy (a queued sleep holds the copy back, and
+    the call returned without waiting for it): each replay's metrics equal
+    those of the untouched batch, bit for bit where two replays of it
+    agree bit for bit (else within 1e-6)."""
+    cfg = tiny_test_config()
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    eval_step = S.make_eval_step(cfg)
+    batches = [_tiny_batch(cfg, seed=s) for s in (7, 8)]
+    want = [[eval_step(state.model, b) for b in batches] for _ in range(2)]
+    for i, b in enumerate(batches):
+        mine = copy.deepcopy(b)
+        torch.cuda._sleep(_BUSY_CYCLES)
+        got = eval_step(state.model, mine)
+        busy = torch.cuda.Event()
+        busy.record()
+        assert not busy.query()  # the copy is still queued behind the sleep
+        _spoil(mine)
+        _bitwise_or_close(got, want[0][i], want[1][i], dict(rtol=1e-6, atol=1e-7))
+    assert eval_step.captured.replays == 6
+
+
+def test_closed_loop_without_host_sync_equals_synced_loop(cuda_device):
+    """Alternating batches through the train and eval steps with no host
+    sync between steps (after the captures, which synchronise, the host
+    queued behind a sleep, so it runs ahead of the card) against the same
+    loop with ``torch.cuda.synchronize()`` after every step: every step's
+    train and eval metrics, the parameters and the momentum bit for bit
+    where two synced loops agree bit for bit (else within 1e-5, the
+    momentum 1e-4 of its largest element)."""
+    cfg = tiny_test_config()
+    batches = [_tiny_batch(cfg, seed=s) for s in (4, 5)]
+    train_step, eval_step = S.make_train_step(cfg), S.make_eval_step(cfg)
+    runs = []
+    for synced in (False, True, True):
+        state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+        out = {}
+        for i in range(6):
+            if i == 1 and not synced:
+                torch.cuda._sleep(_BUSY_CYCLES)
+            state, m = train_step(state, batches[i % 2])
+            if synced:
+                torch.cuda.synchronize()
+            e = eval_step(state.model, batches[(i + 1) % 2])
+            if synced:
+                torch.cuda.synchronize()
+            out.update({f"train{i}.{k}": v for k, v in m.items()})
+            out.update({f"eval{i}.{k}": v for k, v in e.items()})
+        runs.append({**out, **{k: v.clone() for k, v in _params_and_moments(state).items()}})
+    _bitwise_or_close(*runs, dict(rtol=1e-5, atol=1e-6))
+
+
+def test_traced_copy_counts_staged_bytes_and_waits(cuda_device, traced):
+    """With the tracer on: a train step's copies stage every byte of the
+    numpy batch (``captured.staged_bytes``), all of it pageable as the
+    caller gave it (``captured.pageable_bytes``), and a copy that finds its
+    pinned buffer still on its way waits for it once (``captured.
+    staging_waits``: the third copy behind a sleep).  A graph fed a numpy
+    array, a pinned CPU tensor and a CUDA tensor stages the first two and
+    copies the third on the device; its replays read all three."""
+    cfg = tiny_test_config()
+    batches = [_tiny_batch(cfg, seed=s) for s in (1, 2)]
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    step = S.make_train_step(cfg)
+    traced.enable()
+    step(state, batches[0])  # the capture
+    traced.drain()
+    torch.cuda._sleep(_BUSY_CYCLES)
+    n = 4
+    for i in range(n):
+        state, _ = step(state, batches[i % 2])
+    counters = traced.drain()["counters"]
+    host = sum(a.nbytes for a in S._batch_leaves(batches[0]))
+    assert counters["captured.staged_bytes"] == n * host
+    assert counters["captured.pageable_bytes"] == n * host
+    assert counters["captured.copy_bytes"] == n * host
+    assert counters["captured.staging_waits"] >= 1
+
+    cap = S.CapturedGraphs()
+    rng = np.random.default_rng(0)
+    for k in range(3):
+        leaves = [rng.normal(size=(5, 3)).astype(np.float32),
+                  torch.from_numpy(rng.integers(0, 9, (7,), dtype=np.int32)).pin_memory(),
+                  torch.from_numpy(rng.random(4) < 0.5).to(cuda_device)]
+        out = cap.run("mixed", leaves, lambda x: (x[0] * 2, x[1] + 1, ~x[2]), cuda_device)
+        assert torch.equal(out[0].cpu(), torch.from_numpy(leaves[0]) * 2)
+        assert torch.equal(out[1].cpu(), leaves[1] + 1) and torch.equal(out[2], ~leaves[2])
+    counters = traced.drain()["counters"]
+    entry = next(iter(cap.graphs.values()))
+    flat = entry.staging.flat.untyped_storage().data_ptr()
+    assert [t.untyped_storage().data_ptr() == flat for t in entry.staging.inputs] == [True, True, False]
+    assert counters["captured.staged_bytes"] == 2 * (5 * 3 * 4 + 7 * 4)
+    assert counters["captured.pageable_bytes"] == 2 * 5 * 3 * 4
+    assert counters["captured.copy_bytes"] == 2 * (5 * 3 * 4 + 7 * 4 + 4)

@@ -356,3 +356,102 @@ def test_reader_is_none_off_the_card_and_reads_a_fake_trace(metric):
     fake.program_trace["stretch"]["spans"] = []
     fake.program_trace["setup"]["spans"] = []
     assert read(fake) is None
+
+
+# ------------------------------------------------------------ the staged copy
+class _InFlight:
+    """A stand-in event of a pinned buffer: in flight from its record until
+    waited for."""
+
+    def __init__(self):
+        self.pending, self.waited = False, 0
+
+    def record(self, stream=None):
+        self.pending = True
+
+    def query(self):
+        return not self.pending
+
+    def synchronize(self):
+        self.waited += 1
+        self.pending = False
+
+
+def test_captured_graphs_stage_host_leaves_on_a_stand_in_card(global_tracer, fake_card,
+                                                              monkeypatch):
+    """``CapturedGraphs.run`` on a stand-in card: the host leaves are views
+    of one flat buffer and reach it through two host buffers in turn; a
+    leaf on the card keeps a buffer of its own.  A copy waits only for a
+    buffer still in flight, once, before its span; the caller may overwrite
+    its arrays as soon as ``run`` returns.  With the tracer on,
+    ``captured.staged_bytes`` counts the host leaves' bytes a copy and
+    ``captured.staging_waits`` the waits, beside ``captured.copy_bytes`` and
+    ``captured.pageable_bytes``."""
+    rng = np.random.default_rng(3)
+    card_leaf = torch.arange(3, dtype=torch.float32)
+    monkeypatch.setattr(S, "_on_card", lambda a: a is card_leaf)
+
+    def batch():
+        return [rng.normal(size=(2, 3)).astype(np.float32), card_leaf,
+                rng.integers(0, 9, (4,), dtype=np.int32), rng.random(5) < 0.5,
+                torch.from_numpy(rng.normal(size=(3,)))]
+
+    cap = S.CapturedGraphs()
+    global_tracer.enable()
+    cap.run("k", batch(), lambda inputs: {"y": inputs[0] * 2}, torch.device("cpu"))
+    entry = next(iter(cap.graphs.values()))
+    staging = entry.staging
+    staging.done = [_InFlight(), _InFlight()]
+    flat = staging.flat.untyped_storage().data_ptr()
+    assert [t.untyped_storage().data_ptr() == flat for t in entry.staging.inputs] == [
+        True, False, True, True, True]
+    global_tracer.drain()
+    calls = 4
+    for _ in range(calls):
+        leaves = batch()
+        want = [S._as_tensor(a).clone() for a in leaves]
+        spans_before = len(global_tracer._spans)
+        cap.run("k", leaves, lambda inputs: {"y": inputs[0] * 2}, torch.device("cpu"))
+        assert global_tracer._spans[spans_before]["name"] == "captured.copy"
+        for a in leaves[0], leaves[2], leaves[3], leaves[4]:
+            a[...] = 0  # the caller reuses its arrays at once
+        assert all(torch.equal(t, w) for t, w in zip(entry.staging.inputs, want))
+    assert [e.waited for e in staging.done] == [1, 1]  # turns 1, 0, then each waited for
+    counters = global_tracer.drain()["counters"]
+    host = 2 * 3 * 4 + 4 * 4 + 5 + 3 * 8
+    assert counters["captured.staged_bytes"] == calls * host
+    assert counters["captured.staging_waits"] == 2
+    assert counters["captured.copy_bytes"] == calls * (host + 3 * 4)
+    assert counters["captured.pageable_bytes"] == calls * (host + 3 * 4)
+
+
+def test_a_sampled_replay_still_in_flight_is_waited_for_and_read(tracer, fake_card,
+                                                                 monkeypatch):
+    """A replay sampled for its in-graph spans and not yet complete when
+    its graph is replayed again is waited for and read, not lost: the host
+    may run ahead of the card."""
+    waits = []
+
+    class Late(_Event):
+        def query(self):
+            return False
+
+        def synchronize(self):
+            waits.append(self)
+
+    monkeypatch.setattr(torch.cuda, "Event", Late)
+    tracer.enable()
+    waits.clear()  # the clock's anchor
+    with tracer.marking() as marks:
+        with tracer.graph_span("train_step.forward"):
+            pass
+    for _ in range(2):
+        with tracer.span("train_step.replay", CARD, marks=marks):
+            for m in marks:
+                m[2].record()
+                m[3].record()
+    spans = tracer.drain()["spans"]
+    assert len(waits) == 1
+    replay = next(s for s in spans if s["name"] == "train_step.replay" and s["where"] == "device")
+    inner = [s for s in spans if s["name"] == "train_step.forward"]
+    assert len(inner) == 1 and inner[0]["parent"] == replay["id"]
