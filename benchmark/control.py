@@ -26,14 +26,15 @@ BENCH_DIR = Path(__file__).resolve().parent
 sys.path[:0] = [str(BENCH_DIR), str(BENCH_DIR.parent)]
 
 
-def stand_in_numbers(cfg, mix, pool, seed, device, **kind) -> dict:
-    """The check's readings with the reference (``kind``: precision and
-    graphs) in the program's place, against the float32 reference."""
+def stand_in_numbers(reference, cfg, mix, pool, seed, device, **kind) -> dict:
+    """The check's readings with the ``reference`` module (``kind``:
+    precision and graphs) in the program's place, against its float32
+    readings."""
     from harness import check
     from harness.cell import reference_readings
 
-    ref = reference_readings(cfg, mix, pool, seed, device)
-    other = reference_readings(cfg, mix, pool, seed, device, **kind)
+    ref = reference_readings(reference, cfg, mix, pool, seed, device)
+    other = reference_readings(reference, cfg, mix, pool, seed, device, **kind)
     if mix["kind"] == "train":
         return check.train_readings(other, ref)
     return check.eval_numbers(list(enumerate(other)), ref)
@@ -58,6 +59,7 @@ def main(argv=None, device="cuda", config_override=None, mix_override=None):
     spec = load_cell(bench, args.workload)
     cfg = dict(spec["config"]["gnn_config"], **(config_override or {}))
     mix = dict(spec["mix"], **(mix_override or {}))
+    reference = spec["modules"].reference
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "a") as f:
         for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
@@ -72,12 +74,12 @@ def main(argv=None, device="cuda", config_override=None, mix_override=None):
             if i < max(args.controls, args.faults):
                 pool, _ = traffic.make_pool(cfg, mix, seed)
             if i < args.controls:
-                line["control_tf32"] = stand_in_numbers(cfg, mix, pool, seed, device,
-                                                        precision="tf32")
+                line["control_tf32"] = stand_in_numbers(
+                    reference, cfg, mix, pool, seed, device, precision="tf32")
             if i < args.faults:
                 half = list(range(mix["batch"] // 2))
-                line["fault_half_batch"] = stand_in_numbers(cfg, mix, pool, seed, device,
-                                                            graphs=half)
+                line["fault_half_batch"] = stand_in_numbers(
+                    reference, cfg, mix, pool, seed, device, graphs=half)
             line["seconds"] = time.perf_counter() - t
             f.write(json.dumps(line) + "\n")
             f.flush()

@@ -5,7 +5,9 @@ Everything a cell is made of is found by name: its entry in
 ``BENCHMARK.json``, its configuration file, its mix
 (``mixes/<traffic>.json``), its limits (``limits/<workload>.json``) and
 its per-layer readers (``metrics/<metric>.py``, else
-``metrics/<metric up to its first dot>.py``).  A mix's ``kind`` picks
+``metrics/<metric up to its first dot>.py``), and the modules its
+configuration names (``resolve_modules``): the program's adapter, the
+plain reference and the counts.  A mix's ``kind`` picks
 the window: ``train`` re-enacts the loop of the program's trainer (the
 captured train step on each batch, the metrics read to the host every
 ``log_period`` steps), ``eval`` its validation sweep (the captured eval
@@ -15,6 +17,7 @@ step on each batch, the metrics read to the host after each).
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import math
@@ -27,12 +30,43 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from harness import check, counts, trace, traffic
-from harness.program import Program, as_batch
+from harness import check, trace, traffic
 from harness.weights import make_weights
-from reference.model import Reference, train_steps
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
+
+# The modules a configuration may name by a top-level key of its file:
+# key -> (the directory of the benchmark that holds them, the default, the
+# names each has to offer).
+MODULE_KEYS = {
+    "program": ("harness", "program", ("Program", "as_batch")),
+    "reference": ("reference", "model", ("Reference", "train_steps", "param_specs")),
+    "counts": ("harness", "counts", ("model_flops", "round_work", "least_seconds",
+                                     "PEAK_F32_FLOPS", "PEAK_BYTES_PER_S")),
+}
+
+
+def resolve_modules(config: dict) -> types.SimpleNamespace:
+    """The configuration's ``program`` adapter, plain ``reference`` (which
+    may also offer ``weight_rule``: ``harness/weights.py``) and ``counts``:
+    the module ``<folder>/<name>.py`` that each key of ``MODULE_KEYS``
+    names in the configuration's file, else its default.  A name with no
+    such module, or a module that lacks a name it has to offer, fails
+    here."""
+    found = {}
+    for key, (folder, default, offers) in MODULE_KEYS.items():
+        name = config.get(key, default)
+        path = BENCH_DIR / folder / f"{name}.py"
+        if not (isinstance(name, str) and name.isidentifier() and path.is_file()):
+            raise FileNotFoundError(
+                f"the configuration's {key!r} names {name!r}: no module {path}")
+        mod = importlib.import_module(f"{folder}.{name}")
+        missing = [a for a in offers if not hasattr(mod, a)]
+        if missing:
+            raise AttributeError(f"the configuration's {key!r} names {name!r}: {path} "
+                                 f"lacks {', '.join(missing)}")
+        found[key] = mod
+    return types.SimpleNamespace(**found)
 
 
 def load_cell(bench: dict, workload: str) -> dict:
@@ -51,7 +85,7 @@ def load_cell(bench: dict, workload: str) -> dict:
                  if (workload in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
     return dict(cell=cell, config=config, mix=mix, limits=limits, e2e=e2e,
-                per_layer=per_layer)
+                per_layer=per_layer, modules=resolve_modules(config))
 
 
 def reader(name: str):
@@ -145,21 +179,22 @@ def _profiled(step, batches, first, mix, device):
     return trace.reduce(prof.events())
 
 
-def reference_readings(cfg: dict, mix: dict, pool, seed: int, device,
+def reference_readings(reference, cfg: dict, mix: dict, pool, seed: int, device,
                        precision: str = "f32", graphs=None):
-    """What the reference makes of the cell's inputs: for ``train`` the
-    checked steps' loss terms, first gradient and parameter change (what
-    ``check.train_readings`` compares), for ``eval`` each pool batch's
-    loss terms.  ``precision`` "tf32" is the control (TF32 matmuls on the
-    card); ``graphs`` the slots of each batch to take (default all)."""
+    """What the ``reference`` module makes of the cell's inputs: for
+    ``train`` the checked steps' loss terms, first gradient and parameter
+    change (what ``check.train_readings`` compares), for ``eval`` each
+    pool batch's loss terms.  ``precision`` "tf32" is the control (TF32
+    matmuls on the card); ``graphs`` the slots of each batch to take
+    (default all)."""
     device = torch.device(device)
-    ref = Reference(cfg, precision)
-    weights = make_weights(cfg, seed, device)
+    ref = reference.Reference(cfg, precision)
+    weights = make_weights(cfg, seed, device, reference)
     torch.backends.cuda.matmul.allow_tf32 = precision == "tf32"
     try:
         if mix["kind"] == "train":
             batches = [to_device(b, device) for b in pool[:mix["checked_steps"]]]
-            losses, grad, after = train_steps(ref, weights, batches, graphs)
+            losses, grad, after = reference.train_steps(ref, weights, batches, graphs)
             return {"losses": losses, "grad": grad,
                     "delta": {k: after[k] - weights[k] for k in weights}}
         with torch.no_grad():
@@ -171,10 +206,15 @@ def reference_readings(cfg: dict, mix: dict, pool, seed: int, device,
 
 def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
              t_start: float, device="cuda", config_override: Optional[dict] = None, mix_override: Optional[dict] = None,
-             program_cls=Program, detail: bool = False) -> dict:
-    """One run; returns the result line's fields (``checks`` last)."""
-    bench = json.loads((BENCH_DIR.parent / "BENCHMARK.json").read_text())
+             program_cls=None, detail: bool = False, bench: Optional[dict] = None) -> dict:
+    """One run; returns the result line's fields (``checks`` last).
+    ``program_cls`` stands in for the adapter's ``Program``; ``bench`` for
+    the contents of ``BENCHMARK.json``."""
+    if bench is None:
+        bench = json.loads((BENCH_DIR.parent / "BENCHMARK.json").read_text())
     spec = load_cell(bench, workload)
+    mods = spec["modules"]
+    program_cls = program_cls or mods.program.Program
     cfg = dict(spec["config"]["gnn_config"], **(config_override or {}))
     mix = dict(spec["mix"], **(mix_override or {}))
     device = torch.device(device)
@@ -182,9 +222,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     torch.backends.cudnn.allow_tf32 = False
 
     pool, _ = traffic.make_pool(cfg, mix, seed)
-    batches = [as_batch(b) for b in pool]
+    batches = [mods.program.as_batch(b) for b in pool]
     program = program_cls(cfg, device)
-    state = program.train_state(make_weights(cfg, seed, device))
+    state = program.train_state(make_weights(cfg, seed, device, mods.reference))
     kind = mix["kind"]
     window = Window()
     if kind == "train":
@@ -254,7 +294,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
         live = [traffic.live_counts(b) for b in pool]
         ctx = types.SimpleNamespace(
             mode=kind, cfg=cfg, mix=mix, seed=seed, device=device, program=program,
-            pool=pool, live=live, window=window, trace=stretch, counts=counts)
+            pool=pool, live=live, window=window, trace=stretch, counts=mods.counts,
+            modules=mods)
         for m in metric_specs:
             value = reader(m["name"])(ctx)
             if value is not None:
@@ -274,9 +315,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    refr = reference_readings(cfg, mix, pool, seed, device)
+    refr = reference_readings(mods.reference, cfg, mix, pool, seed, device)
     if kind == "train":
-        weights = make_weights(cfg, seed, device)
+        weights = make_weights(cfg, seed, device, mods.reference)
         wd = cfg["weight_decay"]
         prog = {"losses": prog_losses,
                 "grad": {k: mom1[k] - wd * weights[k] for k in weights},

@@ -3,8 +3,9 @@
 Builds the port's configuration from a cell's configuration file, its
 train state with the benchmark's weights, its captured train and eval
 steps and its message-round entry, and reads back what the comparison
-needs (the parameters and the momentum by name).  Nothing else of the
-benchmark imports the port.
+needs (the parameters and the momentum by name).  The default adapter of
+a configuration (``harness/cell.resolve_modules``); only it and another
+family's adapter, ``harness/program_<family>.py``, import the port.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 of ``metrics/`` that read them.
 
 The port's tracer (``TRACER`` of its ``utils/profiling``) is reached
-through the adapter, ``harness/program.py``.  ``get(ctx)`` runs once per
-traced run and keeps its result on ``ctx``:
+through the configuration's program adapter (``ctx.modules.program``, by
+default ``harness/program.py``: its ``steps.TRACER``).  ``get(ctx)`` runs
+once per traced run and keeps its result on ``ctx``:
 
 1. the one-off spans the program has recorded so far (``setup``): the
    set-up's captures, and any capture in the window;
@@ -29,8 +30,6 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from harness import cell
-from harness import program as adapter
-from harness.program import as_batch
 from harness.weights import make_weights
 
 COPY = "captured.copy"
@@ -47,12 +46,14 @@ def get(ctx) -> Optional[dict]:
 
 
 def _run(ctx) -> Optional[dict]:
-    tracer = getattr(adapter.steps, "TRACER", None)
+    adapter = ctx.modules.program
+    tracer = getattr(getattr(adapter, "steps", None), "TRACER", None)
     if tracer is None:
         return None
     setup = tracer.drain()
-    state = ctx.program.train_state(make_weights(ctx.cfg, ctx.seed, ctx.device))
-    batches = [as_batch(b) for b in ctx.pool]
+    state = ctx.program.train_state(make_weights(ctx.cfg, ctx.seed, ctx.device,
+                                                 ctx.modules.reference))
+    batches = [adapter.as_batch(b) for b in ctx.pool]
     if ctx.mode == "train":
         train_fn = ctx.program.train_step()
 

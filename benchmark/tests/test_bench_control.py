@@ -22,13 +22,14 @@ def _spec(workload):
     return load_cell(json.loads((BENCH_DIR.parent / "BENCHMARK.json").read_text()), workload)
 
 
-@pytest.mark.parametrize("workload", ["knn.train", "ball.train", "knn.eval"])
+@pytest.mark.parametrize("workload", ["knn.train", "ball.train", "knn.eval", "ball.eval"])
 def test_tf32_control_is_not_correct(workload):
     spec = _spec(workload)
     cfg = dict(spec["config"]["gnn_config"], **TINY)
     mix = dict(spec["mix"], **TINY_MIX)
     pool, _ = traffic.make_pool(cfg, mix, SEED)
-    numbers = control.stand_in_numbers(cfg, mix, pool, SEED, "cpu", precision="tf32")
+    numbers = control.stand_in_numbers(spec["modules"].reference, cfg, mix, pool, SEED, "cpu",
+                                       precision="tf32")
     assert not check.verdict(numbers, spec["limits"]), numbers
 
 
@@ -99,7 +100,8 @@ class AlteredEval(Program):
 @pytest.mark.parametrize("workload,broken", [
     ("knn.train", Unchanged), ("knn.train", HalfTrain), ("knn.train", AlteredTrain),
     ("ball.train", Unchanged), ("ball.train", HalfTrain), ("ball.train", AlteredTrain),
-    ("knn.eval", HalfEval), ("knn.eval", AlteredEval)])
+    ("knn.eval", HalfEval), ("knn.eval", AlteredEval),
+    ("ball.eval", HalfEval), ("ball.eval", AlteredEval)])
 def test_fault_is_not_correct(workload, broken):
     out = run(workload, False, program_cls=broken)
     assert out["correct"] is False, out["checks"]

@@ -1,8 +1,11 @@
 """A static scan of the benchmark's imports: nothing imports JAX, Flax or
-the JAX package (top-level names compared whole), and the reference
-imports nothing of the port or of the harness's adapter to it."""
+the JAX package (top-level names compared whole), the reference imports
+nothing of the port or of the harness's adapters to it, and only those
+adapters (``harness/program.py`` and ``harness/program_<family>.py``)
+import the port."""
 
 import ast
+import fnmatch
 
 from bench_support import BENCH_DIR
 
@@ -39,4 +42,7 @@ def test_only_the_adapter_imports_the_port():
     users = [p.relative_to(BENCH_DIR).as_posix() for p in sorted(BENCH_DIR.rglob("*.py"))
              if any(n.split(".")[0] == PORT for n in _imports(p))
              and not p.relative_to(BENCH_DIR).as_posix().startswith("tests/")]
-    assert users == ["harness/program.py"]
+    assert "harness/program.py" in users
+    assert "harness/program_trace.py" not in users  # the spans' reader, not an adapter
+    assert all(u == "harness/program.py" or fnmatch.fnmatch(u, "harness/program_*.py")
+               for u in users), users
