@@ -5,6 +5,10 @@ The port of the JAX package's ``examples/train_gnn.py``: RadarScenes if
 synthetic scene generator; every step runs the fused message-pass kernels,
 forward and backward, on the card.  Checkpoints go to ``<out>/ckpt`` (the
 port's ``CheckpointManager``), ``--resume`` continues from the latest.
+``--model`` picks the model family: ``gnn`` (the flagship ``RadarGNN``,
+the default), ``v1`` (``RadarGNNv1``, the shared node head) or ``v2``
+(``RadarGNNv2``, the GATv2 neck at ``hidden_node_channels_gat`` over
+``num_heads_gat`` heads, plain PyTorch).
 
 Run: python -m graph_neural_network_for_radar_perception_torch.examples.train_gnn --iters 2000
 """
@@ -16,10 +20,15 @@ import torch
 
 from ..config.config import GNNConfig
 from ..data.prefetch import device_prefetch
+from ..models.gat import RadarGNNv2
+from ..models.gnn import RadarGNN, RadarGNNv1
 from ..train.steps import create_train_state
 from ..train.trainer import TrainHooks, train
 from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics_writer import MetricsWriter
+
+
+MODELS = {"gnn": RadarGNN, "v1": RadarGNNv1, "v2": RadarGNNv2}
 
 
 def main(argv=None):
@@ -33,6 +42,8 @@ def main(argv=None):
     p.add_argument("--out", default=os.path.join("runs", "torch", "gnn"))
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--model", choices=sorted(MODELS), default="gnn",
+                   help="model family: the flagship, v1's shared node head or v2's GATv2 neck")
     args = p.parse_args(argv)
 
     cfg = (
@@ -74,7 +85,7 @@ def main(argv=None):
 
     ckpt = CheckpointManager(os.path.join(args.out, "ckpt"))
     state = create_train_state(cfg, torch.Generator().manual_seed(cfg.seed),
-                               device=args.device)
+                               device=args.device, model_cls=MODELS[args.model])
     start = 0
     if args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(template=state)

@@ -14,6 +14,18 @@ negative_slope=0.2, add_self_loops=False, share_weights=False, edge_dim):
   α = softmax_over_incoming(a · s);  out_dst = Σ α · (W_l·x_src)
 heads concatenated, bias added.  The slope 0.2 is GATv2's own, not the
 model's activation.
+
+Tracing (``utils/profiling.TRACER``; nothing while it is off): each
+``GATv2Conv`` forward captured while the tracer is on is the device span
+``gat.forward`` (projections, gathers, logits, segment softmax and
+aggregation), and its backward the device span ``gat.backward``, from
+the gradient's arrival at the conv's output to its departure through the
+conv's inputs: two pass-through autograd nodes (``_OpenBackward`` at the
+output, ``_CloseBackward`` over ``x`` and ``edge_feat``), inserted only
+then.  Counters: ``gat.rounds``, the conv forwards run while the tracer
+is on, and ``gat.alloc_bytes``, the bytes the caching allocator handed
+out during them on a card (``allocated_bytes.all.allocated`` of
+``torch.cuda.memory_stats`` across each forward).
 """
 
 from __future__ import annotations
@@ -26,10 +38,59 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import segment as S
+from ..utils.profiling import TRACER
 from .blocks import Linear, MLPStack, ScalarNorm
 from .gnn import RadarGNN
 
 GAT_SLOPE = 0.2  # torch_geometric GATv2Conv's negative_slope
+
+
+class _BackwardSpan:
+    """The open ``gat.backward`` span of one conv's backward, if any."""
+
+    def __init__(self):
+        self.mark = None
+
+
+class _OpenBackward(torch.autograd.Function):
+    """The conv's output, passed through; its backward, the first of the
+    conv's, opens the conv's ``gat.backward`` span."""
+
+    @staticmethod
+    def forward(ctx, out, span):
+        ctx.span = span
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        ctx.span.mark = TRACER.graph_span("gat.backward")
+        ctx.span.mark.__enter__()
+        return g_out, None
+
+
+class _CloseBackward(torch.autograd.Function):
+    """The conv's inputs, passed through; their backward, the last of the
+    conv's, closes its ``gat.backward`` span."""
+
+    @staticmethod
+    def forward(ctx, x, edge_feat, span):
+        ctx.span = span
+        return x, edge_feat
+
+    @staticmethod
+    def backward(ctx, g_x, g_edge):
+        if ctx.span.mark is not None:
+            ctx.span.mark.__exit__(None, None, None)
+            ctx.span.mark = None
+        return g_x, g_edge, None
+
+
+def _allocated(device: torch.device) -> int:
+    """The bytes the caching allocator has handed out on ``device`` so far
+    (0 off a card)."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats(device)["allocated_bytes.all.allocated"]
 
 
 class GATv2Conv(nn.Module):
@@ -58,7 +119,25 @@ class GATv2Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask):
-        del node_mask  # the attention is over edges; masked edges weigh 0
+        if not TRACER.enabled:
+            return self._attend(x, edge_feat, senders, receivers, edge_mask)
+        TRACER.count("gat.rounds")
+        before = _allocated(x.device)
+        span = None
+        if (TRACER.graph_marking and torch.is_grad_enabled()
+                and (x.requires_grad or edge_feat.requires_grad)):
+            span = _BackwardSpan()
+            x, edge_feat = _CloseBackward.apply(x, edge_feat, span)
+        with TRACER.graph_span("gat.forward"):
+            out = self._attend(x, edge_feat, senders, receivers, edge_mask)
+        if span is not None:
+            out = _OpenBackward.apply(out, span)
+        TRACER.count("gat.alloc_bytes", _allocated(x.device) - before)
+        return out
+
+    def _attend(self, x, edge_feat, senders, receivers, edge_mask):
+        """The attention and the aggregate (the node mask plays no part:
+        the attention is over edges, and masked edges weigh 0)."""
         h, c = self.num_heads, self.out_channels
         n, lead = x.shape[-2], tuple(x.shape[:-2])  # lead: a batch's graph axis
         xs = S.gather_nodes(self.lin_l(x), senders).reshape(lead + (-1, h, c))

@@ -280,13 +280,15 @@ def make_optimizer(cfg: GNNConfig, params) -> Optimizer:
 
 def create_train_state(cfg: GNNConfig,
                        generator: Optional[torch.Generator] = None,
-                       device="cuda") -> TrainState:
-    """A fresh model from ``generator`` (default: seeded with ``cfg.seed``)
-    on ``device`` — the card unless ``device="cpu"`` — and its optimiser."""
+                       device="cuda", model_cls: type = RadarGNN) -> TrainState:
+    """A fresh ``model_cls(cfg)`` (``RadarGNN``, or a variant such as
+    ``RadarGNNv1`` or ``models/gat.RadarGNNv2``) from ``generator``
+    (default: seeded with ``cfg.seed``) on ``device`` — the card unless
+    ``device="cpu"`` — and its optimiser."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    model = RadarGNN(cfg, generator=generator).to(device)
+    model = model_cls(cfg, generator=generator).to(device)
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 

@@ -197,12 +197,19 @@ class Tracer:
         """A host span of one-off work, recorded whether or not the tracer is on."""
         return _Span(self, name)
 
+    @property
+    def graph_marking(self) -> bool:
+        """Whether a ``graph_span`` opened now is captured into a graph: the
+        tracer is on, ``marking``, and the current stream is capturing."""
+        return (self.enabled and self._marks is not None
+                and torch.cuda.is_current_stream_capturing())
+
     def graph_span(self, name: str):
         """A device span captured into the CUDA graph under capture, while
-        the tracer is on and ``marking``; the no-op otherwise."""
-        if not self.enabled or self._marks is None or not torch.cuda.is_current_stream_capturing():
-            return _OFF
-        return _Mark(self, name)
+        ``graph_marking``; the no-op otherwise.  It may also be entered and
+        left by hand from two places, as long as nothing opened in between
+        is left open (``models/gat.py``'s backward span)."""
+        return _Mark(self, name) if self.graph_marking else _OFF
 
     @contextlib.contextmanager
     def marking(self):

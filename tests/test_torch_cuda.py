@@ -34,6 +34,7 @@ from graph_neural_network_for_radar_perception_torch.data.pipeline import (
     pad_frame,
 )
 from graph_neural_network_for_radar_perception_torch.infer.pipeline import FrameDetector
+from graph_neural_network_for_radar_perception_torch.models import gat as G
 from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
 from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
@@ -1521,3 +1522,119 @@ def test_traced_copy_counts_staged_bytes_and_waits(cuda_device, traced):
     assert counters["captured.staged_bytes"] == 2 * (5 * 3 * 4 + 7 * 4)
     assert counters["captured.pageable_bytes"] == 2 * 5 * 3 * 4
     assert counters["captured.copy_bytes"] == 2 * (5 * 3 * 4 + 7 * 4 + 4)
+
+
+# ------------------------------------------------------------ RadarGNNv2 (GATv2)
+GAT_TINY = dict(hidden_node_channels_gat=32, num_heads_gat=4)
+
+
+def _v2_state(cfg, device):
+    return S.create_train_state(cfg, torch.Generator().manual_seed(0), device=device,
+                                model_cls=G.RadarGNNv2)
+
+
+def test_captured_v2_step_equals_eager_step(cuda_device):
+    """Three train steps of a ``RadarGNNv2`` state replayed from one captured
+    CUDA graph against the same step run eagerly on the card from the same
+    seed: metrics and params within 1e-5 (the segment softmax's max and
+    sums, the aggregate and the heads' backward sum with atomics); one
+    capture, three replays.  Its eval step, captured, against its body."""
+    tol = dict(rtol=1e-5, atol=1e-6)
+    cfg = tiny_test_config(**GAT_TINY)
+    batches = [_tiny_batch(cfg, seed=s) for s in (4, 5, 6)]
+    step, loss_fn = S.make_train_step(cfg), S.make_loss_fn(cfg)
+    cap, eager = _v2_state(cfg, cuda_device), _v2_state(cfg, cuda_device)
+    for batch in batches:
+        cap, m_cap = step(cap, batch)
+        m_eager = S._train_body(eager, S.batch_on(batch, cuda_device), loss_fn, cfg)
+        assert float(m_cap["skipped"]) == 0.0
+        for k, v in m_eager.items():
+            np.testing.assert_allclose(float(m_cap[k]), float(v), **tol, err_msg=k)
+    assert step.captured.replays == 3 and len(step.captured.graphs) == 1
+    assert (cap.step, cap.updates) == (eager.step, eager.updates) == (3, 3)
+    want = eager.model.state_dict()
+    for k, v in cap.model.state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want[k].cpu().numpy(), **tol, err_msg=k)
+    eval_step = S.make_eval_step(cfg)
+    for batch in batches:
+        got = eval_step(cap.model, batch)
+        ref = eval_step.body(cap.model, S.batch_on(batch, cuda_device))
+        for k, v in ref.items():
+            np.testing.assert_allclose(float(got[k]), float(v), **tol, err_msg=k)
+    assert len(eval_step.captured.graphs) == 1
+
+
+def _replay_kernels(step, state, batch):
+    """Device kernels of one replay of ``step``'s captured graph."""
+    from graph_neural_network_for_radar_perception_torch.utils.timing import profile_run
+
+    return profile_run(lambda: step(state, batch))["device_kernels"]
+
+
+def test_traced_v2_step_times_the_attention(cuda_device, traced, monkeypatch):
+    """A ``RadarGNNv2`` train step at the configuration's widths (batch 4)
+    captured with the tracer on: each of the 7 GATv2 convolutions is a
+    ``gat.forward`` span inside ``train_step.forward`` and a ``gat.backward``
+    span inside ``train_step.backward``, in every read replay; the counters
+    ``gat.rounds`` (7 a run: the capture's two warm-ups and the capture)
+    and ``gat.alloc_bytes`` count.  The capture made with the tracer off
+    holds no span, counts nothing, and its replay runs as many kernels as
+    the traced one and as a capture of the conv without its tracing code:
+    the spans are timing events and pass-through autograd nodes."""
+    cfg = GNNConfig(batch_size=4)
+    rounds = len(cfg.graph_convolution_stem_channels)
+    batches = [_tiny_batch(cfg, seed=s) for s in (1, 2, 3)]
+    step = S.make_train_step(cfg)
+    state = _v2_state(cfg, cuda_device)
+    n = 2 * traced.SAMPLE_EVERY
+    traced.enable()
+    for i in range(n):
+        state, _ = step(state, batches[i % 3])
+    out = traced.drain()
+    traced.disable()
+    assert out["counters"]["gat.rounds"] == rounds * (S.CapturedStep.WARMUP_RUNS + 1)
+    # at least four [B, E_cap, 512] f32 intermediates a round (the gathered
+    # projections, the edge projection, the leaky ReLU's input)
+    b, e_cap = batches[0].graph.senders.shape
+    assert out["counters"]["gat.alloc_bytes"] / out["counters"]["gat.rounds"] >= (
+        4 * b * e_cap * cfg.hidden_node_channels_gat * 4)
+    spans = out["spans"]
+    replays = [s for s in spans if s["name"] == "train_step.replay" and s["where"] == "device"]
+    read = [r for r in replays if _inner(spans, r)]
+    assert len(read) == 2
+    for r in read:
+        inner = _inner(spans, r)
+        by = {}
+        for s in inner:
+            by.setdefault(s["name"], []).append(s)
+            assert r["start_ns"] - 1000 <= s["start_ns"] <= s["end_ns"] <= r["end_ns"] + 1000, s
+        assert {k: len(v) for k, v in by.items()} == {
+            "train_step.forward": 1, "train_step.backward": 1, "train_step.update": 1,
+            "gat.forward": rounds, "gat.backward": rounds}
+        fwd, bwd = by["train_step.forward"][0], by["train_step.backward"][0]
+        assert all(s["parent"] == fwd["id"] for s in by["gat.forward"])
+        assert all(s["parent"] == bwd["id"] for s in by["gat.backward"])
+        # the backward's rounds run last-first and do not overlap
+        ends = sorted((s["start_ns"], s["end_ns"]) for s in by["gat.backward"])
+        assert all(a[1] <= b[0] + 1000 for a, b in zip(ends, ends[1:]))
+    traced.enable()
+    traced_kernels = _replay_kernels(step, state, batches[0])  # the traced capture
+    traced.disable()
+    traced.drain()
+    state_off = _v2_state(cfg, cuda_device)
+    step_off = S.make_train_step(cfg)
+    step_off(state_off, batches[0])
+    entry = next(iter(step_off.captured.graphs.values()))
+    assert entry.marks == []
+    off_kernels = _replay_kernels(step_off, state_off, batches[0])
+    assert traced.drain()["counters"].get("gat.rounds", 0) == 0
+    bare = S.make_train_step(cfg)
+    state_bare = _v2_state(cfg, cuda_device)
+    with monkeypatch.context() as m:
+        m.setattr(G.GATv2Conv, "forward",
+                  lambda self, x, ef, s, r, nm, em: self._attend(x, ef, s, r, em))
+        bare(state_bare, batches[0])
+    bare_kernels = _replay_kernels(bare, state_bare, batches[0])
+    assert off_kernels == bare_kernels == traced_kernels, (off_kernels, bare_kernels,
+                                                           traced_kernels)
+

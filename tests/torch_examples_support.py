@@ -166,8 +166,8 @@ class Carry:
 
         make_state = TS.create_train_state
 
-        def create_train_state(cfg, generator=None, device="cuda"):
-            state = make_state(cfg, generator, device=device)
+        def create_train_state(cfg, generator=None, device="cuda", model_cls=RadarGNN):
+            state = make_state(cfg, generator, device=device, model_cls=model_cls)
             state.model.load_state_dict(state_dict_from_flax(self.next_init("gnn")))
             return state
 
