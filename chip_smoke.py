@@ -8,8 +8,9 @@ Phases, each reported on its own line:
 1. [build] build the port's CUDA kernels from ``csrc/`` with nvcc, one
    ``nvcc`` per source, started together: ``fused_mp`` (the fused round's
    forward, f32 and bf16, and backward), ``csr_mp`` (the CSR round's) and
-   ``microbench_gather`` (row gather and scatter-add), and beside them the
-   gather ablation's ``empty`` variant (the launch floor of [kernel-gather]);
+   ``microbench_gather`` (row gather and scatter-add), ``gat_mp`` (the
+   GATv2 round's forward and backward), and beside them the gather
+   ablation's ``empty`` variant (the launch floor of [kernel-gather]);
    then [sass]: ``cuobjdump -sass`` of ``fused_mp`` and ``csr_mp``, HMMA
    (tensor-core) instructions counted per kernel instantiation: every
    instantiation of the bf16 forwards' kernels (``fwd_edge_kernel_bf16``,
@@ -34,6 +35,13 @@ Phases, each reported on its own line:
    H=256, where the edge kernel runs in 16- and 8-edge tiles), autograd
    through ``fused_message_pass_csr`` on the card against the CPU, and the
    device kernels of one ``csr_mp_backward`` call (``torch.profiler``);
+5b. [kernel-gat] the GATv2 round's kernel pair (``ops/gat_mp.gat_round``)
+   at ``gat.train``'s shapes (8 ``GNNConfig`` graphs, 64 -> 8 heads of 64):
+   out and the gradients of xl, xr, ef, W_e, b_e, att and bias against
+   ``GATv2Conv._attend`` in float64 (within twice the plain f32 path's
+   error), out = bias without a kept edge, two launches bitwise equal; the
+   launches of captured ``RadarGNNv2`` train steps; at B = 1 and B = 8 each
+   C call's time, device kernels and bound beside the plain path's times;
 6. [deploy] drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the
    shipped widths with random weights from a seeded ``torch.Generator`` —
    over synthetic frames at the default capacities, deploy and softmax one
@@ -119,7 +127,8 @@ Phases, each reported on its own line:
     counted, precision/recall and ms per frame;
 18. [variants] ``RadarGNNv1.deploy`` at ``GNNConfig()`` full width through
     the fused round and through the CSR round, and ``RadarGNNv2.deploy``
-    (GATv2 neck, hidden 512 over 8 heads, plain PyTorch), seeded weights
+    (GATv2 neck, hidden 512 over 8 heads, through the GATv2 kernel pair of
+    ``ops/gat_mp.py``), seeded weights
     carried to a CPU copy, on 4 [deploy] frames: decisions under the
     [deploy] rule, logits within its tolerance, launches and ms per frame;
 19. [finetune] ``train/finetune.make_finetune_step(GNNConfig())`` at batch 8
@@ -194,6 +203,7 @@ nothing of JAX.
     python3 chip_smoke.py --phase kernel-bwd-timing
     python3 chip_smoke.py --phase kernel-csr-bwd
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
+    python3 chip_smoke.py --phase kernel-gat
     python3 chip_smoke.py --phase checkpoint
     python3 chip_smoke.py --phase data-plane
     python3 chip_smoke.py --phase eval        # also variants, finetune,
@@ -205,7 +215,8 @@ nothing of JAX.
     python3 chip_smoke.py --phase deploy      # [deploy] and [deploy-csr]
 
 build the libraries a phase needs and run [sass], phase 3 (the fused
-backward), phase 5 (the CSR backward), phase 14 (the checkpoint), phase 15
+backward), phase 5 (the CSR backward), phase 5b (the GATv2 round's
+kernel pair, its two rows), phase 14 (the checkpoint), phase 15
 (the data plane) or one of phases 17-24 (21b included) alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
@@ -342,6 +353,12 @@ PARALLEL_JOIN_S = 420         # a grid's limit, from start to the last rank's ex
 # STEP_TOL (the same kernels, the partial sums added in another order).
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-6
 SWEEP_S = 420                 # [sweep]: the three sizes' limit
+# [kernel-gat]: the kernel pair against the plain path in float64, each
+# tensor's largest error within twice the plain f32 path's plus GAT_ATOL of
+# its largest element (tests/test_torch_gat_kernel.py's ATOL: both sum in
+# other orders, and a receiver of many edges amplifies its inputs' rounding).
+GAT_ATOL = 2e-5
+GAT_TRAIN_STEPS = 3           # [kernel-gat]: captured RadarGNNv2 train steps at batch 8
 
 
 def log(msg: str) -> None:
@@ -1087,6 +1104,237 @@ def time_csr_bwd(torch, C):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
     }
+
+
+def gat_round_work(nodes: int, edges: int, de: int, hc: int, heads: int,
+                   backward: bool) -> tuple:
+    """(FLOPs, bytes) of a GATv2 round's C call on live rows: the edge
+    projection's FMAs and the elementwise work once a live edge (the
+    backward: the projection recomputed, dW_e and d(ef), twice the
+    elementwise work); each input byte read and each output byte written
+    once (xl, xr, out and the statistics a live node, ef and both ids a
+    live edge, the weights)."""
+    weights = 4 * (hc * de + 3 * hc)
+    if not backward:
+        flops = edges * (2 * de * hc + 7 * hc + 5 * heads)
+        nbytes = (4 * (2 * nodes * hc + edges * de + nodes * hc + 2 * nodes * heads)
+                  + 8 * edges + weights)
+    else:
+        flops = edges * (3 * 2 * de * hc + 14 * hc + 9 * heads)
+        nbytes = (4 * (4 * nodes * hc + edges * de + 2 * nodes * heads) + 8 * edges + weights
+                  + 4 * (edges * de + 2 * nodes * hc) + weights)
+    return flops, nbytes
+
+
+def _plain_gat_round(conv, xl, xr, ef, w_e, b_e, att, bias, s, r, em):
+    """``GATv2Conv._attend`` on the node projections xl, xr and the
+    weights given (not the conv's own), so that each is a leaf."""
+    import types
+
+    import torch.nn.functional as F
+
+    from graph_neural_network_for_radar_perception_torch.models.gat import GATv2Conv
+
+    view = types.SimpleNamespace(
+        num_heads=conv.num_heads, out_channels=conv.out_channels, lin_l=lambda _: xl,
+        lin_r=lambda _: xr, lin_edge=lambda e: F.linear(e, w_e, b_e), att=att, bias=bias)
+    return GATv2Conv._attend(view, xl, ef, s, r, em)
+
+
+def phase_kernel_gat(torch, _=None):
+    """Phase 5b: the GATv2 round's kernel pair (``ops/gat_mp.gat_round``:
+    ``gat_mp_forward``, ``gat_mp_backward``) at ``gat.train``'s shapes: 8
+    ``GNNConfig()`` graphs packed as the training loader packs them, x and
+    the edge features N(0, 1), a ``GATv2Conv`` 64 -> 8 heads of 64 with
+    seeded weights and a bias that is not 0.  out and the gradients of xl,
+    xr, ef, W_e, b_e, att and bias against ``GATv2Conv._attend`` on the
+    same inputs, in f32 and in float64 on the card: each tensor's largest
+    error within twice the plain f32 path's plus GAT_ATOL of its largest
+    element (tests/test_torch_gat_kernel.py's rule); receivers without a
+    kept edge output the bias; two launches bitwise equal.  Then the
+    launches of GAT_TRAIN_STEPS captured ``RadarGNNv2`` train steps at batch
+    8 (7 a run: the capture's warm-ups and the capture), and, at B = 1
+    (graph 0) and B = 8, each C call's time (CUDA events), its device
+    kernels, the plain path's forward and backward and the bounds from the
+    live rows.  Returns the pair's table rows."""
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.models.blocks import init_parameters
+    from graph_neural_network_for_radar_perception_torch.models.gat import (
+        GAT_SLOPE,
+        GATv2Conv,
+        RadarGNNv2,
+    )
+    from graph_neural_network_for_radar_perception_torch.ops import gat_mp as GM
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+
+    cfg = GNNConfig(batch_size=BATCH, edge_capacity_factor=4 / 3)  # E_cap 10 240, as gat.train
+    batch = next(SyntheticRadarDataset(cfg, seed=0, num_objects=(2, 12))
+                 .packed_batches(BATCH))
+    dev = torch.device("cuda")
+    graph = batch.graph
+    s, r = (torch.from_numpy(np.asarray(a)).int().to(dev)
+            for a in (graph.senders, graph.receivers))
+    em = torch.from_numpy(np.asarray(graph.edge_mask)).to(dev)
+    nm = torch.from_numpy(np.asarray(graph.node_mask)).to(dev)
+    heads, hc = cfg.num_heads_gat, cfg.hidden_node_channels_gat
+    d, de = cfg.graph_convolution_stem_channels[0], cfg.edge_feat_enc_stem_channels[-1]
+    b, n = nm.shape
+    conv = GATv2Conv(d, de, hc // heads, heads)
+    init_parameters(conv, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # a bias that is not 0, so that out's shift and its gradient show
+        conv.bias.uniform_(-0.5, 0.5, generator=torch.Generator().manual_seed(1))
+    conv = conv.to(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(b, n, d, device=dev, generator=gen)
+    with torch.no_grad():
+        xl, xr = conv.lin_l(x), conv.lin_r(x)
+    ef = torch.randn(b, s.shape[1], de, device=dev, generator=gen)
+    g_out = torch.randn(b, n, hc, device=dev, generator=gen)
+    weights = (conv.lin_edge.weight, conv.lin_edge.bias, conv.att, conv.bias)
+    inputs = [t.detach() for t in (xl, xr, ef, *weights)]
+    layout = GM.gat_layout(s, r, em, n)
+    names = ("out", "xl", "xr", "ef", "W_e", "b_e", "att", "bias")
+
+    def round_of(fn, dtype, leaves_in, g):
+        leaves = [t.to(dtype).clone().requires_grad_() for t in leaves_in]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, g.to(dtype)))
+
+    kernel = lambda *t: GM.gat_round(*t, layout, GAT_SLOPE)  # noqa: E731
+    plain = lambda *t: _plain_gat_round(conv, *t, s, r, em)  # noqa: E731
+    got = round_of(kernel, torch.float32, inputs, g_out)
+    again = round_of(kernel, torch.float32, inputs, g_out)
+    f32 = round_of(plain, torch.float32, inputs, g_out)
+    ref = round_of(plain, torch.float64, inputs, g_out)
+    torch.cuda.synchronize()
+    worst, same = {}, {}
+    for name, a, c, p, want in zip(names, got, again, f32, ref):
+        scale = float(want.abs().max())
+        err = float((a.double() - want).abs().max())
+        err_plain = float((p.double() - want).abs().max())
+        worst[name] = [err, err_plain, scale]
+        same[name] = bool(torch.equal(a, c))
+        if not torch.isfinite(a).all() or err > 2 * err_plain + GAT_ATOL * scale:
+            raise AssertionError(f"[kernel-gat] {name}: kernel error {err:.3e} over twice the "
+                                 f"plain f32 path's ({err_plain:.3e}) + {GAT_ATOL} x {scale:.3e}")
+    kept = layout.order.recv_off.diff(dim=1)  # kept edges a receiver
+    empty = kept == 0
+    if not torch.equal(got[0][empty], inputs[-1].expand(b, n, hc)[empty]):
+        raise AssertionError("[kernel-gat] a receiver without a kept edge: out is not the bias")
+    live_edges = int(kept.sum())
+    live_nodes = int(nm.sum())
+    log(f"[kernel-gat] B={b} N={n} E={s.shape[1]} De={de} H*C={hc} H={heads} ({live_nodes} "
+        f"live nodes, {live_edges} kept edges, {int(empty[nm].sum())} live receivers without "
+        f"one; {GM.plan(n, s.shape[1], de, hc, heads, b, dev)}): gat_round against "
+        f"GATv2Conv._attend in float64, [kernel error, plain f32 error, largest element] "
+        f"{json.dumps(worst)}, each within 2 x plain + {GAT_ATOL} x largest; out = bias "
+        f"without a kept edge; two launches bitwise equal {json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError("[kernel-gat] the kernel pair is not deterministic")
+    del again, f32, ref
+
+    # The main path: a captured RadarGNNv2 train step (GNNConfig, batch 8).
+    state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=dev,
+                                 model_cls=RadarGNNv2)
+    step = S.make_train_step(cfg)
+    GM.gat_round.launches = GM.gat_round.backward_launches = 0
+    for _ in range(GAT_TRAIN_STEPS):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launches = (GM.gat_round.launches, GM.gat_round.backward_launches)
+    want = len(cfg.graph_convolution_stem_channels) * (S.CapturedStep.WARMUP_RUNS + 1)
+    log(f"[kernel-gat] {GAT_TRAIN_STEPS} captured RadarGNNv2 train steps at batch {b}: "
+        f"gat_mp_forward {launches[0]}, gat_mp_backward {launches[1]} (expected {want} each: "
+        f"the capture's warm-ups and the capture); loss_total {float(metrics['loss_total']):.6f}"
+        f", skipped {float(metrics['skipped'])}")
+    if launches != (want, want) or float(metrics["skipped"]) or not all(
+            bool(torch.isfinite(v)) for v in metrics.values()):
+        raise AssertionError("[kernel-gat] the v2 train step did not run the kernel pair once "
+                             "a round, or its metrics are not finite")
+    del state, step
+
+    def kernels_of(fn, count: int) -> list:
+        """The device kernels of one call of ``fn``, which launches
+        ``count``: the last ``count`` of three calls under torch.profiler,
+        which at times drops the first kernels of its window."""
+        return device_kernels(lambda: [fn() for _ in range(3)])[-count:]
+
+    def timing(graphs: int) -> dict:
+        """The C calls, the conv's route and the plain path over the first
+        ``graphs`` graphs, with their live rows' bounds."""
+        t = [a[:graphs].contiguous() for a in inputs[:3]] + inputs[3:]
+        lay = GM.gat_layout(s[:graphs], r[:graphs], em[:graphs], n)
+        g = g_out[:graphs].contiguous()
+        with torch.no_grad():
+            out, stats = GM._forward(*t, lay, GAT_SLOPE)
+
+        def fwd():
+            return GM._forward(*t, lay, GAT_SLOPE)
+
+        def bwd():
+            return GM._backward(*t, out, stats, g, lay, GAT_SLOPE)
+
+        args = (s[:graphs], r[:graphs], em[:graphs])
+        leaves = [a.clone().requires_grad_() for a in t]
+        plain_out = _plain_gat_round(conv, *leaves, *args)
+        with torch.no_grad():
+            res = {"fwd_ms": event_ms(fwd), "bwd_ms": event_ms(bwd),
+                   "route_ms": event_ms(lambda: conv._attention(
+                       x[:graphs], t[2], *args)),
+                   "plain_fwd_ms": event_ms(lambda: _plain_gat_round(conv, *t, *args))}
+        res["plain_bwd_ms"] = event_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, g, retain_graph=True))
+        res["fwd_kernels"], res["bwd_kernels"] = kernels_of(fwd, 1), kernels_of(bwd, 3)
+        edges = int(lay.order.recv_off[:, -1].sum())
+        nodes = int(nm[:graphs].sum())
+        for key, backward in (("fwd", False), ("bwd", True)):
+            flops, nbytes = gat_round_work(nodes, edges, de, hc, heads, backward)
+            res[key + "_bound"] = _bound(flops, nbytes)
+            res[key + "_work"] = [flops, nbytes]
+        res["nodes"], res["edges"] = nodes, edges
+        return res
+
+    one, eight = timing(1), timing(b)
+    for tag, res in (("B=1 (graph 0)", one), (f"B={b}", eight)):
+        log(f"[kernel-gat] timing {tag}, {res['nodes']} live nodes, {res['edges']} kept edges: "
+            f"gat_mp_forward {res['fwd_ms'] * 1e3:.2f} us (bound "
+            f"{res['fwd_bound']['b8_bound_ms'] * 1e3:.2f}, {res['fwd_bound']['b8_bound_by']}), "
+            f"gat_mp_backward {res['bwd_ms'] * 1e3:.2f} us (bound "
+            f"{res['bwd_bound']['b8_bound_ms'] * 1e3:.2f}, {res['bwd_bound']['b8_bound_by']}); "
+            f"the conv's route (node projections, layout, forward) {res['route_ms'] * 1e3:.2f} "
+            f"us; plain forward {res['plain_fwd_ms'] * 1e3:.2f} us, plain backward "
+            f"{res['plain_bwd_ms'] * 1e3:.2f} us; device kernels (us): forward "
+            + "; ".join(f"{k} {us:.2f}" for k, us in res["fwd_kernels"]) + "; backward "
+            + "; ".join(f"{k} {us:.2f}" for k, us in res["bwd_kernels"]))
+
+    def row(name, key, plain_key, errors):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "graph_neural_network_for_radar_perception_torch/csrc/gat_mp.cu",
+            "replaces": None,
+            "plain": "graph_neural_network_for_radar_perception_torch/models/gat.py "
+                     "GATv2Conv._attend",
+            "launches": launches[key == "bwd"],
+            "launches_by_path": {"train (v2, captured)": launches[key == "bwd"]},
+            "max_abs_err": {k: worst[k][0] for k in errors},
+            "ms": one[key + "_ms"],
+            "plain_ms": one[plain_key],
+            "device_kernels_us": one[key + "_kernels"],
+            "bound_ms": one[key + "_bound"]["b8_bound_ms"],
+            "bound_by": one[key + "_bound"]["b8_bound_by"],
+            "b8_ms": eight[key + "_ms"],
+            "b8_plain_ms": eight[plain_key],
+            "b8_device_kernels_us": eight[key + "_kernels"],
+            "b8_work": eight[key + "_work"],
+            **eight[key + "_bound"],
+            "library_ms": None,
+        }
+
+    fwd_row = row("gat_round", "fwd", "plain_fwd_ms", names[:1])
+    fwd_row["wrapper_ms"], fwd_row["b8_wrapper_ms"] = one["route_ms"], eight["route_ms"]
+    return fwd_row, row("gat_round_backward", "bwd", "plain_bwd_ms", names[1:])
 
 
 BATCH = 8          # graphs a launch: [batched] and the train phases' GNNConfig().batch_size
@@ -2908,14 +3156,16 @@ def phase_variants(torch, FM):
     """Phase 18: the variant models' deploy at GNNConfig() full width with
     seeded weights carried to a CPU copy: RadarGNNv1 (fused node head) with
     the fused round and with the CSR round, RadarGNNv2 (GATv2 neck: hidden
-    512 over 8 heads, plain PyTorch) on the [deploy] frames; decisions under
-    the [deploy] rule, logits within its tolerance."""
+    512 over 8 heads, through the GATv2 kernel pair) on the [deploy] frames;
+    decisions under the [deploy] rule, logits within its tolerance; each
+    path's kernel once a round."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
     from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
     from graph_neural_network_for_radar_perception_torch.data.pipeline import pad_frame, preprocess_frame
     from graph_neural_network_for_radar_perception_torch.models.gat import RadarGNNv2
     from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNNv1
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
+    from graph_neural_network_for_radar_perception_torch.ops import gat_mp as GM
 
     runs = (("v1", RadarGNNv1, GNNConfig()), ("v1-csr", RadarGNNv1, GNNConfig(mp_impl="csr")),
             ("v2", RadarGNNv2, GNNConfig()))
@@ -2934,6 +3184,7 @@ def phase_variants(torch, FM):
             torch.cuda.synchronize()
             FM.fused_message_pass.launches = 0
             C.fused_message_pass_csr.launches = 0
+            GM.gat_round.launches = 0
             outs, ms = [], []
             for g in graphs:
                 graph = RadarGraph.from_numpy(g, "cuda")
@@ -2943,7 +3194,8 @@ def phase_variants(torch, FM):
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
             launches = {"fused_mp_forward": FM.fused_message_pass.launches,
-                        "csr_mp_forward": C.fused_message_pass_csr.launches}
+                        "csr_mp_forward": C.fused_message_pass_csr.launches,
+                        "gat_mp_forward": GM.gat_round.launches}
             worst, reports = {}, []
             for i, (fr, g, out) in enumerate(zip(frames, graphs, outs)):
                 ref = cpu.deploy(RadarGraph.from_numpy(g, "cpu"))
@@ -2959,15 +3211,15 @@ def phase_variants(torch, FM):
                     _outputs_close(out, ref, {"obj_cls": slice(0, k)},
                                    f"[variants] {name} frame {i}", worst)
                 reports.append(rep)
-        want = {"v1": (rounds * len(frames), 0), "v1-csr": (0, rounds * len(frames)),
-                "v2": (0, 0)}[name]
+        once = rounds * len(frames)
+        want = {"v1": (once, 0, 0), "v1-csr": (0, once, 0), "v2": (0, 0, once)}[name]
         log(f"[variants] {name} ({cls.__name__}, mp_impl={cfg.mp_impl}) deploy on {len(frames)} "
             f"frames: launches {json.dumps(launches)} (expected {list(want)}); ms/frame median "
             f"{np.median(ms):.3f} (min {min(ms):.3f}, max {max(ms):.3f}); card vs CPU max abs "
             f"err {json.dumps(worst)} (rtol={DEPLOY_RTOL}, atol={DEPLOY_ATOL}); decisions "
             f"{json.dumps(reports)}")
-        if (launches["fused_mp_forward"], launches["csr_mp_forward"]) != want:
-            raise AssertionError(f"[variants] {name}: the message kernels ran other than "
+        if tuple(launches.values()) != want:
+            raise AssertionError(f"[variants] {name}: the round kernels ran other than "
                                  f"once per round")
         result[name] = {"launches": launches, "ms_median": float(np.median(ms))}
     return result
@@ -4208,10 +4460,11 @@ def main(argv) -> int:
               "kernel-bwd-timing": (time_fused_bwd, "fused_mp"),
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
               "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp"),
+              "kernel-gat": (phase_kernel_gat, "gat_mp"),
               "checkpoint": (phase_checkpoint, "fused_mp"),
               "data-plane": (phase_data_plane, "fused_mp"),
               "eval": (phase_eval, "fused_mp"),
-              "variants": (phase_variants, "fused_mp", "csr_mp"),
+              "variants": (phase_variants, "fused_mp", "csr_mp", "gat_mp"),
               "finetune": (phase_finetune, "fused_mp"),
               "classifier": (phase_classifier, "fused_mp"),
               "cnn": (phase_cnn, "fused_mp"),
@@ -4230,6 +4483,7 @@ def main(argv) -> int:
     from graph_neural_network_for_radar_perception_torch.ops import _build
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+    from graph_neural_network_for_radar_perception_torch.ops import gat_mp as GM
     from graph_neural_network_for_radar_perception_torch.scripts import gather_ablation as GA
     from graph_neural_network_for_radar_perception_torch.scripts import microbench_gather as MB
 
@@ -4258,7 +4512,7 @@ def main(argv) -> int:
 
     # One nvcc per source and the host compiler for the native graph
     # builder, all started together (each build is a process).
-    sources = ("fused_mp", "csr_mp", "microbench_gather")
+    sources = ("fused_mp", "csr_mp", "microbench_gather", "gat_mp")
     with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
         floor_lib = pool.submit(GA.build, "empty")
         native = pool.submit(timed_host_build)
@@ -4268,9 +4522,11 @@ def main(argv) -> int:
     FM._kernel(), FM._kernel(True), FM._bwd_kernel()
     C._kernel(), C._kernel(True), C._bwd_kernel()
     MB._kernels()
+    GM._forward_kernel(), GM._backward_kernel()
     log(f"[build] fused_mp (fused_mp_forward, fused_mp_forward_bf16, "
         f"fused_mp_backward), csr_mp (csr_mp_forward, csr_mp_forward_bf16, "
         f"csr_mp_backward), microbench_gather (gather_rows, scatter_add_rows), "
+        f"gat_mp (gat_mp_forward, gat_mp_backward), "
         f"the gather's empty variant and the native graph builder "
         f"({_build.host_compiler()}, {native_s:.1f} s of it), in parallel: "
         f"{time.perf_counter() - t0:.1f} s -> "
@@ -4281,6 +4537,7 @@ def main(argv) -> int:
     bwd_row = phase_kernel_bwd(torch, FM)
     csr_row = phase_kernel_csr(torch, C)
     csr_bwd_row = phase_kernel_csr_bwd(torch, C)
+    gat_row, gat_bwd_row = phase_kernel_gat(torch)
     batched = phase_batched(torch, FM, C)
     deploy_launches = phase_deploy(torch, FM)
     train_fwd, train_bwd, f32_metrics = phase_train(torch, FM)
@@ -4306,6 +4563,9 @@ def main(argv) -> int:
     phase_sweep(torch)
     v1_fused = variants["v1"]["launches"]["fused_mp_forward"]
     v1_csr = variants["v1-csr"]["launches"]["csr_mp_forward"]
+    v2_gat = variants["v2"]["launches"]["gat_mp_forward"]
+    gat_row["launches"] += v2_gat
+    gat_row["launches_by_path"]["variants (v2)"] = v2_gat
     fwd_row["launches"] = (deploy_launches + train_fwd + data_plane["fwd"] + evaluation["fwd"]
                            + v1_fused + finetune["fwd"])
     fwd_row["launches_by_path"] = {"deploy": deploy_launches, "train": train_fwd,
@@ -4343,7 +4603,8 @@ def main(argv) -> int:
     for row in (gather_row, scatter_row):
         row["launches_by_path"] = {"microbenchmark": row["launches"]}
     log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,
-                                csr_bf16_row, gather_row, scatter_row]}))
+                                csr_bf16_row, gather_row, scatter_row, gat_row,
+                                gat_bwd_row]}))
     log(card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

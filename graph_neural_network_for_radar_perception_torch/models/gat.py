@@ -5,8 +5,11 @@ branch (modules/neural_net/gnn/gnn_attention.py:13-123, "NOTE: not used"
 but kept as a selectable capability; gnn_detector.py:316-416
 Model_Inference_v2), written with gathers and a segment softmax
 (``ops/segment.py``) in place of torch_geometric's kernels.  The JAX
-package reaches no Pallas kernel here, so neither does the port: this is
-plain PyTorch on every device.
+package reaches no Pallas kernel here.  The port's conv takes the plain
+PyTorch path (``GATv2Conv._attend``) on the CPU, and on the card the
+kernel pair of ``ops/gat_mp.py`` (``csrc/gat_mp.cu``), which computes the
+same attention and aggregate without writing an [E, H·C] intermediate; its
+edges are sorted once a step (``gat_layout``) for all the rounds.
 
 GATv2 semantics (torch_geometric GATv2Conv with concat=True,
 negative_slope=0.2, add_self_loops=False, share_weights=False, edge_dim):
@@ -25,7 +28,8 @@ output, ``_CloseBackward`` over ``x`` and ``edge_feat``), inserted only
 then.  Counters: ``gat.rounds``, the conv forwards run while the tracer
 is on, and ``gat.alloc_bytes``, the bytes the caching allocator handed
 out during them on a card (``allocated_bytes.all.allocated`` of
-``torch.cuda.memory_stats`` across each forward).
+``torch.cuda.memory_stats`` across each forward), and ``gat.fused_rounds``,
+those of them that took the kernel pair.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import gat_mp as GM
+from ..ops.fused_mp import needs_layout
 from ..ops import segment as S
 from ..utils.profiling import TRACER
 from .blocks import Linear, MLPStack, ScalarNorm
@@ -118,10 +124,16 @@ class GATv2Conv(nn.Module):
             self.att.uniform_(-bound, bound, generator=generator)
             self.bias.zero_()
 
-    def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask):
+    def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
+                layout=None):
+        """``layout``: the edges' ``ops.gat_mp.gat_layout``, made once for
+        the graph's rounds, or None to make it here (on the card; the plain
+        path takes none)."""
         if not TRACER.enabled:
-            return self._attend(x, edge_feat, senders, receivers, edge_mask)
+            return self._attention(x, edge_feat, senders, receivers, edge_mask, layout)
         TRACER.count("gat.rounds")
+        if needs_layout(x):
+            TRACER.count("gat.fused_rounds")
         before = _allocated(x.device)
         span = None
         if (TRACER.graph_marking and torch.is_grad_enabled()
@@ -129,11 +141,23 @@ class GATv2Conv(nn.Module):
             span = _BackwardSpan()
             x, edge_feat = _CloseBackward.apply(x, edge_feat, span)
         with TRACER.graph_span("gat.forward"):
-            out = self._attend(x, edge_feat, senders, receivers, edge_mask)
+            out = self._attention(x, edge_feat, senders, receivers, edge_mask, layout)
         if span is not None:
             out = _OpenBackward.apply(out, span)
         TRACER.count("gat.alloc_bytes", _allocated(x.device) - before)
         return out
+
+    def _attention(self, x, edge_feat, senders, receivers, edge_mask, layout=None):
+        """The round: the plain path (``_attend``) on the CPU, the kernel
+        pair wherever the rounds run kernels (``fused_mp.needs_layout``;
+        ``gat_round`` has them for the card)."""
+        if not needs_layout(x):
+            return self._attend(x, edge_feat, senders, receivers, edge_mask)
+        if layout is None:
+            layout = GM.gat_layout(senders, receivers, edge_mask, x.shape[-2])
+        return GM.gat_round(self.lin_l(x), self.lin_r(x), edge_feat,
+                            self.lin_edge.weight, self.lin_edge.bias, self.att,
+                            self.bias, layout, GAT_SLOPE)
 
     def _attend(self, x, edge_feat, senders, receivers, edge_mask):
         """The attention and the aggregate (the node mask plays no part:
@@ -175,12 +199,13 @@ class ResidualGraphAttnBlock(nn.Module):
                                 mlp_stem_channels_upd, activation, None)
 
     def forward(self, x, edge_feat, senders, receivers, node_mask, edge_mask,
-                extra_features=None):
+                extra_features=None, layout=None):
         if self.identity is not None:
             identity = self.identity_norm(self.identity(x), node_mask)
         else:
             identity = x
-        agg = self.gat(x, edge_feat, senders, receivers, node_mask, edge_mask)
+        agg = self.gat(x, edge_feat, senders, receivers, node_mask, edge_mask,
+                       layout=layout)
         parts = [x, agg] if extra_features is None else [x, extra_features, agg]
         return identity + self.upd_mlp(torch.cat(parts, dim=-1))
 
@@ -214,9 +239,12 @@ class GraphAttention(nn.Module):
                              "mp_impl='csr' and mp_bf16 do not apply")
         if graph_group is not None:
             raise ValueError("the GAT neck has no graph axis")
+        layout = None
+        if needs_layout(x):  # the edges by receiver and by sender, once for every round
+            layout = GM.gat_layout(senders, receivers, edge_mask, x.shape[-2])
         for blk in self.blocks:
             x = blk(x, edge_feat, senders, receivers, node_mask, edge_mask,
-                    extra_features)
+                    extra_features, layout)
         return x
 
 
