@@ -1153,11 +1153,12 @@ def phase_kernel_gat(torch, _=None):
     element (tests/test_torch_gat_kernel.py's rule); receivers without a
     kept edge output the bias; two launches bitwise equal.  Then the
     launches of GAT_TRAIN_STEPS captured ``RadarGNNv2`` train steps at batch
-    8 (7 a run: the capture's warm-ups and the capture), and, at B = 1
+    8 (7 a run: each of the capture's warm-ups and each replay), and, at B = 1
     (graph 0) and B = 8, each C call's time (CUDA events), its device
     kernels, the plain path's forward and backward and the bounds from the
     live rows.  Returns the pair's table rows."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
     from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
     from graph_neural_network_for_radar_perception_torch.models.blocks import init_parameters
     from graph_neural_network_for_radar_perception_torch.models.gat import (
@@ -1243,10 +1244,12 @@ def phase_kernel_gat(torch, _=None):
         state, metrics = step(state, batch)
     torch.cuda.synchronize()
     launches = (GM.gat_round.launches, GM.gat_round.backward_launches)
-    want = len(cfg.graph_convolution_stem_channels) * (S.CapturedStep.WARMUP_RUNS + 1)
+    want = len(cfg.graph_convolution_stem_channels) * (CP.CapturedStep.WARMUP_RUNS
+                                                       + GAT_TRAIN_STEPS)
     log(f"[kernel-gat] {GAT_TRAIN_STEPS} captured RadarGNNv2 train steps at batch {b}: "
         f"gat_mp_forward {launches[0]}, gat_mp_backward {launches[1]} (expected {want} each: "
-        f"the capture's warm-ups and the capture); loss_total {float(metrics['loss_total']):.6f}"
+        f"one a round in each of the capture's warm-ups and each replay); loss_total "
+        f"{float(metrics['loss_total']):.6f}"
         f", skipped {float(metrics['skipped'])}")
     if launches != (want, want) or float(metrics["skipped"]) or not all(
             bool(torch.isfinite(v)) for v in metrics.values()):
@@ -1802,11 +1805,7 @@ def step_runs(step) -> int:
 def per_replay(step) -> dict:
     """The launches a replay of each of the step's CUDA graphs adds, by
     counter (what the capture recorded)."""
-    from graph_neural_network_for_radar_perception_torch.train import steps as S
-
-    names = [f"{f.__name__}.{a}" for f, a in S.launch_counters()]
-    return [{n: d for n, d in zip(names, e.launches) if d}
-            for e in step.captured.graphs.values()]
+    return [{n: d for n, d in e.launches.items() if d} for e in step.captured.graphs.values()]
 
 
 def check_captured(torch, cfg, batches, state, metrics, tag: str, close,
@@ -2604,6 +2603,7 @@ def phase_checkpoint(torch, FM):
     import shutil
 
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
     from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
     from graph_neural_network_for_radar_perception_torch.train import steps as S
     from graph_neural_network_for_radar_perception_torch.train.trainer import TrainHooks, train
@@ -2638,7 +2638,7 @@ def phase_checkpoint(torch, FM):
         resumed = _train_snapshot(torch, run(resumed, batches[2:], 2, 4))
         again = _train_snapshot(torch, run(fresh(0), batches, 0, 4))
         launches = FM.fused_message_pass.launches
-        want = rounds * (12 + 4 * S.CapturedStep.WARMUP_RUNS)  # 4 train() calls, 12 steps
+        want = rounds * (12 + 4 * CP.CapturedStep.WARMUP_RUNS)  # 4 train() calls, 12 steps
     finally:
         torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
         shutil.rmtree(directory, ignore_errors=True)
@@ -2648,7 +2648,7 @@ def phase_checkpoint(torch, FM):
         f"uninterrupted: {err:.3e} (at {at}) over {len(whole)} params/optimiser tensors and "
         f"the counters; 4 steps twice: {repeat:.3e} (at {repeat_at}); fused_message_pass "
         f"launches {launches} (expected {rounds} x (12 replays + 4 captures x "
-        f"{S.CapturedStep.WARMUP_RUNS} warm-up runs) = {want}: one a round a step for the "
+        f"{CP.CapturedStep.WARMUP_RUNS} warm-up runs) = {want}: one a round a step for the "
         f"batch of {bsz})")
     if saved != [2] or restore_err != 0.0 or launches != want:
         raise AssertionError("the checkpoint hook did not save or restore the state")
@@ -2763,6 +2763,7 @@ def phase_data_plane(torch, FM):
     import itertools
 
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
     from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
     from graph_neural_network_for_radar_perception_torch.data import bucketing as B
     from graph_neural_network_for_radar_perception_torch.data import native as NAT
@@ -2885,12 +2886,12 @@ def phase_data_plane(torch, FM):
     tb_fwd, tb_bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
     reached = sorted({(r[0].max_nodes, r[0].batch_size) for r in records})
     # One captured step a bucket reached (its warm-up runs), a replay a step.
-    want = rounds * (BUCKETED_STEPS + len(reached) * S.CapturedStep.WARMUP_RUNS)
+    want = rounds * (BUCKETED_STEPS + len(reached) * CP.CapturedStep.WARMUP_RUNS)
     log(f"[data-plane] train_bucketed {BUCKETED_STEPS} steps on the card ({wall:.2f} s incl. "
         f"captures): buckets (max_nodes, batch) {[(r[0].max_nodes, r[0].batch_size) for r in records]} "
         f"of {[(b.max_nodes, b.batch_size) for b in buckets]}; launches forward={tb_fwd} "
         f"backward={tb_bwd} (expected {rounds} x ({BUCKETED_STEPS} replays + {len(reached)} "
-        f"captures x {S.CapturedStep.WARMUP_RUNS} warm-up runs) = {want}: one a round a "
+        f"captures x {CP.CapturedStep.WARMUP_RUNS} warm-up runs) = {want}: one a round a "
         f"step, whatever the bucket's batch); skipped={[r[3]['skipped'] for r in records]}")
     if (len(records) != BUCKETED_STEPS or len(reached) < 2 or tb_fwd != want
             or tb_bwd != want or any(r[3]["skipped"] for r in records)):
@@ -2922,7 +2923,7 @@ def phase_data_plane(torch, FM):
         torch.cuda.synchronize()
         worker_cuda = loader.workers_initialised_cuda()
     mp_fwd, mp_bwd = FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches
-    want = rounds * (LOADER_STEPS + S.CapturedStep.WARMUP_RUNS)  # train()'s own step
+    want = rounds * (LOADER_STEPS + CP.CapturedStep.WARMUP_RUNS)  # train()'s own step
     log(f"[data-plane] MultiprocessBatches (2 forked workers) -> device_prefetch -> train, "
         f"{LOADER_STEPS} steps ({time.perf_counter() - t0:.2f} s): launches forward={mp_fwd} "
         f"backward={mp_bwd} (expected {want}); CUDA initialised in the workers: {worker_cuda}")
@@ -3264,8 +3265,9 @@ def phase_finetune(torch, FM):
     from graph_neural_network_for_radar_perception_torch.models import gnn as GN
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.train import finetune as FT
+    from graph_neural_network_for_radar_perception_torch.core.capture import CapturedStep
     from graph_neural_network_for_radar_perception_torch.train.steps import (
-        CapturedStep, TrainState, batch_on, batched_deploy)
+        TrainState, batch_on, batched_deploy)
 
     cfg = GNNConfig()
     rounds, bsz = len(cfg.graph_convolution_stem_channels), cfg.batch_size
@@ -3671,6 +3673,7 @@ def phase_eval_step(torch, FM):
     bit for bit (else within METRIC_*); the weights' change seen; one host
     launch a validation batch; ms a validation batch, captured and eager."""
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
     from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.train import steps as S
@@ -3712,10 +3715,10 @@ def phase_eval_step(torch, FM):
         ev, cap = made[0], made[0].captured
         replays = EVAL_STEP_TRAIN * EVAL_STEP_VAL
         key = "csr_mp_forward" if mp_impl else "fused_mp_forward"
-        want = rounds * (S.CapturedStep.WARMUP_RUNS + EVAL_STEP_TRAIN) + rounds * (
-            S.CapturedGraphs.WARMUP_RUNS + replays)
+        want = rounds * (CP.CapturedStep.WARMUP_RUNS + EVAL_STEP_TRAIN) + rounds * (
+            CP.CapturedGraphs.WARMUP_RUNS + replays)
         if (len(cap.graphs) != 1 or cap.replays != replays
-                or cap.warmups != S.CapturedGraphs.WARMUP_RUNS or launches[key] != want):
+                or cap.warmups != CP.CapturedGraphs.WARMUP_RUNS or launches[key] != want):
             raise AssertionError(f"{tag} the eval step ran other than one capture and "
                                  f"{replays} replays ({key} launches {launches[key]}, "
                                  f"expected {want})")
@@ -3768,9 +3771,9 @@ def phase_eval_step(torch, FM):
         log(f"{tag} trainer.train(GNNConfig({'' if mp_impl is None else 'mp_impl=csr'})) batch "
             f"{bsz}, {EVAL_STEP_TRAIN} steps, a validation of {EVAL_STEP_VAL} batches after each: "
             f"the eval step one capture ({cap.warmups} warm-up runs), {n_replays} replays; "
-            f"{key} launches {launches[key]} (expected {rounds} x ({S.CapturedStep.WARMUP_RUNS} "
+            f"{key} launches {launches[key]} (expected {rounds} x ({CP.CapturedStep.WARMUP_RUNS} "
             f"+ {EVAL_STEP_TRAIN}) for the train step + {rounds} x "
-            f"({S.CapturedGraphs.WARMUP_RUNS} + {replays}) for the eval step = {want}), "
+            f"({CP.CapturedGraphs.WARMUP_RUNS} + {replays}) for the eval step = {want}), "
             f"{rounds} a replay; the trainer's last validation means vs the eager body on the "
             f"final weights: {means_case} (max abs err {means_err:.3e}), loss_total moved "
             f"between the validations {moved} ({written[0][1]['loss_total']!r} -> "
@@ -3897,6 +3900,7 @@ def phase_parallel(torch, FM):
     import dataclasses
 
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
     from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
     from graph_neural_network_for_radar_perception_torch.models.gnn import RadarGNN
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
@@ -3974,7 +3978,7 @@ def phase_parallel(torch, FM):
                 for k in totals:
                     totals[k] += got[k]
                 if x["backend"] != backend or x["warmups"] != (
-                        S.CapturedStep.WARMUP_RUNS if captured else 0) or any(
+                        CP.CapturedStep.WARMUP_RUNS if captured else 0) or any(
                         rec["captured"] != captured
                         or rec["host_launches"] != (1 if captured else None)
                         for rec in x["records"]):
@@ -4138,8 +4142,8 @@ def phase_examples(torch, FM):
     import tempfile
 
     from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
-    from graph_neural_network_for_radar_perception_torch.train import steps as S
 
     def entry(name):
         return importlib.import_module(f"graph_neural_network_for_radar_perception_torch.{name}")
@@ -4150,12 +4154,12 @@ def phase_examples(torch, FM):
     def trained(steps):
         """Round launches of ``steps`` train steps through one captured step
         (its warm-up runs and a replay a step), whatever the batch."""
-        return rounds * (steps + S.CapturedStep.WARMUP_RUNS)
+        return rounds * (steps + CP.CapturedStep.WARMUP_RUNS)
 
     def detected(frames):
         """Round launches of ``frames`` frames through one captured detector
         (its capture's warm-up runs and a replay a frame)."""
-        return rounds * (frames + S.CapturedGraphs.WARMUP_RUNS)
+        return rounds * (frames + CP.CapturedGraphs.WARMUP_RUNS)
 
     def run(label, call, fwd, bwd):
         """``call()`` on the card with stdout to stderr; ``fwd``/``bwd``:

@@ -178,3 +178,17 @@ class GraphBatch:
             graph=self.graph.at(i),
             labels=None if self.labels is None else self.labels.at(i),
         )
+
+    def leaves(self) -> list:
+        """The arrays of the batch (numpy or tensors), the graph's fields
+        then the labels', in declaration order: a captured step's inputs."""
+        return ([getattr(self.graph, f) for f in RadarGraph.__dataclass_fields__]
+                + [getattr(self.labels, f) for f in GraphLabels.__dataclass_fields__])
+
+    @classmethod
+    def from_leaves(cls, inputs: list) -> "GraphBatch":
+        """The batch whose fields are ``inputs``, in ``leaves`` order."""
+        names = list(RadarGraph.__dataclass_fields__)
+        return cls(
+            RadarGraph(**dict(zip(names, inputs[:len(names)]))),
+            GraphLabels(**dict(zip(GraphLabels.__dataclass_fields__, inputs[len(names):]))))

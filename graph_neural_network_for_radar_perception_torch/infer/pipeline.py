@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from ..config.config import GNNConfig
+from ..core.capture import CapturedGraphs, shape_key
 from ..core.graph import RadarGraph, resolve_device
 from ..data.labels import ID_FALSE
 from ..data.pipeline import FrameArrays, pad_frame, preprocess_frame
 from ..models.gnn import RadarGNN
-from ..train.steps import CapturedGraphs, shape_key
 from .proposals import compute_proposals
 
 
@@ -69,7 +69,7 @@ class FrameDetector:
     per (frame shapes, eps, from_links, mp_impl) — the JAX package jits
     them into one program (``_run``): each frame's padded arrays are copied
     into the graph's static ``RadarGraph`` buffers and the graph replayed
-    (``train/steps.CapturedGraphs``: two warm-up runs, the second under
+    (``core/capture.CapturedGraphs``: two warm-up runs, the second under
     sync debug "error", then the capture; a failed capture raises).  The
     decode and ``compute_proposals`` run after it, as JAX runs them
     outside its jit.  On the CPU the forward runs eagerly."""

@@ -21,9 +21,9 @@ shared, gathers, segment sums and the max-pool stay per sample
 (``ops/segment.py``).  The train step is one model call for the batch,
 optax's chain(add_decayed_weights, sgd) on flat buffers
 (``train/steps.Optimizer``) and the branchless NaN skip
-(``train/steps.update_if_finite``); on a CUDA device it is captured as one
+(``train/steps.apply_update``); on a CUDA device it is captured as one
 CUDA graph per state and batch shape and replayed
-(``train/steps.CapturedStep``), on the CPU it runs eagerly.
+(``core/capture.CapturedStep``), on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -36,10 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.capture import CapturedStep
 from ..core.graph import resolve_device
 from ..ops import segment as S
 from ..train.loss import one_hot, sigmoid_focal_loss
-from ..train.steps import CapturedStep, Optimizer, TrainState, update_if_finite
+from ..train.steps import Optimizer, TrainState, apply_update, step_metrics
 from .blocks import Linear, MLPStack, ScalarNorm, TaskSpecificHead, init_parameters
 
 SEED = 1234  # GNNConfig.seed's default
@@ -279,9 +280,9 @@ def make_classifier_train_step(ccfg: ClassifierConfig
 
     def body(state: TrainState, batch: ClassifierSample) -> Dict[str, torch.Tensor]:
         loss, acc = loss_fn(state.model, batch)
-        ok = update_if_finite(state, loss)
-        return {"loss_obj_cls": loss.detach(), "object_accuracy": acc.detach(),
-                "skipped": (~ok).to(torch.float32)}
+        grads = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
+        ok = apply_update(state, loss, grads)
+        return step_metrics({"loss_obj_cls": loss, "object_accuracy": acc}, ok)
 
     captured = CapturedStep(body, leaves=list, rebuild=lambda inputs: ClassifierSample(*inputs))
 

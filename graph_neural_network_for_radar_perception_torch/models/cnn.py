@@ -30,9 +30,9 @@ False``, cuDNN's default is on) for f32 results.
 
 The train step is the JAX package's jitted one: optax's
 chain(add_decayed_weights, sgd) on flat buffers (``train/steps.Optimizer``)
-and the branchless NaN skip (``train/steps.update_if_finite``); on a CUDA
+and the branchless NaN skip (``train/steps.apply_update``); on a CUDA
 device it is captured as one CUDA graph per state and batch shape and
-replayed (``train/steps.CapturedStep``), on the CPU it runs eagerly.
+replayed (``core/capture.CapturedStep``), on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -45,9 +45,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.capture import CapturedStep
 from ..core.graph import device_constant, resolve_device
 from ..data.labels import INVALID_NUM
-from ..train.steps import CapturedStep, Optimizer, TrainState, update_if_finite
+from ..train.steps import Optimizer, TrainState, apply_update, step_metrics
 from .blocks import CLS_BIAS, HEAD_STD, Linear, activation_fn
 
 _NUM_GROUPS = 16  # constants.py:11
@@ -405,10 +406,8 @@ def make_grid_train_step(cfg: CNNConfig) -> Tuple[Callable, Callable, Callable]:
 
     def body(state: TrainState, arrays) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(state.model, *arrays)
-        ok = update_if_finite(state, loss)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = (~ok).to(torch.float32)
-        return metrics
+        grads = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
+        return step_metrics(metrics, apply_update(state, loss, grads))
 
     captured = CapturedStep(body, leaves=list, rebuild=list)
 

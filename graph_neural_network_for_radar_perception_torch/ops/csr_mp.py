@@ -64,6 +64,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.capture import count_launches
 from ..core.graph import device_constant
 from ..utils.profiling import TRACER
 from ._build import load
@@ -668,3 +669,6 @@ def fused_message_pass_csr(
 fused_message_pass_csr.launches = 0
 fused_message_pass_csr.launches_bf16 = 0
 fused_message_pass_csr_backward.launches = 0
+# A replay of a captured graph advances them by what its capture launched.
+count_launches((fused_message_pass_csr, "launches"), (fused_message_pass_csr, "launches_bf16"),
+               (fused_message_pass_csr_backward, "launches"))

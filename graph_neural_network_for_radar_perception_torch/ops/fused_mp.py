@@ -55,6 +55,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..core.capture import count_launches
 from ..utils.profiling import TRACER
 from ._build import load
 from .norms import EPS, channel_norm
@@ -621,3 +622,6 @@ def fused_message_pass(
 fused_message_pass.launches = 0
 fused_message_pass.launches_bf16 = 0
 fused_message_pass_backward.launches = 0
+# A replay of a captured graph advances them by what its capture launched.
+count_launches((fused_message_pass, "launches"), (fused_message_pass, "launches_bf16"),
+               (fused_message_pass_backward, "launches"))

@@ -36,8 +36,10 @@ forward and backward.  Every collective of ``parallel/`` is counted in
 it, and over all kinds the calls and the host seconds spent in them (under
 gloo with CUDA tensors that includes the wait for the card's earlier work,
 since the tensor is staged through the host).  A replayed CUDA graph adds
-the calls and bytes its capture recorded (``train/steps.CapturedGraphs``),
-not seconds: a replay spends no host time in any one collective.
+the calls and bytes its capture recorded (``core/capture``, where
+``STATS``' calls and bytes are registered), not seconds: a replay spends
+no host time in any one collective; the tracer's ``collectives`` watch
+reports ``STATS``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..core.capture import register_counters
+from ..utils.profiling import TRACER
 
 KINDS = ("all_reduce", "ppermute", "all_gather", "reduce_scatter")
 STATS = {"calls": 0, "seconds": 0.0, **{k: {"calls": 0, "bytes": 0} for k in KINDS}}
@@ -68,6 +73,12 @@ def add_counts(deltas: Sequence[int]) -> None:
     STATS["calls"] += deltas[0]
     for i, (k, f) in enumerate((k, f) for k in KINDS for f in ("calls", "bytes")):
         STATS[k][f] += deltas[1 + i]
+
+
+register_counters(["collectives.calls"] + [f"collectives.{k}.{f}" for k in KINDS
+                                          for f in ("calls", "bytes")], counts, add_counts)
+TRACER.watch("collectives", lambda: {k: (dict(v) if isinstance(v, dict) else v)
+                                     for k, v in STATS.items()})
 
 
 def _counted(kind: str, nbytes: int, t0: float) -> None:

@@ -47,7 +47,6 @@ from ..models.blocks import uses_fused_kernel
 from ..models.gnn import GNNOutputs
 from ..ops import segment as S
 from ..train.loss import LossSums, graph_loss_sums
-from ..train.steps import _batch_leaves, _static_batch
 from . import collectives as P
 from .mesh import ProcessMesh
 from .sharded import make_grid_step
@@ -292,6 +291,6 @@ def make_halo_train_step(cfg: GNNConfig, mesh: ProcessMesh, halo: int) -> Callab
     fields = [f.name for f in dataclasses.fields(HaloShards)]
     return make_grid_step(
         cfg, mesh, graph_sums, LossSums._fields,
-        leaves=lambda args: _batch_leaves(args[0]) + [getattr(args[1], f) for f in fields],
-        rebuild=lambda inputs: (_static_batch(inputs[:-len(fields)]),
+        leaves=lambda args: GraphBatch.leaves(args[0]) + [getattr(args[1], f) for f in fields],
+        rebuild=lambda inputs: (GraphBatch.from_leaves(inputs[:-len(fields)]),
                                 HaloShards(*inputs[-len(fields):])))

@@ -33,13 +33,13 @@ sums are psummed over ('data', 'graph') and the node and cluster sums over
    runs the same graph of operations, so autograd runs the rounds'
    collectives in one order on every rank;
 4. every parameter gradient all-reduced over all ranks (one flat buffer),
-   then ``train/steps.py``'s update with its branchless NaN skip
+   then ``train/steps.apply_update`` with its branchless NaN skip
    (``all_finite``/``apply_if``) on the reduced gradient and the global
    loss: every rank skips or steps together and the parameters stay equal
    bit for bit.
 
 On a CUDA device where the world group and every group of the grid are
-NCCL, steps 1-4 are one CUDA graph (``train/steps.CapturedStep``, as the
+NCCL, steps 1-4 are one CUDA graph (``core/capture.CapturedStep``, as the
 JAX package's step is one compiled program): captured once per state, per
 binding of the state's tensors and per shape of the rank's arguments, then
 replayed, one host launch a step.  NCCL's collectives join the capture
@@ -59,17 +59,15 @@ import torch
 import torch.distributed as dist
 
 from ..config.config import GNNConfig
+from ..core.capture import CapturedStep
 from ..core.graph import GraphBatch
 from ..train.loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 from ..train.steps import (
-    CapturedStep,
     TrainState,
-    _apply_update,
-    _batch_leaves,
-    _static_batch,
-    all_finite,
+    apply_update,
     batch_on,
     batched_forward,
+    step_metrics,
 )
 from . import collectives as P
 from .mesh import BatchSharding, ProcessMesh
@@ -118,22 +116,13 @@ def make_grid_step(cfg: GNNConfig, mesh: ProcessMesh,
         return loss, metrics, surrogate
 
     def body(state: TrainState, args: tuple) -> Dict[str, torch.Tensor]:
-        params = state.optimizer.params
         loss, metrics, surrogate = loss_fn(state.model, *args)
-        grads = torch.autograd.grad(surrogate, params, allow_unused=True)
-        with torch.no_grad():
-            flat = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
-                              for g, p in zip(grads, params)])
-            P.all_reduce_(flat)
-            ok = all_finite([loss, flat])
-            _apply_update(state, flat, cfg, ok)
-            state.counters[0].add_(1)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = (~ok).to(torch.float32)
-        return metrics
+        grads = torch.autograd.grad(surrogate, state.optimizer.params, allow_unused=True)
+        ok = apply_update(state, loss, grads, cfg, reduce=P.all_reduce_)
+        return step_metrics(metrics, ok)
 
-    captured = CapturedStep(body, leaves or (lambda args: _batch_leaves(args[0])),
-                            rebuild or (lambda inputs: (_static_batch(inputs),)))
+    captured = CapturedStep(body, leaves or (lambda args: GraphBatch.leaves(args[0])),
+                            rebuild or (lambda inputs: (GraphBatch.from_leaves(inputs),)))
     capture = captures(mesh)
 
     def train_step(state: TrainState, *args) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

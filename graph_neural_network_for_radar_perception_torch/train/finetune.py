@@ -14,9 +14,9 @@ one kernel launch for the B graphs), the majority vote and the
 cross-entropy with the graph axis, the per-graph sums added in graph
 order; optax's chain(add_decayed_weights(wd_ft), sgd(lr_ft, momentum)) on
 the object head's flat parameters (``steps.Optimizer``) and the
-branchless NaN skip (``steps.update_if_finite``).  On a CUDA device the
+branchless NaN skip (``steps.apply_update``).  On a CUDA device the
 step is captured as one CUDA graph per state and batch shape and replayed
-(``steps.CapturedStep``); on the CPU it runs eagerly.
+(``core/capture.CapturedStep``); on the CPU it runs eagerly.
 
 Freezing lives in the optimiser, as optax's ``multi_transform`` with
 ``set_to_zero`` does: every parameter keeps ``requires_grad``, the step
@@ -36,17 +36,18 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..config.config import GNNConfig
+from ..core.capture import CapturedStep
 from ..core.graph import GraphBatch
 from ..models.gnn import RadarGNN
 from ..ops import segment as S
 from .loss import cross_entropy, one_hot
 from .steps import (
-    CapturedStep,
     Optimizer,
     TrainState,
+    apply_update,
     batch_on,
     batched_deploy,
-    update_if_finite,
+    step_metrics,
 )
 
 TRAINED = "predict_class"
@@ -102,13 +103,13 @@ def make_finetune_step(cfg: GNNConfig) -> Tuple[Callable, Callable]:
         return loss, {"loss_obj_cls": loss, "object_accuracy": corr / cnt}
 
     def body(state: TrainState, batch: GraphBatch) -> Dict[str, torch.Tensor]:
-        head = {id(p) for p in state.optimizer.params}
+        params = state.optimizer.params
+        head = {id(p) for p in params}
         frozen = [p for p in state.model.parameters() if id(p) not in head]
         loss, metrics = loss_fn(state.model, batch)
-        ok = update_if_finite(state, loss, frozen)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = (~ok).to(torch.float32)
-        return metrics
+        grads = torch.autograd.grad(loss, [*params, *frozen], allow_unused=True)
+        ok = apply_update(state, loss, grads[:len(params)], frozen=grads[len(params):])
+        return step_metrics(metrics, ok)
 
     def build(model: RadarGNN):
         optimizer = make_finetune_optimizer(cfg, model)

@@ -12,14 +12,15 @@ the device: the learning rate is a 0-d tensor computed from the count of
 applied updates, and a batch with a non-finite loss or gradient is skipped
 without a branch (``all_finite``, ``apply_if``): the parameters, the
 optimiser's moments, the accumulation buffer and the counts stay as they
-were (reference training.py:40-45).
+were (reference training.py:40-45).  ``apply_update`` is that update for
+every train step of the port.
 
 On a CUDA device ``make_train_step`` captures the step as one CUDA graph
-per state and batch shape (the counterpart of ``jax.jit``) and replays it:
-one host launch a step, no device→host sync inside.  ``make_train_scan``
-replays it once per batch, as ``lax.scan`` repeats its body;
-``make_eval_step`` captures the eval step per model and batch shape.  On
-the CPU the same code runs eagerly.
+per state and batch shape (``core/capture.CapturedStep``, the counterpart
+of ``jax.jit``) and replays it: one host launch a step, no device→host
+sync inside.  ``make_train_scan`` replays it once per batch, as
+``lax.scan`` repeats its body; ``make_eval_step`` captures the eval step
+per model and batch shape.  On the CPU the same code runs eagerly.
 
 The port updates in place: the optimiser keeps the parameters in one flat
 buffer (each parameter a view of it) with its moments and the accumulation
@@ -30,18 +31,15 @@ step returns the same ``TrainState`` object it was given.
 from __future__ import annotations
 
 import dataclasses
-import weakref
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config.config import GNNConfig
-from ..core.graph import GraphBatch, GraphLabels, RadarGraph, resolve_device
+from ..core.capture import CapturedGraphs, CapturedStep, shape_key
+from ..core.graph import GraphBatch, RadarGraph, resolve_device
 from ..models.gnn import RadarGNN
-from ..ops import csr_mp as C
-from ..ops import fused_mp as FM
-from ..parallel import collectives as P
 from ..utils.profiling import TRACER
 from .loss import LossSums, graph_loss_sums, reduce_loss_sums, tree_sum
 
@@ -271,7 +269,7 @@ def make_optimizer(cfg: GNNConfig, params) -> Optimizer:
     first value is the gradient) — optax's chain(add_decayed_weights, sgd) —
     or AdamW with optax.adamw's defaults (set_param_for_training_gnn.py:
     46-56).  The learning rate comes from ``lr_schedule`` at every update
-    (``_apply_update``); ``param_groups[0]["lr"]`` is the first one."""
+    (``apply_update``); ``param_groups[0]["lr"]`` is the first one."""
     lr = lr_schedule(cfg)(0)
     if cfg.optim == "adamw":
         return Optimizer(params, "adamw", lr, cfg.weight_decay)
@@ -379,66 +377,70 @@ def apply_if(ok: torch.Tensor, new: Sequence[torch.Tensor],
     return [torch.where(ok, n, o) for n, o in zip(new, old)]
 
 
-def _apply_update(state: TrainState, grad, cfg: GNNConfig,
-                  ok: Optional[torch.Tensor] = None) -> None:
-    """Apply (or, between accumulation boundaries, accumulate) one gradient
-    — flat, or one a parameter — as optax.MultiSteps(tx, k) does, if ``ok``
-    (0-d bool; default: always), with no branch and no host sync: every
-    write is a select on ``ok``, so a skipped batch leaves the parameters,
-    the moments, the accumulation buffer and the counts as they were."""
+def apply_update(state: TrainState, loss: torch.Tensor,
+                 grads: Sequence[Optional[torch.Tensor]], cfg: Optional[GNNConfig] = None,
+                 frozen: Sequence[Optional[torch.Tensor]] = (),
+                 reduce: Optional[Callable[[torch.Tensor], Any]] = None) -> torch.Tensor:
+    """The update after the loss, one route for every train step of the
+    port (the default and grid steps, finetuning, the classifier and the
+    grid CNN), with no branch and no host sync.
+
+    ``grads`` holds one gradient a parameter of the optimiser, None where
+    the loss does not reach one: that parameter gets a zero gradient, so
+    that weight decay and momentum still apply to it, as in optax.
+    ``reduce``, if given, runs in place on the flat gradient first (the
+    grid steps' all-reduce).  The update applies only where the loss, the
+    flat gradient and the gradients in ``frozen`` are all finite
+    (``all_finite``): ``frozen`` is checked and never applied, as optax's
+    ``set_to_zero`` zeroes finetuning's frozen trunk after ``all_finite``
+    saw the whole tree.  With ``cfg`` the rate is ``lr_schedule(cfg)`` on
+    the count of applied updates and ``cfg.grad_accumulation_steps``
+    gradients make one update (optax.MultiSteps' running mean); without it
+    the rate is the optimiser's constant ``param_groups[0]["lr"]`` and
+    every step updates.  Every write is a select on the check
+    (``Optimizer.commit``), so a skipped batch leaves the parameters, the
+    moments, the accumulation buffer and the update count as they were.
+    Counts the step and, if taken, the update.  Returns ok, a 0-d bool
+    device tensor."""
     opt = state.optimizer
     opt.bind()
-    if not torch.is_tensor(grad):
-        grad = torch.cat([g.reshape(-1) for g in grad])
-    counts = state.counters
-    if ok is None:
-        ok = torch.ones((), dtype=torch.bool, device=counts.device)
-    take = ok
-    k = cfg.grad_accumulation_steps
-    if k > 1:
-        if state.acc is None:
-            state.acc = torch.zeros_like(opt.flat)
-        n = counts[2]
-        acc = state.acc + (grad - state.acc) / (n + 1)  # optax's running mean
-        emit = n == k - 1
-        state.acc.copy_(torch.where(ok, torch.where(emit, 0.0, acc), state.acc))
-        counts[2].copy_(torch.where(ok, (n + 1) % k, n))
-        grad, take = acc, ok & emit
-    count = counts[1]
-    opt.commit(take, *opt.propose(grad, lr_schedule(cfg)(count), count))
-    count.add_(take.to(count.dtype))
-
-
-def update_if_finite(state: TrainState, loss: torch.Tensor,
-                     frozen: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """The JAX finetuning, classifier and grid-CNN steps' update after the
-    loss: the gradient of ``loss`` with respect to the optimiser's
-    parameters (zero where none reaches one) and, for the finiteness check
-    only, with respect to ``frozen`` (optax's ``set_to_zero`` zeroes their
-    update after ``all_finite`` saw the whole tree); then optax's update
-    at the constant rate ``param_groups[0]["lr"]`` where the loss and every
-    gradient are finite, else nothing changes (``all_finite``,
-    ``Optimizer.commit``): no branch, no host sync.  Counts the step and,
-    if taken, the update.  Returns ok, a 0-d bool device tensor."""
-    opt = state.optimizer
-    opt.bind()
-    params = opt.params
-    grads = torch.autograd.grad(loss, [*params, *frozen], allow_unused=True)
     with torch.no_grad():
         grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
-                          for g, p in zip(grads, params)])
+                          for g, p in zip(grads, opt.params)])
+        if reduce is not None:
+            reduce(grad)
         checked = [loss.detach(), grad]
-        rest = [g.reshape(-1) for g in grads[len(params):] if g is not None]
+        rest = [g.reshape(-1) for g in frozen if g is not None]
         if rest:
             checked.append(torch.cat(rest))
         ok = all_finite(checked)
-        lr = torch.full((), opt.param_groups[0]["lr"], dtype=torch.float32,
-                        device=grad.device)
-        count = state.counters[1]
-        opt.commit(ok, *opt.propose(grad, lr, count))
-        count.add_(ok.to(count.dtype))
-        state.counters[0].add_(1)
+        counts = state.counters
+        take = ok
+        k = 1 if cfg is None else cfg.grad_accumulation_steps
+        if k > 1:
+            if state.acc is None:
+                state.acc = torch.zeros_like(opt.flat)
+            n = counts[2]
+            acc = state.acc + (grad - state.acc) / (n + 1)  # optax's running mean
+            emit = n == k - 1
+            state.acc.copy_(torch.where(ok, torch.where(emit, 0.0, acc), state.acc))
+            counts[2].copy_(torch.where(ok, (n + 1) % k, n))
+            grad, take = acc, ok & emit
+        count = counts[1]
+        lr = (torch.full((), opt.param_groups[0]["lr"], dtype=torch.float32, device=grad.device)
+              if cfg is None else lr_schedule(cfg)(count))
+        opt.commit(take, *opt.propose(grad, lr, count))
+        count.add_(take.to(count.dtype))
+        counts[0].add_(1)
     return ok
+
+
+def step_metrics(metrics: Dict[str, torch.Tensor], ok: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A train step's metrics, detached, and ``skipped``: 1.0 where the
+    update was skipped (``ok``, ``apply_update``'s check, false)."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["skipped"] = (~ok).to(torch.float32)
+    return metrics
 
 
 def _train_body(state: TrainState, batch: GraphBatch, loss_fn: Callable,
@@ -447,344 +449,13 @@ def _train_body(state: TrainState, batch: GraphBatch, loss_fn: Callable,
     branchless update.  Captured while ``TRACER`` is on, its three parts
     are device spans in the graph: ``train_step.forward``,
     ``train_step.backward``, ``train_step.update``."""
-    opt = state.optimizer
     with TRACER.graph_span("train_step.forward"):
         loss, metrics = loss_fn(state.model, batch)
     with TRACER.graph_span("train_step.backward"):
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
-    with TRACER.graph_span("train_step.update"), torch.no_grad():
-        # A parameter the loss does not reach gets a zero gradient, so
-        # that weight decay and momentum still apply to it, as in optax.
-        grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
-                          for g, p in zip(grads, opt.params)])
-        ok = all_finite([loss.detach(), grad])
-        _apply_update(state, grad, cfg, ok)
-        state.counters[0].add_(1)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["skipped"] = (~ok).to(torch.float32)
-    return metrics
-
-
-# ------------------------------------------------------------ CUDA graphs
-_POOLS: Dict[torch.device, tuple] = {}
-
-
-def _pool(device: torch.device):
-    """The one CUDA-graph memory pool of this process's captured graphs on
-    ``device`` (every train step, each bucket's included, every detector's
-    deploy, the eval steps and the finetuning, classifier and grid-CNN
-    steps): they replay one at a time, so they share it.  A pool whose
-    graphs are all gone cannot take another capture, so a graph of one
-    allocation holds it for the process."""
-    if device not in _POOLS:
-        keeper = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device), torch.cuda.graph(keeper):
-            torch.zeros(1, device=device)
-        _POOLS[device] = (keeper.pool(), keeper)
-    return _POOLS[device][0]
-
-
-def launch_counters() -> List[Tuple[object, str]]:
-    """The message rounds' launch counters, as (function, attribute)."""
-    return [(FM.fused_message_pass, "launches"),
-            (FM.fused_message_pass, "launches_bf16"),
-            (FM.fused_message_pass_backward, "launches"),
-            (C.fused_message_pass_csr, "launches"),
-            (C.fused_message_pass_csr, "launches_bf16"),
-            (C.fused_message_pass_csr_backward, "launches")]
-
-
-def _read_counters() -> List[int]:
-    """The launch counters, then the collectives' calls and bytes
-    (``parallel/collectives.counts``)."""
-    return [getattr(f, a) for f, a in launch_counters()] + P.counts()
-
-
-def _add_counters(deltas: Sequence[int]) -> None:
-    n = len(launch_counters())
-    for (f, a), d in zip(launch_counters(), deltas[:n]):
-        setattr(f, a, getattr(f, a) + d)
-    P.add_counts(deltas[n:])
-
-
-TRACER.watch("launches", lambda: {f"{f.__name__}.{a}": getattr(f, a)
-                                  for f, a in launch_counters()})
-TRACER.watch("collectives", lambda: {k: (dict(v) if isinstance(v, dict) else v)
-                                     for k, v in P.STATS.items()})
-
-
-def _batch_leaves(batch) -> list:
-    """The arrays of a batch (numpy or tensors), graph fields then labels'."""
-    return ([getattr(batch.graph, f) for f in RadarGraph.__dataclass_fields__]
-            + [getattr(batch.labels, f) for f in GraphLabels.__dataclass_fields__])
-
-
-def _static_batch(inputs: list) -> GraphBatch:
-    """The batch whose fields are ``inputs``, in ``_batch_leaves`` order."""
-    names = list(RadarGraph.__dataclass_fields__)
-    return GraphBatch(
-        RadarGraph(**dict(zip(names, inputs[:len(names)]))),
-        GraphLabels(**dict(zip(GraphLabels.__dataclass_fields__, inputs[len(names):]))))
-
-
-STAGING_ALIGN = 256  # bytes: each staged leaf starts at a multiple of this
-
-
-def _on_card(a) -> bool:
-    """Whether a leaf is already device memory (copied on the device, never staged)."""
-    return bool(getattr(a, "is_cuda", False))
-
-
-def _leaf_dtype(a) -> torch.dtype:
-    return a.dtype if torch.is_tensor(a) else torch.from_numpy(np.empty(0, a.dtype)).dtype
-
-
-def _staging_layout(leaves) -> Tuple[List[Optional[int]], int]:
-    """One flat layout of the leaves that are host memory (numpy arrays,
-    CPU tensors, pinned or not): each one's byte offset, a multiple of
-    ``STAGING_ALIGN``, or None for a leaf on a card; and the layout's size
-    in bytes."""
-    offsets, end = [], 0
-    for a in leaves:
-        if _on_card(a):
-            offsets.append(None)
-        else:
-            offsets.append(end)
-            end += -(-a.nbytes // STAGING_ALIGN) * STAGING_ALIGN
-    return offsets, end
-
-
-def _leaf_views(flat: torch.Tensor, leaves, offsets) -> list:
-    """Each laid-out leaf's view of the flat byte buffer ``flat``, at its
-    offset, dtype and shape; None for a leaf off the layout."""
-    return [None if off is None else
-            flat[off:off + a.nbytes].view(_leaf_dtype(a)).view(tuple(a.shape))
-            for a, off in zip(leaves, offsets)]
-
-
-def _as_tensor(a) -> torch.Tensor:
-    return a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
-
-
-class _Staging:
-    """A captured graph's static inputs and the way a batch reaches them.
-
-    The leaves that were host memory at capture (``_staging_layout``) are
-    views of one flat device buffer; a leaf on a card has a buffer of its
-    own.  Two pinned host buffers of the same layout serve in turn, each
-    guarded by an event recorded after its copy to the card.  ``copy``
-    writes the host leaves into the turn's pinned buffer on the host (a
-    numpy array by ``np.copyto`` on the calling thread: torch's CPU copy of
-    a large array wakes its thread pool, whose threads then compete with
-    the host's waits for the card) and copies it to the card in one
-    asynchronous DMA on the current stream, then copies the other leaves
-    on the device: stream order alone keeps the DMA behind the previous
-    replay and ahead of the next, and the caller's arrays are read in full
-    before it returns.  ``wait`` blocks until the turn's pinned buffer is
-    free, the one host wait of a copy."""
-
-    def __init__(self, leaves, device: torch.device):
-        self.offsets, nbytes = _staging_layout(leaves)
-        self.flat = torch.empty(nbytes, dtype=torch.uint8, device=device)
-        self.inputs = [torch.empty(tuple(a.shape), dtype=_leaf_dtype(a), device=device)
-                       if v is None else v
-                       for a, v in zip(leaves, _leaf_views(self.flat, leaves, self.offsets))]
-        self.pinned = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
-                       for _ in range(2 if nbytes else 0)]
-        self.host = [_leaf_views(h, leaves, self.offsets) for h in self.pinned]
-        self.host_np = [[v.numpy() if isinstance(a, np.ndarray) and v is not None else None
-                         for v, a in zip(views, leaves)] for views in self.host]
-        self.done = [torch.cuda.Event() for _ in self.pinned]
-        self.turn = 0
-
-    def wait(self) -> bool:
-        """Wait until the turn's pinned buffer has left for the card;
-        whether that took a wait."""
-        if not self.done or self.done[self.turn].query():
-            return False
-        self.done[self.turn].synchronize()
-        return True
-
-    def copy(self, leaves) -> int:
-        """Copy ``leaves`` into the inputs; returns the bytes staged."""
-        staged, rest = 0, []
-        for i, a in enumerate(leaves):
-            if self.offsets[i] is None or _on_card(a):
-                rest.append((self.inputs[i], a))
-                continue
-            dst, dst_np = self.host[self.turn][i], self.host_np[self.turn][i]
-            if dst_np is not None and isinstance(a, np.ndarray):
-                np.copyto(dst_np, a, casting="unsafe")
-            else:
-                dst.copy_(_as_tensor(a))
-            staged += dst.nbytes
-        if staged:
-            self.flat.copy_(self.pinned[self.turn], non_blocking=True)
-            self.done[self.turn].record()
-            self.turn ^= 1
-        for buf, a in rest:
-            buf.copy_(_as_tensor(a))
-        return staged
-
-
-class _Captured(NamedTuple):
-    graph: torch.cuda.CUDAGraph
-    staging: _Staging           # the static input buffers and how a batch reaches them
-    outputs: Any
-    launches: List[int]         # each counter's advance per replay (_read_counters)
-    keep: Any                   # kept alive: the graph reads or writes it
-    marks: list                 # its device spans (TRACER.marking), empty untraced
-
-
-class CapturedGraphs:
-    """``body(inputs)`` on a CUDA device, where ``inputs`` is a list of
-    static device buffers, captured as one CUDA graph per key and replayed
-    (the counterpart of ``jax.jit``): ``run`` copies the arrays it is given
-    into the key's buffers, replays its graph and returns the graph's
-    outputs, which the next replay of that graph overwrites.  The arrays in
-    host memory go through pinned staging in one asynchronous DMA
-    (``_Staging``), so ``run`` returns without waiting for the card: it
-    waits only when both of the key's pinned buffers are still on their
-    way, and the caller may reuse its arrays at once.
-
-    Capture: on a side stream the body runs once eagerly (libraries,
-    constants and other first-use work) and once more under
-    ``torch.cuda.set_sync_debug_mode("error")`` — a device→host sync there
-    raises — then the tensors in ``restore`` get back their values from
-    before the two, and the body is captured into the process's one graph
-    pool (``_pool``: the process's captured graphs replay one at a time,
-    so they share it).  A capture that fails raises, with ``restore``'s
-    tensors given back their values: nothing falls back to eager work on
-    the card.
-
-    The launch counters of the message rounds, and the collectives' calls
-    and bytes (``parallel/collectives.STATS``), advance by what a replay
-    launches: the capture itself launches nothing, so its advance is taken
-    back and added at every replay.  ``warmups`` counts the eager runs
-    (``WARMUP_RUNS`` a capture), ``replays`` the graph launches.
-
-    Tracing (``utils/profiling.TRACER``): the warm-ups and the capture are
-    always spans (``captured.warmup``, ``captured.capture``).  While the
-    tracer is on, the copy of the arrays is a host and device span
-    (``captured.copy``: on the host the staging and the enqueue, on the
-    device the DMA; counters ``captured.copy_bytes``,
-    ``captured.pageable_bytes``, the bytes the caller gave in memory that
-    is not pinned, ``captured.staged_bytes``, the bytes that went through
-    the pinned staging, and ``captured.staging_waits``, the waits for a
-    pinned buffer, made before the span) and the replay one (``label``)
-    that shares its call; a graph captured then holds the body's device
-    spans (``TRACER.graph_span``), read after its replays.  Whether the
-    tracer was on is part of the key: a graph with those spans is never
-    replayed untraced, nor the reverse."""
-
-    WARMUP_RUNS = 2
-    _every: "weakref.WeakSet[CapturedGraphs]" = weakref.WeakSet()
-
-    def __init__(self):
-        self.graphs: Dict[tuple, _Captured] = {}
-        self.warmups = 0
-        self.replays = 0
-        CapturedGraphs._every.add(self)
-
-    def run(self, key: tuple, leaves: Sequence, body: Callable[[list], Any],
-            device: torch.device, restore: Sequence[torch.Tensor] = (),
-            keep: Any = None, label: str = "captured.replay") -> Any:
-        """Replay the graph of ``key`` on ``leaves`` (numpy arrays or
-        tensors), capturing ``body`` first if the key is new; ``keep`` is
-        held as long as the graph (what it reads or writes)."""
-        key = (key, TRACER.enabled)
-        entry = self.graphs.get(key)
-        if entry is None:
-            entry = self.graphs[key] = self._capture(leaves, body, device, restore, keep)
-            call = None
-        else:
-            waited = entry.staging.wait()
-            with TRACER.span("captured.copy", device) as copy:
-                staged = entry.staging.copy(leaves)
-            call = copy.call
-            if TRACER.enabled:
-                TRACER.count("captured.staged_bytes", staged)
-                TRACER.count("captured.staging_waits", int(waited))
-                TRACER.count("captured.copy_bytes", sum(b.nbytes for b in entry.staging.inputs))
-                TRACER.count("captured.pageable_bytes", sum(
-                    b.nbytes for b, a in zip(entry.staging.inputs, leaves)
-                    if not (torch.is_tensor(a) and (a.is_cuda or a.is_pinned()))))
-        with TRACER.span(label, device, call=call, marks=entry.marks):
-            entry.graph.replay()
-        _add_counters(entry.launches)
-        self.replays += 1
-        if TRACER.enabled:
-            TRACER.count("captured.traced_replays")
-        return entry.outputs
-
-    def _capture(self, leaves, body, device, restore, keep) -> _Captured:
-        staging = _Staging(leaves, device)
-        staging.copy(leaves)
-        inputs = staging.inputs
-        saved = [t.clone() for t in restore]
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        try:
-            with torch.cuda.stream(side):
-                with TRACER.once("captured.warmup"):
-                    body(inputs)  # first use
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    with TRACER.once("captured.warmup"):
-                        body(inputs)  # as it will be captured
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-        finally:  # a failed capture leaves no trace of its warm-ups either
-            current.wait_stream(side)
-            for t, v in zip(restore, saved):
-                t.copy_(v)
-        self.warmups += self.WARMUP_RUNS
-        graph = torch.cuda.CUDAGraph()
-        before = _read_counters()
-        with (TRACER.once("captured.capture"), TRACER.marking() as marks,
-              torch.cuda.graph(graph, pool=_pool(device))):
-            outputs = body(inputs)
-        launches = [a - b for a, b in zip(_read_counters(), before)]
-        _add_counters([-d for d in launches])  # the capture launched nothing
-        return _Captured(graph, staging, outputs, launches, keep, marks)
-
-
-TRACER.watch("captured_graphs", lambda: {
-    "replays": sum(c.replays for c in CapturedGraphs._every),
-    "warmups": sum(c.warmups for c in CapturedGraphs._every)})
-
-
-def shape_key(leaves) -> tuple:
-    """The shapes and dtypes of ``leaves``: part of a capture's key."""
-    return tuple((tuple(a.shape), str(a.dtype)) for a in leaves)
-
-
-class CapturedStep(CapturedGraphs):
-    """``body(state, batch)`` on a CUDA device, captured as one CUDA graph
-    per state and batch shape (and per binding of the state's tensors) and
-    replayed (``CapturedGraphs``): the batch is copied into the graph's
-    static input buffers, the graph replayed, and its metrics cloned
-    before the next replay can overwrite them.  The warm-up runs write the
-    state; it is restored before the capture.  ``leaves(batch)`` gives a
-    batch's arrays and ``rebuild(inputs)`` the batch of static buffers
-    (default: a ``GraphBatch``'s fields)."""
-
-    def __init__(self, body: Callable, leaves: Callable = None, rebuild: Callable = None):
-        super().__init__()
-        self.body = body
-        self.leaves = leaves or _batch_leaves
-        self.rebuild = rebuild or _static_batch
-
-    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        leaves = self.leaves(batch)
-        binding = tuple(t.data_ptr() for t in state.tensors())
-        outputs = self.run(
-            (id(state), binding, shape_key(leaves)), leaves,
-            lambda inputs: self.body(state, self.rebuild(inputs)), state.device,
-            restore=state.tensors(), keep=state, label="train_step.replay")
-        return {k: v.clone() for k, v in outputs.items()}
+        grads = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
+    with TRACER.graph_span("train_step.update"):
+        ok = apply_update(state, loss, grads, cfg)
+    return step_metrics(metrics, ok)
 
 
 def make_train_step(cfg: GNNConfig, mp_impl: Optional[str] = None,
@@ -867,11 +538,11 @@ def make_eval_step(cfg: GNNConfig) -> Callable:
         device = next(model.parameters()).device
         if device.type == "cpu":
             return body(model, batch_on(batch, device))
-        leaves = _batch_leaves(batch)
+        leaves = GraphBatch.leaves(batch)
         binding = tuple(p.data_ptr() for p in model.parameters())
         outputs = captured.run(
             (id(model), binding, shape_key(leaves)), leaves,
-            lambda inputs: body(model, _static_batch(inputs)), device,
+            lambda inputs: body(model, GraphBatch.from_leaves(inputs)), device,
             keep=model, label="eval_step.replay")
         return {k: v.clone() for k, v in outputs.items()}
 

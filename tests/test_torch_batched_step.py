@@ -461,6 +461,7 @@ def test_batch_leaves_and_labels_cover_every_field():
     labels, in a fixed order."""
     jcfg = JC.tiny_test_config()
     b, = _batches(jcfg, 1)
-    leaves = S._batch_leaves(b)
+    leaves = GraphBatch.leaves(b)
     assert len(leaves) == len(dataclasses.fields(RadarGraph)) + len(dataclasses.fields(GraphLabels))
     assert all(isinstance(a, np.ndarray) and a.shape[0] == jcfg.batch_size for a in leaves)
+    assert all(a is c for a, c in zip(GraphBatch.from_leaves(leaves).leaves(), leaves))

@@ -28,7 +28,8 @@ from graph_neural_network_for_radar_perception_torch.config.config import (
     GNNConfig,
     tiny_test_config,
 )
-from graph_neural_network_for_radar_perception_torch.core.graph import RadarGraph
+from graph_neural_network_for_radar_perception_torch.core import capture as CP
+from graph_neural_network_for_radar_perception_torch.core.graph import GraphBatch, RadarGraph
 from graph_neural_network_for_radar_perception_torch.data.pipeline import (
     SyntheticRadarDataset,
     pad_frame,
@@ -394,7 +395,7 @@ def test_captured_step_equals_eager_step(cuda_device, mp_impl, bf16):
     rounds = len(cfg.graph_convolution_stem_channels)
     assert step.captured.replays == 3 and len(step.captured.graphs) == 1
     # the eager steps launched 3 a round too
-    assert getattr(kernel, counter) - before == rounds * (3 + S.CapturedStep.WARMUP_RUNS + 3)
+    assert getattr(kernel, counter) - before == rounds * (3 + CP.CapturedStep.WARMUP_RUNS + 3)
     assert (cap.step, cap.updates) == (eager.step, eager.updates) == (3, 3)
     want = eager.model.state_dict()
     for k, v in cap.model.state_dict().items():
@@ -461,8 +462,8 @@ def test_captured_detector_equals_eager_deploy(cuda_device, mp_impl, from_links)
         assert d.num_clusters == k
     rounds = len(cfg.graph_convolution_stem_channels)
     assert len(det.captured.graphs) == 1 and det.captured.replays == 6
-    assert det.captured.warmups == S.CapturedGraphs.WARMUP_RUNS
-    assert kernel.launches - before == rounds * (6 + S.CapturedGraphs.WARMUP_RUNS + 3)
+    assert det.captured.warmups == CP.CapturedGraphs.WARMUP_RUNS
+    assert kernel.launches - before == rounds * (6 + CP.CapturedGraphs.WARMUP_RUNS + 3)
 
 
 def test_failed_capture_raises_and_runs_nothing_eagerly(cuda_device, monkeypatch):
@@ -470,7 +471,7 @@ def test_failed_capture_raises_and_runs_nothing_eagerly(cuda_device, monkeypatch
     (sync debug "error"): the capture raises, keeps no graph and replays
     nothing; a detector whose forward syncs raises the same from
     ``detect_frame_arrays``, with no eager result in its place."""
-    cap = S.CapturedGraphs()
+    cap = CP.CapturedGraphs()
 
     def body(inputs):
         x = inputs[0] * 2
@@ -518,7 +519,7 @@ def test_captured_finetune_equals_eager_step(cuda_device):
                                        err_msg=k)
     rounds = len(cfg.graph_convolution_stem_channels)
     assert step.captured.replays == 3 and len(step.captured.graphs) == 1
-    runs = rounds * (3 + S.CapturedStep.WARMUP_RUNS + 3)
+    runs = rounds * (3 + CP.CapturedStep.WARMUP_RUNS + 3)
     assert FM.fused_message_pass.launches - fwd == runs
     assert FM.fused_message_pass_backward.launches - bwd == runs
     assert (cap.step, cap.updates) == (eager.step, eager.updates) == (3, 3)
@@ -673,7 +674,7 @@ def test_captured_eval_step_equals_eager_and_sees_new_weights(cuda_device, mp_im
         _bitwise_or_close(got, eval_step.body(state.model, dev), eval_step.body(state.model, dev),
                           tol)
         rounds = len(cfg.graph_convolution_stem_channels)
-        assert replay == rounds * (1 + (S.CapturedGraphs.WARMUP_RUNS if i == 0 else 0))
+        assert replay == rounds * (1 + (CP.CapturedGraphs.WARMUP_RUNS if i == 0 else 0))
     assert not torch.equal(got["loss_total"], old["loss_total"])  # the new weights seen
     assert len(eval_step.captured.graphs) == 1 and eval_step.captured.replays == 4
 
@@ -777,7 +778,7 @@ def test_capture_key_separates_tracing_on_from_off(cuda_device, traced):
         traced.disable()
     cap = step.captured
     assert len(cap.graphs) == 2 and cap.replays == 4
-    assert cap.warmups == 2 * S.CapturedStep.WARMUP_RUNS
+    assert cap.warmups == 2 * CP.CapturedStep.WARMUP_RUNS
     marks = {key[1]: [m[0] for m in entry.marks] for key, entry in cap.graphs.items()}
     rounds = len(cfg.graph_convolution_stem_channels)
     assert marks[False] == []
@@ -857,7 +858,7 @@ def test_captured_grid_step_under_nccl_equals_eager_step(cuda_device, tmp_path, 
             counts, fwd = PC.counts(), FM.fused_message_pass.launches
             pre = [t.clone() for t in cap.tensors()]
             cap, m = step(cap, *args)
-            runs = 1 + (S.CapturedStep.WARMUP_RUNS if i == 0 else 0)
+            runs = 1 + (CP.CapturedStep.WARMUP_RUNS if i == 0 else 0)
             assert [b - a for a, b in zip(counts, PC.counts())] == [runs * d for d in per_replay]
             assert FM.fused_message_pass.launches - fwd == runs * rounds
             outs = []
@@ -1231,7 +1232,7 @@ def test_bf16_train_step_on_card_matches_cpu(cuda_device, mp_impl):
         out[str(device)] = {k: float(v) for k, v in m.items()}
     # On the card: one launch a round for the batch, in each of the capture's
     # warm-up runs and in the replay.
-    rounds = len(cfg.graph_convolution_stem_channels) * (S.CapturedStep.WARMUP_RUNS + 1)
+    rounds = len(cfg.graph_convolution_stem_channels) * (CP.CapturedStep.WARMUP_RUNS + 1)
     used = 1 if mp_impl == "csr" else 0
     for i, (b, a) in enumerate(zip(before, after)):
         assert a == (b[0], b[1] + (rounds if i == used else 0))
@@ -1423,7 +1424,7 @@ _BUSY_CYCLES = 100_000_000  # torch.cuda._sleep: ~60 ms of a busy card
 
 def _spoil(batch) -> None:
     """Overwrite a numpy batch in place: NaN floats, zero integers, flipped masks."""
-    for a in S._batch_leaves(batch):
+    for a in GraphBatch.leaves(batch):
         a[...] = np.nan if a.dtype.kind == "f" else (~a if a.dtype == bool else 0)
 
 
@@ -1500,13 +1501,13 @@ def test_traced_copy_counts_staged_bytes_and_waits(cuda_device, traced):
     for i in range(n):
         state, _ = step(state, batches[i % 2])
     counters = traced.drain()["counters"]
-    host = sum(a.nbytes for a in S._batch_leaves(batches[0]))
+    host = sum(a.nbytes for a in GraphBatch.leaves(batches[0]))
     assert counters["captured.staged_bytes"] == n * host
     assert counters["captured.pageable_bytes"] == n * host
     assert counters["captured.copy_bytes"] == n * host
     assert counters["captured.staging_waits"] >= 1
 
-    cap = S.CapturedGraphs()
+    cap = CP.CapturedGraphs()
     rng = np.random.default_rng(0)
     for k in range(3):
         leaves = [rng.normal(size=(5, 3)).astype(np.float32),
@@ -1594,7 +1595,7 @@ def test_traced_v2_step_times_the_attention(cuda_device, traced, monkeypatch):
         state, _ = step(state, batches[i % 3])
     out = traced.drain()
     traced.disable()
-    assert out["counters"]["gat.rounds"] == rounds * (S.CapturedStep.WARMUP_RUNS + 1)
+    assert out["counters"]["gat.rounds"] == rounds * (CP.CapturedStep.WARMUP_RUNS + 1)
     assert out["counters"]["gat.fused_rounds"] == out["counters"]["gat.rounds"]
     # no [B, E_cap, 512] f32 intermediate a round: the node projections, the
     # output, the softmax statistics and the logits' scratch [B, E_cap, 8]

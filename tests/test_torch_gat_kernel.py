@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from graph_neural_network_for_radar_perception_torch.config.config import tiny_test_config
+from graph_neural_network_for_radar_perception_torch.core import capture as CP
 from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
 from graph_neural_network_for_radar_perception_torch.models import gat as G
 from graph_neural_network_for_radar_perception_torch.models.blocks import init_parameters
@@ -285,7 +286,9 @@ def test_v2_train_step_on_card_matches_cpu(cuda_device):
         params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
         runs[str(device)] = (metrics, mom, params, GM.gat_round.launches - before)
     (m_cpu, g_cpu, p_cpu, n_cpu), (m_gpu, g_gpu, p_gpu, n_gpu) = runs["cpu"], runs["cuda"]
-    assert n_cpu == 0 and n_gpu > 0
+    # on the card one launch a round in each warm-up run of the capture and in each replay
+    rounds = len(cfg.graph_convolution_stem_channels)
+    assert n_cpu == 0 and n_gpu == rounds * (CP.CapturedStep.WARMUP_RUNS + len(batches))
     for a, b in zip(m_gpu, m_cpu):
         assert a["skipped"] == 0.0
         for k, v in b.items():

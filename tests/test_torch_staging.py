@@ -1,5 +1,5 @@
 """The flat layout through which a captured graph's host inputs reach the
-card (``train/steps._staging_layout``, ``_leaf_views``): every host leaf at
+card (``core/capture._staging_layout``, ``_leaf_views``): every host leaf at
 an offset aligned to ``STAGING_ALIGN`` bytes, none overlapping, a leaf
 already on a card left out; packed into one flat byte buffer and read back
 through the views, bit for bit."""
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from graph_neural_network_for_radar_perception_torch.train import steps as S
+from graph_neural_network_for_radar_perception_torch.core import capture as CP
 
 
 def _card_stand_in(shape, dtype):
@@ -48,25 +48,25 @@ def _bytes(a) -> bytes:
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_staging_layout_and_views_round_trip(case):
     leaves = CASES[case](np.random.default_rng(len(case)))
-    offsets, nbytes = S._staging_layout(leaves)
-    host = [not S._on_card(a) for a in leaves]
+    offsets, nbytes = CP._staging_layout(leaves)
+    host = [not CP._on_card(a) for a in leaves]
     assert [off is None for off in offsets] == [not h for h in host]
     placed = [(off, a.nbytes) for off, a in zip(offsets, leaves) if off is not None]
-    assert all(off % S.STAGING_ALIGN == 0 for off, _ in placed)
+    assert all(off % CP.STAGING_ALIGN == 0 for off, _ in placed)
     for (off, n), (nxt, _) in zip(placed, placed[1:] + [(nbytes, 0)]):
         assert off + n <= nxt  # in order, none overlapping, all inside
-    assert nbytes % S.STAGING_ALIGN == 0
+    assert nbytes % CP.STAGING_ALIGN == 0
 
     flat = torch.from_numpy(np.random.default_rng(1).integers(0, 256, nbytes, dtype=np.uint8))
-    views = S._leaf_views(flat, leaves, offsets)
+    views = CP._leaf_views(flat, leaves, offsets)
     assert [v is None for v in views] == [not h for h in host]
     for v, a in zip(views, leaves):
         if v is not None:
-            v.copy_(S._as_tensor(a))
+            v.copy_(CP._as_tensor(a))
     for v, a, off in zip(views, leaves, offsets):
         if v is None:
             continue
-        assert v.dtype == S._leaf_dtype(a) and tuple(v.shape) == tuple(a.shape)
+        assert v.dtype == CP._leaf_dtype(a) and tuple(v.shape) == tuple(a.shape)
         assert a.nbytes == 0 or v.data_ptr() == flat.data_ptr() + off  # empty: null
         assert _bytes(v) == _bytes(a)
         assert flat[off:off + a.nbytes].numpy().tobytes() == _bytes(a)

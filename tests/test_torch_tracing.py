@@ -22,9 +22,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from graph_neural_network_for_radar_perception_torch.core import capture as CP
+from graph_neural_network_for_radar_perception_torch.ops import csr_mp as CM
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
+from graph_neural_network_for_radar_perception_torch.ops import gat_mp as GM
 from graph_neural_network_for_radar_perception_torch.parallel import collectives as P
-from graph_neural_network_for_radar_perception_torch.train import steps as S
 from graph_neural_network_for_radar_perception_torch.utils import profiling as PR
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -96,7 +98,7 @@ def fake_card(monkeypatch):
             CUDAGraph=Graph, graph=lambda g, pool=None: contextlib.nullcontext(),
             is_current_stream_capturing=lambda: True).items():
         monkeypatch.setattr(cuda, name, value)
-    monkeypatch.setattr(S, "_pool", lambda device: None)
+    monkeypatch.setattr(CP, "_pool", lambda device: None)
 
 
 def _names(spans, where=None):
@@ -152,7 +154,12 @@ def test_drain_reads_the_existing_counters_in_place(global_tracer, monkeypatch):
     got = global_tracer.drain()["counters"]
     assert got["launches"]["fused_message_pass.launches"] == 7
     assert got["launches"]["fused_message_pass_backward.launches"] == 3
-    assert got["launches"] == {f"{f.__name__}.{a}": getattr(f, a) for f, a in S.launch_counters()}
+    assert got["launches"] == {f"{f.__name__}.{a}": getattr(f, a) for f, a in (
+        (FM.fused_message_pass, "launches"), (FM.fused_message_pass, "launches_bf16"),
+        (FM.fused_message_pass_backward, "launches"), (CM.fused_message_pass_csr, "launches"),
+        (CM.fused_message_pass_csr, "launches_bf16"),
+        (CM.fused_message_pass_csr_backward, "launches"), (GM.gat_round, "launches"),
+        (GM.gat_round, "backward_launches"))}
     assert got["collectives"] == keep and P.STATS == keep
     assert (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches) == (7, 3)
     assert set(got["captured_graphs"]) == {"replays", "warmups"}
@@ -243,7 +250,7 @@ def test_captured_graphs_spans_counters_and_keys_on_a_stand_in_card(global_trace
     (another capture, with the body's graph spans), the copy as a span
     with its bytes (pageable: numpy), the replay sharing its call; off
     again, the first graph."""
-    cap = S.CapturedGraphs()
+    cap = CP.CapturedGraphs()
     leaves = [np.arange(6, dtype=np.float32).reshape(2, 3), np.ones(4, np.int32)]
 
     def body(inputs):
@@ -262,7 +269,7 @@ def test_captured_graphs_spans_counters_and_keys_on_a_stand_in_card(global_trace
     for _ in range(2):
         cap.run("k", leaves, body, cpu, label="train_step.replay")
     out = global_tracer.drain()
-    assert len(cap.graphs) == 2 and cap.warmups == 2 * S.CapturedGraphs.WARMUP_RUNS
+    assert len(cap.graphs) == 2 and cap.warmups == 2 * CP.CapturedGraphs.WARMUP_RUNS
     traced = cap.graphs[("k", True)]
     assert [m[0] for m in traced.marks] == ["train_step.forward"]
     assert _names(out["spans"]) == ["captured.warmup", "captured.warmup", "captured.capture",
@@ -277,6 +284,52 @@ def test_captured_graphs_spans_counters_and_keys_on_a_stand_in_card(global_trace
     cap.run("k", leaves, body, cpu, label="train_step.replay")
     assert len(cap.graphs) == 2 and cap.replays == 5
     assert _names(global_tracer.drain()["spans"]) == []
+
+
+class _Tally:
+    """A counter source of ints: ``read`` and ``add`` for ``register_counters``."""
+
+    def __init__(self, n: int):
+        self.values = [0] * n
+
+    def read(self):
+        return list(self.values)
+
+    def add(self, deltas):
+        self.values = [v + d for v, d in zip(self.values, deltas)]
+
+
+def test_registered_counters_advance_once_a_replay_on_a_stand_in_card(fake_card, monkeypatch):
+    """A source registered with ``core/capture``: the two warm-ups advance
+    it, the capture's own advance is taken back, and each replay adds what
+    the capture recorded.  A source registered while the capture ran counts
+    from zero."""
+    monkeypatch.setattr(CP, "_SOURCES", list(CP._SOURCES))
+    tally, late = _Tally(2), _Tally(1)
+    CP.register_counters(["test.calls", "test.bytes"], tally.read, tally.add)
+    runs = []
+
+    def body(inputs):
+        runs.append(len(runs))
+        tally.add([1, 8])
+        if len(runs) == CP.CapturedGraphs.WARMUP_RUNS + 1:  # the capture
+            CP.register_counters(["test.late"], late.read, late.add)
+            late.add([3])
+        return {"y": inputs[0] * 2}
+
+    cap = CP.CapturedGraphs()
+    leaves = [np.arange(6, dtype=np.float32)]
+    cap.run("k", leaves, body, torch.device("cpu"))
+    warm = CP.CapturedGraphs.WARMUP_RUNS
+    assert len(runs) == warm + 1 and cap.warmups == warm and cap.replays == 1
+    assert tally.values == [warm + 1, 8 * (warm + 1)] and late.values == [3]
+    entry = next(iter(cap.graphs.values()))
+    assert {k: v for k, v in entry.launches.items() if v} == {
+        "test.calls": 1, "test.bytes": 8, "test.late": 3}
+    for _ in range(3):
+        cap.run("k", leaves, body, torch.device("cpu"))
+    assert len(runs) == warm + 1 and cap.replays == 4
+    assert tally.values == [warm + 4, 8 * (warm + 4)] and late.values == [12]
 
 
 # ------------------------------------------------------------ the readers
@@ -389,14 +442,14 @@ def test_captured_graphs_stage_host_leaves_on_a_stand_in_card(global_tracer, fak
     ``captured.pageable_bytes``."""
     rng = np.random.default_rng(3)
     card_leaf = torch.arange(3, dtype=torch.float32)
-    monkeypatch.setattr(S, "_on_card", lambda a: a is card_leaf)
+    monkeypatch.setattr(CP, "_on_card", lambda a: a is card_leaf)
 
     def batch():
         return [rng.normal(size=(2, 3)).astype(np.float32), card_leaf,
                 rng.integers(0, 9, (4,), dtype=np.int32), rng.random(5) < 0.5,
                 torch.from_numpy(rng.normal(size=(3,)))]
 
-    cap = S.CapturedGraphs()
+    cap = CP.CapturedGraphs()
     global_tracer.enable()
     cap.run("k", batch(), lambda inputs: {"y": inputs[0] * 2}, torch.device("cpu"))
     entry = next(iter(cap.graphs.values()))
@@ -409,7 +462,7 @@ def test_captured_graphs_stage_host_leaves_on_a_stand_in_card(global_tracer, fak
     calls = 4
     for _ in range(calls):
         leaves = batch()
-        want = [S._as_tensor(a).clone() for a in leaves]
+        want = [CP._as_tensor(a).clone() for a in leaves]
         spans_before = len(global_tracer._spans)
         cap.run("k", leaves, lambda inputs: {"y": inputs[0] * 2}, torch.device("cpu"))
         assert global_tracer._spans[spans_before]["name"] == "captured.copy"
