@@ -42,6 +42,13 @@ Phases, each reported on its own line:
    error), out = bias without a kept edge, two launches bitwise equal; the
    launches of captured ``RadarGNNv2`` train steps; at B = 1 and B = 8 each
    C call's time, device kernels and bound beside the plain path's times;
+5c. [kernel-norm] channel norm + activation as one kernel pair
+   (``ops/norms.channel_norm_act``) at B = 8 at the edge encoder's shape
+   [8, 10240, 128] and a node MLP's [8, 768, 64]: y, dx, dgamma and dbeta
+   against ``channel_norm`` + ``F.leaky_relu`` in float64 (within twice the
+   plain f32 path's error), two launches bitwise equal; the launches of
+   captured ``RadarGNN`` and ``RadarGNNv2`` train steps (29 and 22 sites a
+   run); each C call's time beside its byte bound and the plain chain's;
 6. [deploy] drive the deploy path — ``FrameDetector(GNNConfig(), ...)``, the
    shipped widths with random weights from a seeded ``torch.Generator`` —
    over synthetic frames at the default capacities, deploy and softmax one
@@ -204,6 +211,7 @@ nothing of JAX.
     python3 chip_smoke.py --phase kernel-csr-bwd
     python3 chip_smoke.py --phase kernel-csr-bwd-timing
     python3 chip_smoke.py --phase kernel-gat
+    python3 chip_smoke.py --phase kernel-norm
     python3 chip_smoke.py --phase checkpoint
     python3 chip_smoke.py --phase data-plane
     python3 chip_smoke.py --phase eval        # also variants, finetune,
@@ -216,7 +224,8 @@ nothing of JAX.
 
 build the libraries a phase needs and run [sass], phase 3 (the fused
 backward), phase 5 (the CSR backward), phase 5b (the GATv2 round's
-kernel pair, its two rows), phase 14 (the checkpoint), phase 15
+kernel pair, its two rows), phase 5c (channel norm + activation, its two
+rows), phase 14 (the checkpoint), phase 15
 (the data plane) or one of phases 17-24 (21b included) alone, or only a
 timing (both forwards' C
 calls and wrappers, f32 and bf16, with the digests of agg; a backward's C
@@ -359,6 +368,14 @@ SWEEP_S = 420                 # [sweep]: the three sizes' limit
 # other orders, and a receiver of many edges amplifies its inputs' rounding).
 GAT_ATOL = 2e-5
 GAT_TRAIN_STEPS = 3           # [kernel-gat]: captured RadarGNNv2 train steps at batch 8
+# [kernel-norm]: the channel norm + activation pair against the plain path in
+# float64, each tensor within twice the plain f32 path's error plus NORM_ATOL
+# of its scale (tests/test_torch_norm_act.py's rule: y's and dx's largest
+# element, dgamma's and dbeta's root sum of their terms' squares); its shapes
+# at B = 8: the edge encoder's and a node MLP's (knn.train's rows).
+NORM_ATOL = 1e-6
+NORM_SHAPES = {"edges": (8, 10240, 128), "nodes": (8, 768, 64)}
+NORM_TRAIN_STEPS = 3          # [kernel-norm]: captured train steps of each model at batch 8
 
 
 def log(msg: str) -> None:
@@ -1338,6 +1355,179 @@ def phase_kernel_gat(torch, _=None):
     fwd_row = row("gat_round", "fwd", "plain_fwd_ms", names[:1])
     fwd_row["wrapper_ms"], fwd_row["b8_wrapper_ms"] = one["route_ms"], eight["route_ms"]
     return fwd_row, row("gat_round_backward", "bwd", "plain_bwd_ms", names[1:])
+
+
+def phase_kernel_norm(torch, _=None):
+    """Phase 5c: channel norm + activation as one kernel pair
+    (``ops/norms.channel_norm_act``: ``norm_act_forward``,
+    ``norm_act_backward``) at NORM_SHAPES, x N(0.5, 3), gamma 1.3, beta
+    -0.2, the leaky ReLU's slope: y, dx, dgamma and dbeta against
+    ``channel_norm`` + ``F.leaky_relu`` in f32 and in float64 on the card
+    (within twice the plain f32 path's error plus NORM_ATOL of the tensor's
+    scale: NORM_ATOL's comment), two launches bitwise equal.  Then the
+    launches of NORM_TRAIN_STEPS captured train steps of ``RadarGNN`` and of
+    ``RadarGNNv2`` at batch 8 (29 and 22 sites a run: each of the
+    capture's warm-ups and each replay), and at each shape each C call's
+    time (CUDA events, and replayed from a CUDA graph: no host launch), its
+    device kernels, its bound (bytes: x in and y out forward, x and dy in
+    and dx out backward, 8 bytes a row of statistics) and the plain chain's
+    forward and backward.  Returns the pair's two table rows."""
+    import torch.nn.functional as F
+
+    from graph_neural_network_for_radar_perception_torch.config.config import GNNConfig
+    from graph_neural_network_for_radar_perception_torch.core import capture as CP
+    from graph_neural_network_for_radar_perception_torch.data.pipeline import SyntheticRadarDataset
+    from graph_neural_network_for_radar_perception_torch.models.blocks import LEAKY_SLOPE
+    from graph_neural_network_for_radar_perception_torch.models.gat import RadarGNNv2
+    from graph_neural_network_for_radar_perception_torch.ops import norms as N
+    from graph_neural_network_for_radar_perception_torch.train import steps as S
+
+    dev = torch.device("cuda")
+    slope, eps = LEAKY_SLOPE, N.EPS
+    gamma = torch.tensor([1.3], device=dev)
+    beta = torch.tensor([-0.2], device=dev)
+
+    def plain(x, g, b):
+        return F.leaky_relu(N.channel_norm(x, g, b), slope)
+
+    def pair(x, g, b):
+        return N.channel_norm_act(x, g, b, slope)
+
+    def grads(fn, dtype, x, dy):
+        leaves = [t.to(dtype).clone().requires_grad_() for t in (x, gamma, beta)]
+        y = fn(*leaves)
+        return [y.detach()] + list(torch.autograd.grad(y, leaves, dy.to(dtype)))
+
+    def kernels_of(fn, count: int) -> list:
+        return device_kernels(lambda: [fn() for _ in range(3)])[-count:]
+
+    worst, timing = {}, {}
+    for tag, shape in NORM_SHAPES.items():
+        gen = torch.Generator(dev).manual_seed(len(tag))
+        x = torch.randn(shape, device=dev, generator=gen) * 3.0 + 0.5
+        dy = torch.randn(shape, device=dev, generator=gen)
+        got, again = grads(pair, torch.float32, x, dy), grads(pair, torch.float32, x, dy)
+        f32, ref = grads(plain, torch.float32, x, dy), grads(plain, torch.float64, x, dy)
+        torch.cuda.synchronize()
+        x64, dy64 = x.double(), dy.double()
+        dev64 = x64 - x64.mean(-1, keepdim=True)
+        z64 = dev64 / ((dev64.square().sum(-1, keepdim=True) / (shape[-1] - 1)).sqrt() + eps)
+        scales = [float(ref[0].abs().max()), float(ref[1].abs().max()),
+                  float((dy64 * z64).square().sum().sqrt()), float(dy64.square().sum().sqrt())]
+        del x64, dy64, dev64, z64
+        for name, a, c, p, want, scale in zip(("y", "dx", "dgamma", "dbeta"), got, again, f32,
+                                              ref, scales):
+            err = float((a.double() - want).abs().max())
+            err_plain = float((p.double() - want).abs().max())
+            worst[f"{tag}.{name}"] = [err, err_plain, scale]
+            if not torch.isfinite(a).all() or err > 2 * err_plain + NORM_ATOL * scale:
+                raise AssertionError(f"[kernel-norm] {tag} {name}: kernel error {err:.3e} over "
+                                     f"twice the plain f32 path's ({err_plain:.3e}) + "
+                                     f"{NORM_ATOL} x {scale:.3e}")
+            if not torch.equal(a, c):
+                raise AssertionError(f"[kernel-norm] {tag} {name}: two launches differ")
+        del again, f32, ref
+        y, stats = N._forward(x, gamma, beta, slope, eps)
+
+        def fwd():
+            return N._forward(x, gamma, beta, slope, eps)
+
+        def bwd():
+            return N._backward(x, dy, gamma, beta, stats, slope, eps)
+
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        plain_y = plain(*leaves)
+        rows, d = x.numel() // shape[-1], shape[-1]
+        res = {"fwd_ms": event_ms(fwd), "bwd_ms": event_ms(bwd),
+               "fwd_graph_ms": graph_ms(fwd), "bwd_graph_ms": graph_ms(bwd)}
+        with torch.no_grad():
+            res["plain_fwd_ms"] = event_ms(lambda: plain(x, gamma, beta))
+        res["plain_bwd_ms"] = event_ms(lambda: torch.autograd.grad(
+            plain_y, leaves, dy, retain_graph=True))
+        res["fwd_kernels"], res["bwd_kernels"] = kernels_of(fwd, 1), kernels_of(bwd, 2)
+        res["plain_kernels"] = [len(device_kernels(lambda: plain(x, gamma, beta))),
+                                len(device_kernels(lambda: torch.autograd.grad(
+                                    plain_y, leaves, dy, retain_graph=True)))]
+        for key, passes in (("fwd", 2), ("bwd", 3)):
+            nbytes = 4 * passes * rows * d + 8 * rows
+            res[key + "_bound"] = _bound(0.0, nbytes)
+            res[key + "_work"] = [0, nbytes]
+        res["shape"] = list(shape)
+        timing[tag] = res
+        log(f"[kernel-norm] {tag} {list(shape)}: norm_act_forward {res['fwd_ms'] * 1e3:.2f} us "
+            f"({res['fwd_graph_ms'] * 1e3:.2f} replayed; bound "
+            f"{res['fwd_bound']['b8_bound_ms'] * 1e3:.2f}), norm_act_backward "
+            f"{res['bwd_ms'] * 1e3:.2f} us ({res['bwd_graph_ms'] * 1e3:.2f} replayed; bound "
+            f"{res['bwd_bound']['b8_bound_ms'] * 1e3:.2f}); plain chain forward "
+            f"{res['plain_fwd_ms'] * 1e3:.2f} us, backward {res['plain_bwd_ms'] * 1e3:.2f} us "
+            f"({res['plain_kernels'][0]} and {res['plain_kernels'][1]} kernels); errors "
+            f"[kernel, plain f32, largest] "
+            + json.dumps({k: v for k, v in worst.items() if k.startswith(tag)})
+            + "; device kernels (us): forward "
+            + "; ".join(f"{k} {us:.2f}" for k, us in res["fwd_kernels"]) + "; backward "
+            + "; ".join(f"{k} {us:.2f}" for k, us in res["bwd_kernels"]))
+        del x, dy, y, stats, leaves, plain_y
+
+    # The main path: captured train steps (GNNConfig, batch 8) of each model.
+    cfg = GNNConfig(batch_size=BATCH)
+    batch = next(SyntheticRadarDataset(cfg, seed=0, num_objects=(2, 12))
+                 .packed_batches(BATCH))
+    launches = {}
+    for path, sites, kw in (("train (captured)", 29, {}),
+                            ("train (v2, captured)", 22, {"model_cls": RadarGNNv2})):
+        state = S.create_train_state(cfg, torch.Generator().manual_seed(0), device=dev, **kw)
+        step = S.make_train_step(cfg)
+        before = (N.channel_norm_act.launches, N.channel_norm_act.backward_launches)
+        for _ in range(NORM_TRAIN_STEPS):
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        got = (N.channel_norm_act.launches - before[0],
+               N.channel_norm_act.backward_launches - before[1])
+        want = sites * (CP.CapturedStep.WARMUP_RUNS + NORM_TRAIN_STEPS)
+        log(f"[kernel-norm] {NORM_TRAIN_STEPS} steps, {path}: norm_act_forward {got[0]}, "
+            f"norm_act_backward {got[1]} (expected {want} each: {sites} sites in each of the "
+            f"capture's warm-ups and each replay); loss_total "
+            f"{float(metrics['loss_total']):.6f}, skipped {float(metrics['skipped'])}")
+        if got != (want, want) or float(metrics["skipped"]) or not all(
+                bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"[kernel-norm] {path}: the step did not run the pair at "
+                                 "every site, or its metrics are not finite")
+        launches[path] = got
+        del state, step
+
+    def row(name, key, idx, errors):
+        edges, nodes = timing["edges"], timing["nodes"]
+        by_path = {p: v[idx] for p, v in launches.items()}
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "graph_neural_network_for_radar_perception_torch/csrc/norm_act.cu",
+            "replaces": None,
+            "plain": "graph_neural_network_for_radar_perception_torch/ops/norms.py "
+                     "channel_norm + F.leaky_relu",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": {k: v[0] for k, v in worst.items() if k.split(".")[1] in errors},
+            "ms": nodes[key + "_ms"],
+            "graph_ms": nodes[key + "_graph_ms"],
+            "plain_ms": nodes["plain_" + key + "_ms"],
+            "device_kernels_us": nodes[key + "_kernels"],
+            "bound_ms": nodes[key + "_bound"]["b8_bound_ms"],
+            "bound_by": "bytes",
+            "shape": nodes["shape"],
+            "b8_ms": edges[key + "_ms"],
+            "b8_graph_ms": edges[key + "_graph_ms"],
+            "b8_plain_ms": edges["plain_" + key + "_ms"],
+            "b8_device_kernels_us": edges[key + "_kernels"],
+            "b8_work": edges[key + "_work"],
+            "b8_shape": edges["shape"],
+            **edges[key + "_bound"],
+            "plain_kernels": nodes["plain_kernels"][idx],
+            "library_ms": None,
+        }
+
+    return (row("channel_norm_act", "fwd", 0, ("y",)),
+            row("channel_norm_act_backward", "bwd", 1, ("dx", "dgamma", "dbeta")))
 
 
 BATCH = 8          # graphs a launch: [batched] and the train phases' GNNConfig().batch_size
@@ -4465,6 +4655,7 @@ def main(argv) -> int:
               "kernel-csr-bwd": (phase_kernel_csr_bwd, "csr_mp"),
               "kernel-csr-bwd-timing": (time_csr_bwd, "csr_mp"),
               "kernel-gat": (phase_kernel_gat, "gat_mp"),
+              "kernel-norm": (phase_kernel_norm, "norm_act", "fused_mp", "gat_mp"),
               "checkpoint": (phase_checkpoint, "fused_mp"),
               "data-plane": (phase_data_plane, "fused_mp"),
               "eval": (phase_eval, "fused_mp"),
@@ -4488,6 +4679,7 @@ def main(argv) -> int:
     from graph_neural_network_for_radar_perception_torch.ops import csr_mp as C
     from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
     from graph_neural_network_for_radar_perception_torch.ops import gat_mp as GM
+    from graph_neural_network_for_radar_perception_torch.ops import norms as N
     from graph_neural_network_for_radar_perception_torch.scripts import gather_ablation as GA
     from graph_neural_network_for_radar_perception_torch.scripts import microbench_gather as MB
 
@@ -4499,7 +4691,7 @@ def main(argv) -> int:
 
     if argv:  # one phase or timing alone
         phase, *libs = phases[argv[1]]
-        module = FM if libs[0] == "fused_mp" else C
+        module = FM if "fused_mp" in libs else C
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=len(libs)) as pool:
             list(pool.map(_build.build, libs))
@@ -4516,7 +4708,7 @@ def main(argv) -> int:
 
     # One nvcc per source and the host compiler for the native graph
     # builder, all started together (each build is a process).
-    sources = ("fused_mp", "csr_mp", "microbench_gather", "gat_mp")
+    sources = ("fused_mp", "csr_mp", "microbench_gather", "gat_mp", "norm_act")
     with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
         floor_lib = pool.submit(GA.build, "empty")
         native = pool.submit(timed_host_build)
@@ -4527,10 +4719,12 @@ def main(argv) -> int:
     C._kernel(), C._kernel(True), C._bwd_kernel()
     MB._kernels()
     GM._forward_kernel(), GM._backward_kernel()
+    N._forward_kernel(), N._backward_kernel()
     log(f"[build] fused_mp (fused_mp_forward, fused_mp_forward_bf16, "
         f"fused_mp_backward), csr_mp (csr_mp_forward, csr_mp_forward_bf16, "
         f"csr_mp_backward), microbench_gather (gather_rows, scatter_add_rows), "
         f"gat_mp (gat_mp_forward, gat_mp_backward), "
+        f"norm_act (norm_act_forward, norm_act_backward), "
         f"the gather's empty variant and the native graph builder "
         f"({_build.host_compiler()}, {native_s:.1f} s of it), in parallel: "
         f"{time.perf_counter() - t0:.1f} s -> "
@@ -4542,6 +4736,7 @@ def main(argv) -> int:
     csr_row = phase_kernel_csr(torch, C)
     csr_bwd_row = phase_kernel_csr_bwd(torch, C)
     gat_row, gat_bwd_row = phase_kernel_gat(torch)
+    norm_row, norm_bwd_row = phase_kernel_norm(torch)
     batched = phase_batched(torch, FM, C)
     deploy_launches = phase_deploy(torch, FM)
     train_fwd, train_bwd, f32_metrics = phase_train(torch, FM)
@@ -4608,7 +4803,7 @@ def main(argv) -> int:
         row["launches_by_path"] = {"microbenchmark": row["launches"]}
     log(json.dumps({"kernels": [fwd_row, bwd_row, csr_row, csr_bwd_row, bf16_row,
                                 csr_bf16_row, gather_row, scatter_row, gat_row,
-                                gat_bwd_row]}))
+                                gat_bwd_row, norm_row, norm_bwd_row]}))
     log(card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -122,8 +122,8 @@ class ScalarNorm(nn.Module):
             self.beta.fill_(0.0)
 
     def forward(self, x, mask=None):
-        if self.norm_layer == "channel_normalization":
-            return N.channel_norm(x, self.gamma, self.beta)
+        if self.norm_layer == "channel_normalization":  # the pair, no activation
+            return N.channel_norm_act(x, self.gamma, self.beta, 1.0)
         if self.norm_layer == "layer_normalization":
             return N.layer_norm(x, self.gamma, self.beta, mask)
         return N.group_norm(x, self.gamma, self.beta, self.num_groups, mask)
@@ -140,7 +140,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class FFNBlock(nn.Module):
-    """Linear → [norm] → activation (common.py:185-205)."""
+    """Linear → [norm] → activation (common.py:185-205).  A channel norm
+    followed by leaky ReLU or ReLU is one ``ops.norms.channel_norm_act``
+    (``fused_slope``: the activation's slope); with another activation the
+    norm's own call, then the activation."""
 
     def __init__(self, in_features, features, activation, norm_layer=None,
                  num_groups=None):
@@ -150,9 +153,13 @@ class FFNBlock(nn.Module):
             None if norm_layer is None else ScalarNorm(norm_layer, num_groups)
         )
         self.act = activation_fn(activation)
+        self.fused_slope = ({"leakyrelu": LEAKY_SLOPE, "relu": 0.0}.get(activation)
+                            if norm_layer == "channel_normalization" else None)
 
     def forward(self, x, mask=None):
         x = self.linear(x)
+        if self.fused_slope is not None:
+            return N.channel_norm_act(x, self.norm.gamma, self.norm.beta, self.fused_slope)
         if self.norm is not None:
             x = self.norm(x, mask)
         return self.act(x)

@@ -13,15 +13,27 @@ With padded static shapes, layer/group statistics exclude masked rows.
 A batch of graphs (x [B, N, D], mask [B, N]) takes each graph's own
 statistics, as the JAX package's vmapped norms do.
 ``torch.nn.LayerNorm`` / ``GroupNorm`` are not these functions.
+
+``channel_norm_act`` is a channel norm and the leaky ReLU after it (ReLU at
+slope 0, no activation at slope 1) as one differentiable function: on a
+CUDA tensor the kernel pair of ``csrc/norm_act.cu`` (one launch forward,
+two backward), on the CPU ``channel_norm`` and ``F.leaky_relu``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from ..core.capture import count_launches
+from ._build import load
 
 EPS = 1e-5  # reference modules/neural_net/constants.py:9
+MAX_WIDTH = 1024  # the kernel pair's widest row (csrc/norm_act.cu)
 
 
 def _bessel_std(sum_x, sum_x2, count):
@@ -92,3 +104,137 @@ def group_norm(
         )
     out = gamma * ((xg - mean) / (std + eps)) + beta
     return out.reshape(x.shape)
+
+
+# ------------------------------------------------- channel norm + activation
+def _entry(name: str, argtypes, restype=ctypes.c_int):
+    fn = getattr(load("norm_act"), name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_kernel():
+    p, f = ctypes.c_void_p, ctypes.c_float
+    return _entry("norm_act_forward",
+                  [p, p, p, f, f, p, p, ctypes.c_longlong, ctypes.c_int, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_kernel():
+    p, f = ctypes.c_void_p, ctypes.c_float
+    return _entry("norm_act_backward",
+                  [p] * 5 + [f, f] + [p] * 3 + [ctypes.c_longlong, ctypes.c_int, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_blocks(rows: int, d: int, device) -> int:
+    """The partials of a backward over rows x d on ``device`` (asked once)."""
+    fn = _entry("norm_act_backward_blocks", [ctypes.c_longlong, ctypes.c_int])
+    with torch.cuda.device(device):
+        blocks = fn(rows, d)
+    if blocks < 0:
+        raise RuntimeError(f"norm_act_backward_blocks failed: cudaError_t {-blocks}")
+    return blocks
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (a copy if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(x, gamma, beta) -> None:
+    """What the kernel pair takes: f32 on one card, the last axis a
+    multiple of 4 from 4 to ``MAX_WIDTH``, scalar γ and β."""
+    d = x.shape[-1]
+    if d % 4 or not 4 <= d <= MAX_WIDTH:
+        raise ValueError(f"channel_norm_act: width {d}; the kernel pair takes a multiple "
+                         f"of 4 from 4 to {MAX_WIDTH}")
+    if x.device.type != "cuda":
+        raise ValueError(f"channel_norm_act: no kernel for device {x.device}")
+    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"channel_norm_act: {name} is {t.dtype} on {t.device}, "
+                             f"expected float32 on {x.device}")
+    if gamma.numel() != 1 or beta.numel() != 1:
+        raise ValueError("channel_norm_act: gamma and beta are scalars")
+
+
+def _forward(x, gamma, beta, slope, eps):
+    """y and each row's (μ, 1/(σ+ε)) [rows, 2] over the rows of x (every
+    axis but the last): one launch."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    y = torch.empty_like(x)
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _forward_kernel()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), slope, eps,
+                               y.data_ptr(), stats.data_ptr(), rows, d, _stream())
+    if rc != 0:
+        raise RuntimeError(f"norm_act_forward failed: cudaError_t {rc}")
+    channel_norm_act.launches += 1
+    return y, stats
+
+
+def _backward(x, g, gamma, beta, stats, slope, eps):
+    """(dx, [dγ, dβ]) for the cotangent g of y: two launches."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    emp = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    dx, dgb = torch.empty_like(x), emp(2)
+    partials = emp(max(_backward_blocks(rows, d, x.device), 1), 2)
+    with torch.cuda.device(x.device):
+        rc = _backward_kernel()(x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                stats.data_ptr(), slope, eps, dx.data_ptr(),
+                                partials.data_ptr(), dgb.data_ptr(), rows, d, _stream())
+    if rc != 0:
+        raise RuntimeError(f"norm_act_backward failed: cudaError_t {rc}")
+    channel_norm_act.backward_launches += 1
+    return dx, dgb
+
+
+class _ChannelNormAct(torch.autograd.Function):
+    """Autograd node of the kernel pair: the forward saves x and each row's
+    statistics; the backward recomputes the rest from them."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, slope, eps):
+        y, stats = _forward(x, gamma, beta, slope, eps)
+        ctx.save_for_backward(x, gamma, beta, stats)
+        ctx.slope, ctx.eps = slope, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, stats = ctx.saved_tensors
+        # a cotangent may come strided or broadcast
+        dx, dgb = _backward(x, _aligned(g), gamma, beta, stats, ctx.slope, ctx.eps)
+        return dx, dgb[0:1].view_as(gamma), dgb[1:2].view_as(beta), None, None
+
+
+def channel_norm_act(x: torch.Tensor, gamma, beta, slope: float,
+                     eps: float = EPS) -> torch.Tensor:
+    """``F.leaky_relu(channel_norm(x, gamma, beta), slope)``, differentiable:
+    slope 0 is ReLU, slope 1 no activation.  On a CPU tensor the plain
+    functions themselves; on a CUDA tensor the kernel pair, or a
+    ``ValueError`` for what it does not take (``_check``).
+    ``channel_norm_act.launches`` and ``.backward_launches`` count the C
+    calls."""
+    if x.device.type == "cpu":
+        y = channel_norm(x, gamma, beta, eps)
+        if slope == 1.0:
+            return y
+        return F.relu(y) if slope == 0.0 else F.leaky_relu(y, slope)
+    _check(x, gamma, beta)
+    return _ChannelNormAct.apply(_aligned(x), gamma, beta, float(slope), float(eps))
+
+
+channel_norm_act.launches = 0
+channel_norm_act.backward_launches = 0
+# A replay of a captured graph advances them by what its capture launched.
+count_launches((channel_norm_act, "launches"), (channel_norm_act, "backward_launches"))

@@ -26,6 +26,7 @@ from graph_neural_network_for_radar_perception_torch.core import capture as CP
 from graph_neural_network_for_radar_perception_torch.ops import csr_mp as CM
 from graph_neural_network_for_radar_perception_torch.ops import fused_mp as FM
 from graph_neural_network_for_radar_perception_torch.ops import gat_mp as GM
+from graph_neural_network_for_radar_perception_torch.ops import norms as NM
 from graph_neural_network_for_radar_perception_torch.parallel import collectives as P
 from graph_neural_network_for_radar_perception_torch.utils import profiling as PR
 
@@ -159,7 +160,8 @@ def test_drain_reads_the_existing_counters_in_place(global_tracer, monkeypatch):
         (FM.fused_message_pass_backward, "launches"), (CM.fused_message_pass_csr, "launches"),
         (CM.fused_message_pass_csr, "launches_bf16"),
         (CM.fused_message_pass_csr_backward, "launches"), (GM.gat_round, "launches"),
-        (GM.gat_round, "backward_launches"))}
+        (GM.gat_round, "backward_launches"), (NM.channel_norm_act, "launches"),
+        (NM.channel_norm_act, "backward_launches"))}
     assert got["collectives"] == keep and P.STATS == keep
     assert (FM.fused_message_pass.launches, FM.fused_message_pass_backward.launches) == (7, 3)
     assert set(got["captured_graphs"]) == {"replays", "warmups"}
